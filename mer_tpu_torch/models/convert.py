@@ -1,0 +1,106 @@
+"""Weights across: the JAX package's param trees and reference checkpoints.
+
+:func:`state_dict_from_jax` turns a ``mer_tpu`` M2FNet param tree, given as
+nested dicts of numpy arrays, into this port's ``state_dict`` (the reference
+torch layout of ``mer_tpu/models/torch_export.py``). Both encoder layouts are
+read: unrolled ``layers_{i}`` and scan-stacked ``layers_scan/layer`` with a
+leading layer axis, unstacked here in numpy.
+:func:`load_reference_checkpoint` reads ``torch.save({'epoch',
+'model_state_dict'})`` files (reference src/train.py:163-168).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _first_leaf(tree: Mapping):
+    for v in tree.values():
+        return _first_leaf(v) if isinstance(v, Mapping) else v
+    raise ValueError("empty param tree")
+
+
+def _unstack(tree: Mapping) -> list[dict]:
+    """Split a param tree with a leading layer axis into per-layer trees."""
+
+    def take(node: Mapping, i: int) -> dict:
+        return {k: take(v, i) if isinstance(v, Mapping) else _np(v)[i] for k, v in node.items()}
+
+    return [take(tree, i) for i in range(np.shape(_first_leaf(tree))[0])]
+
+
+def _linear(node: Mapping, prefix: str, out: dict) -> None:
+    out[f"{prefix}weight"] = _np(node["kernel"]).T
+    out[f"{prefix}bias"] = _np(node["bias"])
+
+
+def _layernorm(node: Mapping, prefix: str, out: dict) -> None:
+    out[f"{prefix}weight"] = _np(node["scale"])
+    out[f"{prefix}bias"] = _np(node["bias"])
+
+
+def _mha(node: Mapping, prefix: str, out: dict) -> None:
+    proj = ("q_proj", "k_proj", "v_proj")
+    out[f"{prefix}in_proj_weight"] = np.concatenate([_np(node[p]["kernel"]).T for p in proj], axis=0)
+    out[f"{prefix}in_proj_bias"] = np.concatenate([_np(node[p]["bias"]) for p in proj], axis=0)
+    _linear(node["out_proj"], f"{prefix}out_proj.", out)
+
+
+def _encoder(node: Mapping, prefix: str, out: dict) -> None:
+    if "layers_scan" in node:
+        layers = _unstack(node["layers_scan"]["layer"])
+    else:
+        layers = [node[f"layers_{i}"] for i in range(sum(k.startswith("layers_") for k in node))]
+    for i, layer in enumerate(layers):
+        p = f"{prefix}layers.{i}."
+        _mha(layer["self_attn"], f"{p}self_attn.", out)
+        _linear(layer["linear1"], f"{p}linear1.", out)
+        _linear(layer["linear2"], f"{p}linear2.", out)
+        _layernorm(layer["norm1"], f"{p}norm1.", out)
+        _layernorm(layer["norm2"], f"{p}norm2.", out)
+    _layernorm(node["norm"], f"{prefix}norm.", out)
+
+
+def state_dict_from_jax(params_np: Mapping, model_cfg) -> dict[str, torch.Tensor]:
+    """``mer_tpu`` M2FNet params (nested dicts of numpy arrays) -> this port's
+    ``state_dict``. ``model_cfg`` is the ``model:`` config block the params
+    were built from (modality toggles, stack counts, classifier depth)."""
+    out: dict[str, np.ndarray] = {}
+    for modality in ("audio", "text"):
+        block = model_cfg[modality.upper()]
+        if bool(block.enabled):
+            for i in range(int(block.n_transformers)):
+                _encoder(params_np[f"{modality}_encoders_{i}"], f"{modality}_encoders.{i}.", out)
+            _linear(params_np[f"{modality}_proj"], f"{modality}_proj.", out)
+    if bool(model_cfg.FAM.enabled):
+        for i in range(int(model_cfg.FAM.n_layers)):
+            fam = params_np[f"fusion_layers_{i}"]
+            _mha(fam["multihead_attention"], f"fusion_layers.{i}.multihead_attention.", out)
+            _linear(fam["linear"], f"fusion_layers.{i}.linear.", out)
+
+    # output_layer Sequential: Linear, (ReLU, Linear)*, ReLU, Dropout, Linear
+    n_hidden = max(int(model_cfg.CLASSIFIER.n_layers) - 2, 0) + 1
+    for j in range(n_hidden):
+        _linear(params_np[f"classifier_{j}"], f"output_layer.{2 * j}.", out)
+    _linear(params_np["classifier_out"], f"output_layer.{2 * n_hidden + 1}.", out)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # copies: writable, contiguous
+
+
+def load_reference_checkpoint(path: str | os.PathLike) -> dict[str, torch.Tensor]:
+    """The ``model_state_dict`` of a reference-layout ``.pth`` checkpoint."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return ckpt["model_state_dict"]
+
+
+def save_reference_checkpoint(path: str | os.PathLike, model: torch.nn.Module, epoch: int = 0) -> None:
+    """Write ``{'epoch', 'model_state_dict'}`` as the reference does."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"epoch": epoch, "model_state_dict": sd}, path)
