@@ -1,11 +1,18 @@
 // Masked multi-head attention forward for Hopper (sm_90a), f32 and bf16.
 //
 // Replaces the TPU kernel mer_tpu/ops/flash_attention.py:72 (`_kernel`,
-// launched from `_flash_impl`), single-pass branch, dropout off:
+// launched from `_flash_impl`), single-pass branch, with its dropout branch
+// (:86-115, mask :50-69):
 //
 //   s   = (q * 1/sqrt(Dh)) k^T + bias,  bias = -1e30 on ignored keys, else 0
 //   lse = m + log(sum exp(s - m)),      m = row max of s        (f32)
-//   out = softmax(s) v                                          (q's dtype)
+//   out = (softmax(s) o D) v                                    (q's dtype)
+//
+// D = 1 without dropout; with it D = keep / (1 - rate), the keep bit drawn
+// by Philox4x32-10 from (seed, b*H + h, row, column) (philox.cuh). Dropout
+// acts on the normalised probabilities and the lse comes from the undropped
+// ones, so in the online softmax acc += (exp(s - m) o D) v while
+// l += sum exp(s - m), and out = acc / l.
 //
 // Layout: q [B, H, Sq, Dh], k/v [B, H, Sk, Dh], all contiguous; mask
 // [B, Sk] bytes with nonzero = ignore (torch key_padding_mask), or null for
@@ -22,18 +29,22 @@
 // broadcast by shuffle and every lane accumulates its own output dims
 // d = lane + 32c, one V read serving the 4 rows. All arithmetic is f32 FMA;
 // the mask bias is read straight from the [B, Sk] mask, never broadcast in
-// memory.
+// memory. With dropout each lane draws the keep bits of its key for the
+// warp's 4 rows, 10 Philox rounds each.
 //
 // Bound. At the fusion model's main-path shape (B=32, H=8, Sq=Sk=33, Dh=96,
 // bf16) one call moves about 6.5 MB (q, k, v, out at 1.6 MB each, lse, mask)
 // and does about 0.11 GFLOP: a memory bound near 2 us at 3.35 TB/s, far below
-// the compute line. At these sizes launch overhead dominates; tensor-core
-// products (mma.sync / wgmma), TMA staging and wider tiles are later work.
+// the compute line (the Philox integer work of dropout is not counted). At
+// these sizes launch overhead dominates; tensor-core products (mma.sync /
+// wgmma), TMA staging and wider tiles are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -72,7 +83,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const uint8_t* __restrict__ mask,
                            T* __restrict__ out, float* __restrict__ lse,
-                           int H, int Sq, int Sk, int Dh, float scale) {
+                           int H, int Sq, int Sk, int Dh, float scale, mer_philox::Dropout drop) {
   extern __shared__ float smem[];
   const int k_stride = Dh | 1;                 // odd row stride: conflict-free key reads
   float* q_s = smem;                           // [kBlockQ, Dh], pre-scaled
@@ -142,10 +153,11 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float m_new = fmaxf(m_run[r], warp_max(s[r]));
       const float alpha = expf(m_run[r] - m_new);
       p[r] = expf(s[r] - m_new);
-      l_run[r] = l_run[r] * alpha + warp_sum(p[r]);
+      l_run[r] = l_run[r] * alpha + warp_sum(p[r]);  // undropped: lse and l as without dropout
       m_run[r] = m_new;
 #pragma unroll
       for (int c = 0; c < kDimsPerLane; ++c) acc[r][c] *= alpha;
+      if (drop.on) p[r] *= mer_philox::factor(drop, bh, q0 + warp * kRowsPerWarp + r, k0 + lane);
     }
 
     // P.V: one V read per lane and key feeds 4 rows
@@ -181,28 +193,34 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    void* lse, int B, int H, int Sq, int Sk, int Dh, float scale,
-                   cudaStream_t stream) {
+                   mer_philox::Dropout drop, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
   const size_t smem = sizeof(float) * (kBlockQ * Dh + kBlockK * (Dh | 1) + kBlockK * Dh + kBlockK);
   flash_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(lse),
-      H, Sq, Sk, Dh, scale);
+      H, Sq, Sk, Dh, scale, drop);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. dropout: 0 = off; else the keep bit of
+// each probability is Philox(seed0, seed1) >= threshold, kept ones scaled by
+// keep_scale. Returns the cudaError_t of the launch.
 extern "C" int mer_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                        const void* mask, void* out, void* lse, int B, int H,
-                                       int Sq, int Sk, int Dh, float scale, void* stream) {
+                                       int Sq, int Sk, int Dh, float scale, int dropout,
+                                       uint32_t seed0, uint32_t seed1, uint32_t threshold,
+                                       float keep_scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || Dh <= 0 || Dh > kMaxDh ||
       (Sq + kBlockQ - 1) / kBlockQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const mer_philox::Dropout drop{seed0, seed1, threshold, keep_scale, dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<float>(q, k, v, mask, out, lse, B, H, Sq, Sk, Dh, scale, s));
+  if (dtype == 0)
+    return static_cast<int>(launch<float>(q, k, v, mask, out, lse, B, H, Sq, Sk, Dh, scale, drop, s));
   if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(q, k, v, mask, out, lse, B, H, Sq, Sk, Dh, scale, s));
+    return static_cast<int>(launch<__nv_bfloat16>(q, k, v, mask, out, lse, B, H, Sq, Sk, Dh, scale, drop, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,6 +2,7 @@
 
 from mer_tpu_torch.data.fusion import (
     DEFAULT_LENGTH_BUCKETS,
+    DeviceFusionBatcher,
     FusionBatcher,
     FusionDataset,
     collate_dialogues,
@@ -10,6 +11,6 @@ from mer_tpu_torch.data.fusion import (
 from mer_tpu_torch.data.synthetic import SyntheticFusionDataset, synthetic_dialogues
 
 __all__ = [
-    "DEFAULT_LENGTH_BUCKETS", "FusionBatcher", "FusionDataset", "SyntheticFusionDataset",
+    "DEFAULT_LENGTH_BUCKETS", "DeviceFusionBatcher", "FusionBatcher", "FusionDataset", "SyntheticFusionDataset",
     "collate_dialogues", "pick_bucket", "synthetic_dialogues",
 ]

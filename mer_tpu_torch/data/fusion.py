@@ -5,12 +5,14 @@ dialogue (utterances sorted by Utterance_ID, stacked [U, D] text and audio
 rows plus labels). Collate follows the reference (src/dataset.py:71-89):
 features padded with 0.0, labels with -1, ``padding_mask`` True where padded.
 Batches are padded to a few length buckets and a fixed batch size, so the
-model sees a handful of shapes.
+model sees a handful of shapes. :class:`DeviceFusionBatcher` yields the same
+batches from tables kept on the device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from mer_tpu_torch.core import dialogue_index, embeddings_path, get_text, load_embeddings, map_emotions
 from mer_tpu_torch.core.config import DEFAULT_LENGTH_BUCKETS
@@ -136,8 +138,66 @@ class FusionBatcher:
             # stable sort keeps the shuffled order within equal lengths
             order = order[np.argsort(lengths, kind="stable")]
 
-        batches = [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
-        if self.shuffle:
-            self._rng.shuffle(batches)
-        for idxs in batches:
+        for idxs in _batch_order(order, self.batch_size, self.shuffle, self._rng):
             yield collate_dialogues([self.dataset[int(i)] for i in idxs], self.batch_size, self.buckets)
+
+
+def _batch_order(order: np.ndarray, batch_size: int, shuffle: bool, rng) -> list[np.ndarray]:
+    """Cut ``order`` into batches; shuffle their order when ``shuffle``."""
+    batches = [order[i : i + batch_size] for i in range(0, len(order), batch_size)]
+    if shuffle:
+        rng.shuffle(batches)
+    return batches
+
+
+class DeviceFusionBatcher:
+    """:class:`FusionBatcher` with the whole dataset resident on ``device``
+    (counterpart of ``mer_tpu/data/fusion.py::DeviceFusionBatcher``).
+
+    Every dialogue is padded once to the largest bucket into [N + 1, U, D]
+    tables, row N being all padding (features 0, labels -1); a batch is one
+    ``index_select`` per table, cut to its bucket, so an epoch copies only
+    the batches' indices from the host. With the same seed it yields exactly
+    :class:`FusionBatcher`'s batches, as device tensors: ``text``, ``audio``
+    f32, ``emotion`` int32 (-1 = pad), ``padding_mask`` bool."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
+                 buckets: tuple[int, ...] = DEFAULT_LENGTH_BUCKETS, sort_by_length: bool = True,
+                 device: torch.device | str = "cuda"):
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.buckets = tuple(buckets)
+        self.sort_by_length = sort_by_length
+        self.device = torch.device(device)
+        self._rng = np.random.default_rng(seed)
+        n = len(dataset)
+        self._lengths = np.asarray([dataset[i]["emotion"].shape[0] for i in range(n)])
+        max_len = max(self.buckets[-1], int(self._lengths.max()))
+        text = np.zeros((n + 1, max_len, dataset[0]["text"].shape[-1]), np.float32)
+        audio = np.zeros((n + 1, max_len, dataset[0]["audio"].shape[-1]), np.float32)
+        emotion = np.full((n + 1, max_len), -1, np.int32)
+        for i in range(n):
+            d, u = dataset[i], self._lengths[i]
+            text[i, :u], audio[i, :u], emotion[i, :u] = d["text"], d["audio"], d["emotion"]
+        self._text, self._audio, self._emotion = (torch.from_numpy(a).to(self.device) for a in (text, audio, emotion))
+        self._n = n
+
+    def __len__(self) -> int:
+        return (self._n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        order = np.arange(self._n)
+        if self.shuffle:
+            self._rng.shuffle(order)
+        if self.sort_by_length:
+            order = order[np.argsort(self._lengths[order], kind="stable")]
+        for idxs in _batch_order(order, self.batch_size, self.shuffle, self._rng):
+            bucket = pick_bucket(int(self._lengths[idxs].max()), self.buckets)
+            rows = np.full(self.batch_size, self._n, np.int64)  # missing dialogues: the padding row
+            rows[: len(idxs)] = idxs
+            rows = torch.from_numpy(rows).to(self.device)
+            text, audio, emotion = (t[:, :bucket].index_select(0, rows)
+                                    for t in (self._text, self._audio, self._emotion))
+            padding_mask = emotion == -1
+            padding_mask[:, 0] &= ~padding_mask.all(dim=1)  # collate_dialogues: key 0 of an empty row
+            yield {"text": text, "audio": audio, "emotion": emotion, "padding_mask": padding_mask}

@@ -5,6 +5,8 @@ nested dicts of numpy arrays, into this port's ``state_dict`` (the reference
 torch layout of ``mer_tpu/models/torch_export.py``). Both encoder layouts are
 read: unrolled ``layers_{i}`` and scan-stacked ``layers_scan/layer`` with a
 leading layer axis, unstacked here in numpy.
+:func:`adam_state_from_jax` does the same for its optax Adam state, so a
+run resumes in the port from ``mer_tpu``'s optimizer state.
 :func:`load_reference_checkpoint` reads ``torch.save({'epoch',
 'model_state_dict'})`` files (reference src/train.py:163-168).
 """
@@ -12,6 +14,7 @@ leading layer axis, unstacked here in numpy.
 from __future__ import annotations
 
 import os
+import zipfile
 from typing import Mapping
 
 import numpy as np
@@ -94,10 +97,67 @@ def state_dict_from_jax(params_np: Mapping, model_cfg) -> dict[str, torch.Tensor
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # copies: writable, contiguous
 
 
+def _find_adam_moments(tree):
+    """The ``(count, mu, nu)`` of the first Adam state inside an optax state
+    given as nested tuples, namedtuples or dicts (``to_state_dict`` output)."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, Mapping):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree["count"], tree["mu"], tree["nu"]
+        children = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _find_adam_moments(child)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state_from_jax(opt_state_np, params_np: Mapping, model_cfg) -> dict[int, dict[str, torch.Tensor]]:
+    """``mer_tpu``'s optax Adam state (mu, nu, count; nested in the
+    ``torch_adam`` chain and, with accumulation, in ``MultiSteps``) -> the
+    ``"state"`` of this port's ``torch.optim.Adam`` over
+    ``M2FNet.from_config(model_cfg).parameters()``, indexed in that order::
+
+        sd = optimizer.state_dict()
+        optimizer.load_state_dict({**sd, "state": adam_state_from_jax(...)})
+
+    The moments have the params' tree structure, so they convert as params
+    do; ``params_np`` checks that they match the model."""
+    from mer_tpu_torch.models.m2fnet import M2FNet
+
+    found = _find_adam_moments(opt_state_np)
+    if found is None:
+        raise ValueError("no Adam state (count, mu, nu) found in the optimizer state")
+    count, mu, nu = found
+    want = state_dict_from_jax(params_np, model_cfg)
+    mu_sd, nu_sd = state_dict_from_jax(mu, model_cfg), state_dict_from_jax(nu, model_cfg)
+    with torch.device("meta"):
+        names = [name for name, _ in M2FNet.from_config(model_cfg).named_parameters()]
+    if set(names) != set(want) or any(mu_sd[n].shape != want[n].shape for n in names):
+        raise ValueError("the Adam moments do not match the model's parameters")
+    step = torch.tensor(float(np.asarray(count)))
+    return {i: {"step": step.clone(), "exp_avg": mu_sd[n], "exp_avg_sq": nu_sd[n]} for i, n in enumerate(names)}
+
+
+def read_torch_checkpoint(path: str | os.PathLike) -> dict:
+    """``torch.load`` a checkpoint onto the host, tensors and plain data only.
+    A file that is not a torch checkpoint (a ``mer_tpu`` msgpack one, say)
+    raises instead of being misread."""
+    if not zipfile.is_zipfile(path):
+        raise ValueError(f"{path} is not a torch checkpoint (torch.save writes a zip archive); a mer_tpu "
+                         "msgpack checkpoint cannot be read by the port yet. Point checkpoint.load_path or "
+                         "--checkpoint at a file the port or torch.save wrote.")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_reference_checkpoint(path: str | os.PathLike) -> dict[str, torch.Tensor]:
     """The ``model_state_dict`` of a reference-layout ``.pth`` checkpoint."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return ckpt["model_state_dict"]
+    return read_torch_checkpoint(path)["model_state_dict"]
 
 
 def save_reference_checkpoint(path: str | os.PathLike, model: torch.nn.Module, epoch: int = 0) -> None:

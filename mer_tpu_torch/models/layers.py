@@ -5,7 +5,11 @@ Counterpart of ``mer_tpu/models/layers.py``. Parameter names follow
 ``nn.TransformerEncoder`` (reference src/model.py:8,61,73), so reference
 checkpoints load with ``strict=True``; the attention itself goes through
 :func:`mer_tpu_torch.ops.attention.dot_product_attention`, and with it
-through the hand-written kernel on the card. Batch-first [B, S, D].
+through the hand-written kernels on the card. Batch-first [B, S, D].
+
+In train mode attention dropout draws its seed words from the host
+``torch.Generator`` that :func:`set_attention_generator` hands every
+:class:`MultiheadAttention`; dropout elsewhere is stock ``nn.Dropout``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        self.generator: torch.Generator | None = None  # attention-dropout seeds (train mode)
 
     def _heads(self, x: torch.Tensor, which: int) -> torch.Tensor:
         d = self.embed_dim
@@ -47,6 +52,7 @@ class MultiheadAttention(nn.Module):
             self._heads(query, 0), self._heads(key, 1), self._heads(value, 2),
             key_padding_mask=key_padding_mask,
             dropout_rate=self.dropout if self.training else 0.0,
+            generator=self.generator,
         )
         return self.out_proj(out.transpose(1, 2).reshape(bsz, sq, self.embed_dim))
 
@@ -90,3 +96,11 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, src_key_padding_mask=src_key_padding_mask)
         return self.norm(x)
+
+
+def set_attention_generator(model: nn.Module, generator: torch.Generator | None) -> None:
+    """Give every :class:`MultiheadAttention` of ``model`` the host generator
+    its train-mode attention dropout draws seed words from."""
+    for module in model.modules():
+        if isinstance(module, MultiheadAttention):
+            module.generator = generator

@@ -12,6 +12,13 @@ layout, so reference ``.pth`` checkpoints load with ``strict=True``:
   ReLU -> Dropout -> Linear;
 - modality toggles AUDIO / TEXT / FAM ``enabled`` with the reference's
   validation.
+
+Mixed precision as ``mer_tpu`` does it (``mer_tpu/models/m2fnet.py:181,188``):
+the embeddings stay in their own dtype (f32) across each encoder's additive
+skip, so the skip sum is f32; the input is cast to the weights' dtype at the
+encoder's entrance and before ``audio_proj`` / ``text_proj``. Serving casts
+the weights to bf16; training keeps f32 weights and runs under
+``torch.autocast``, where the casts are no-ops and autocast picks the dtype.
 """
 
 from __future__ import annotations
@@ -122,16 +129,17 @@ class M2FNet(nn.Module):
         )
 
     def forward(self, text, audio, padding_mask):
-        """text/audio [B, U, D], padding_mask [B, U] bool True = pad ->
-        logits [B, U, num_classes]."""
+        """text/audio [B, U, D] (f32 embeddings), padding_mask [B, U] bool
+        True = pad -> logits [B, U, num_classes] in the weights' dtype."""
+        dtype = self.output_layer[-1].weight.dtype  # compute dtype of the weights
         if self.audio_enabled:
             for encoder in self.audio_encoders:
-                audio = audio + encoder(audio, src_key_padding_mask=padding_mask)
-            audio = self.dropout(self.audio_proj(self.dropout(audio)))
+                audio = audio + encoder(audio.to(dtype), src_key_padding_mask=padding_mask)
+            audio = self.dropout(self.audio_proj(self.dropout(audio).to(dtype)))
         if self.text_enabled:
             for encoder in self.text_encoders:
-                text = text + encoder(text, src_key_padding_mask=padding_mask)
-            text = self.dropout(self.text_proj(self.dropout(text)))
+                text = text + encoder(text.to(dtype), src_key_padding_mask=padding_mask)
+            text = self.dropout(self.text_proj(self.dropout(text).to(dtype)))
 
         if self.fam_enabled:
             for fusion_layer in self.fusion_layers:

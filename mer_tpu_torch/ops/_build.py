@@ -2,14 +2,17 @@
 
 A source ``mer_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into a
 shared library under ``mer_tpu_torch/_build/``, at first use. The library's
-file name carries a hash of the source and flags, so an edited source builds
-anew. Nothing outside the package's sources goes into a build, and a missing
-``nvcc`` or a failed build raises.
+file name carries a hash of the source, the shared headers ``csrc/*.cuh``
+and the flags, so an edited source or header builds anew. Nothing outside
+the package's sources goes into a build, and a missing ``nvcc`` or a failed
+build raises. Builds of different kernels may run at once (one ``nvcc``
+each); ``chip_smoke.py`` starts them together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -44,9 +47,12 @@ def _source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    """Where kernel ``name``'s library lives for the current source."""
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where kernel ``name``'s library lives for the current source and headers."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [_source(name), *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

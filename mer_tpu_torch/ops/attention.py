@@ -1,28 +1,40 @@
 """Scaled dot-product attention (counterpart of ``mer_tpu/ops/attention.py``).
 
-Models call :func:`dot_product_attention` whatever the device; masking lives
-here once. On a CUDA tensor it runs the hand-written kernel, on a CPU tensor
-the kernel's plain version, which restates ``_attention_reference``: an
-additive -1e30 bias on ignored keys, the scale applied to q before the
-product, softmax in float32. There is no size threshold: on the card every
-call goes through the kernel.
+Models call :func:`dot_product_attention` whatever the device; masking and
+attention-probability dropout live here once. Every call goes through
+:class:`~mer_tpu_torch.ops.flash_attention.FlashAttention`: on a CUDA tensor
+the hand-written kernels (forward and backward), on a CPU tensor their plain
+versions, which restate ``_attention_reference``: an additive -1e30 bias on
+ignored keys, the scale applied to q before the product, softmax in float32.
+There is no size threshold: on the card every call runs the kernels.
 """
 
 from __future__ import annotations
 
-from mer_tpu_torch.ops.flash_attention import flash_attention_forward
+import torch
+
+from mer_tpu_torch.ops.flash_attention import FlashAttention
 
 
-def dot_product_attention(q, k, v, *, key_padding_mask=None, dropout_rate: float = 0.0):
+def draw_dropout_seed(generator: torch.Generator) -> tuple[int, int]:
+    """Two 32-bit seed words from a host ``torch.Generator`` (no device sync)."""
+    return tuple(torch.randint(0, 1 << 32, (2,), generator=generator, dtype=torch.int64).tolist())
+
+
+def dot_product_attention(q, k, v, *, key_padding_mask=None, dropout_rate: float = 0.0,
+                          generator: torch.Generator | None = None):
     """q [B, H, Sq, Dh], k/v [B, H, Sk, Dh]; ``key_padding_mask`` [B, Sk] bool,
-    True = ignore (torch convention). Returns [B, H, Sq, Dh].
+    True = ignore (torch convention). Returns [B, H, Sq, Dh], differentiable.
 
-    Attention-probability dropout (training) is not part of the serving
-    slice: any ``dropout_rate`` > 0 raises, on every device, rather than run
-    without it."""
+    ``dropout_rate`` > 0 drops normalised attention probabilities inside the
+    kernels (torch MHA training semantics). Each such call draws its two seed
+    words from ``generator``, which is required: the global RNG is never used
+    for attention dropout."""
+    seed = None
     if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout runs inside the kernel and arrives with the fusion "
-            "training slice (slice 2); this port serves in eval mode only")
-    out, _ = flash_attention_forward(q, k, v, key_padding_mask)
+        if generator is None:
+            raise ValueError("attention dropout draws its seed from an explicit torch.Generator; "
+                             "pass generator= (models: set_attention_generator)")
+        seed = draw_dropout_seed(generator)
+    out, _ = FlashAttention.apply(q, k, v, key_padding_mask, seed, float(dropout_rate))
     return out

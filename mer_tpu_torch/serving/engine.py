@@ -36,11 +36,12 @@ def build_model(config, device: torch.device, checkpoint: str | None = None) -> 
 
 
 def predict_fn(model: M2FNet):
-    """``(text, audio, padding_mask)`` device tensors -> argmax class [b, u]."""
-    dtype = next(model.parameters()).dtype
+    """``(text, audio, padding_mask)`` device tensors -> argmax class [b, u].
+    The embeddings stay f32: the model keeps them so across the encoder
+    skips and casts to its weights' dtype inside."""
 
     def predict(text, audio, padding_mask):
-        return model(text.to(dtype), audio.to(dtype), padding_mask).argmax(-1)
+        return model(text, audio, padding_mask).argmax(-1)
 
     return predict
 

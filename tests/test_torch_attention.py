@@ -104,10 +104,22 @@ def test_no_mask_equals_all_false_mask():
     torch.testing.assert_close(lse_none, lse_false, rtol=0, atol=0)
 
 
-def test_dropout_raises_not_implemented():
+def test_dropout_path_is_the_plain_version_with_a_philox_mask():
+    """With dropout the CPU path is the plain version on a mask drawn from the
+    caller's generator: zero where dropped, the undropped softmax over
+    (1 - rate) where kept. It needs a generator and a rate in [0, 1)."""
     q, k, v, mask = _t(*_inputs(CASES[0]))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    seed = tuple(torch.randint(0, 1 << 32, (2,), generator=torch.Generator().manual_seed(9)).tolist())
+    out = dot_product_attention(q, k, v, key_padding_mask=mask, dropout_rate=0.1,
+                                generator=torch.Generator().manual_seed(9))
+    torch.testing.assert_close(out, fa.flash_attention_reference(q, k, v, mask, seed, 0.1)[0], rtol=0, atol=0)
+    probs = torch.softmax(fa._scores(q, k, mask, torch.float32), dim=-1)
+    factor = fa.dropout_factor(seed, probs.shape, 0.1)
+    torch.testing.assert_close(out, torch.einsum("bhqk,bhkd->bhqd", probs * factor, v), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="Generator"):
         dot_product_attention(q, k, v, key_padding_mask=mask, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        dot_product_attention(q, k, v, dropout_rate=1.0, generator=torch.Generator())
 
 
 @pytest.mark.parametrize("bad, error", [
@@ -171,7 +183,7 @@ def test_kernel_wrapper_raises_on_cuda(cuda):
     with pytest.raises(TypeError):
         fa.flash_attention_forward(q, q, q)
     q = torch.zeros(1, 1, 4, 8, device=cuda)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         dot_product_attention(q, q, q, dropout_rate=0.4)
 
 

@@ -4,8 +4,10 @@ A ``mer_tpu`` M2FNet is initialised from a seed; ``state_dict_from_jax``
 carries its params into the port, whose eval logits must agree within 1e-4
 (float32, CPU). The port's ``state_dict`` must equal the JAX package's own
 torch export (``export_m2fnet_state_dict``) key for key and value for value.
+In bf16 the port keeps the encoder skips in f32, as mer_tpu does.
 """
 
+import copy
 import functools
 
 import numpy as np
@@ -19,7 +21,13 @@ from mer_tpu.core.config import Config as JaxConfig
 from mer_tpu.models import M2FNet as JaxM2FNet
 from mer_tpu.models.torch_export import export_m2fnet_state_dict
 from mer_tpu_torch.core import Config
-from mer_tpu_torch.models import M2FNet, load_reference_checkpoint, save_reference_checkpoint, state_dict_from_jax
+from mer_tpu_torch.models import (
+    M2FNet,
+    load_reference_checkpoint,
+    save_reference_checkpoint,
+    set_attention_generator,
+    state_dict_from_jax,
+)
 
 B, U = 3, 9
 
@@ -118,7 +126,45 @@ def test_invalid_toggles_raise_like_jax(toggles, message):
 
 
 def test_training_mode_attention_dropout_raises():
+    """Train mode with dropout raises until the model has an attention
+    generator; then each forward draws new masks from it, and reseeding it
+    and the global generator (nn.Dropout) repeats a forward exactly."""
     port = M2FNet.from_config(Config(_model_cfg())).train()
     text, audio, mask = (torch.from_numpy(a) for a in _inputs(32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         port(text, audio, mask)
+
+    def forward(reseed: bool):
+        if reseed:
+            torch.manual_seed(1)
+            set_attention_generator(port, torch.Generator().manual_seed(2))
+        return port(text, audio, mask)
+
+    first = forward(reseed=True)
+    assert torch.isfinite(first).all() and not torch.equal(first, forward(reseed=False))
+    torch.testing.assert_close(forward(reseed=True), first, rtol=0, atol=0)
+
+
+def test_bf16_keeps_the_skip_in_f32_as_jax_does():
+    """Serving in bf16 (weights cast to bf16, f32 embeddings): the sums of the
+    encoder skips are f32, as in mer_tpu, whose f32 embeddings plus a bf16
+    encoder output promote to f32 (mer_tpu/models/m2fnet.py:181,188). Against
+    mer_tpu's bf16 logits (f32 params, bf16 compute) the port is within 0.05
+    (three bf16 ulps of logits below 4), and closer on average than with the
+    embeddings cast to bf16 before the skip, as the port did before."""
+    jax_model, params, _, port, (text, audio, mask) = _both((), False)
+    jax_bf16 = JaxM2FNet.from_config(JaxConfig(_model_cfg()), dtype=jnp.bfloat16)
+    want = np.asarray(jax_bf16.apply({"params": params}, jnp.asarray(text), jnp.asarray(audio),
+                                     jnp.asarray(mask), deterministic=True).astype(jnp.float32))
+    bf16 = copy.deepcopy(port).to(torch.bfloat16)
+    seen = []
+    bf16.dropout.register_forward_pre_hook(lambda module, args: seen.append(args[0].dtype))
+    text, audio, mask = (torch.from_numpy(a) for a in (text, audio, mask))
+    with torch.inference_mode():
+        after = bf16(text, audio, mask).float().numpy()
+        skip_dtypes = seen[0], seen[2]  # nn.Dropout's first call on each modality: the skip sum
+        before = bf16(text.bfloat16(), audio.bfloat16(), mask).float().numpy()
+    assert skip_dtypes == (torch.float32, torch.float32) and set(seen[3:]) == {torch.bfloat16}
+    err_after, err_before = np.abs(after - want), np.abs(before - want)
+    assert err_after.max() <= 0.05
+    assert err_after.mean() < err_before.mean()

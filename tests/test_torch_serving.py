@@ -138,7 +138,8 @@ def test_serve_entry_point_report(slice_setup, capsys):
 
 
 def test_port_imports_neither_jax_nor_mer_tpu():
-    code = ("import sys, mer_tpu_torch, mer_tpu_torch.test, mer_tpu_torch.serve; "
+    code = ("import sys, mer_tpu_torch, mer_tpu_torch.test, mer_tpu_torch.serve, mer_tpu_torch.train, "
+            "mer_tpu_torch.train.pipeline, mer_tpu_torch.utils, mer_tpu_torch.objectives.classification; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mer_tpu')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
