@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving and training paths at the full width of the
-default config (``src/config.yaml``: 768-wide, 8 heads, 6 + 6 encoder
-layers, 5 FAM layers; seeded random weights) and fails on any fault:
+Drives the port's fusion serving and training paths at the full width of
+the default config (``src/config.yaml``: 768-wide, 8 heads, 6 + 6 encoder
+layers, 5 FAM layers; seeded random weights) and the mel feature
+extractor's training and export at its only shape (ResNet18 over [3, 1001,
+128] log-mel images of 10 s clips, 300-wide embeddings; seeded random
+weights), and fails on any fault:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build every CUDA kernel from ``mer_tpu_torch/csrc``, one nvcc per source,
@@ -13,7 +16,10 @@ layers, 5 FAM layers; seeded random weights) and fails on any fault:
 3. hold each kernel against its plain PyTorch version on the card at the
    dialogue buckets (B=32), f32 and bf16, dropout off and on (K1 the
    forward, K2 the backward), and read the kernels' dropout masks off
-   exactly; time kernel, plain version and library call;
+   exactly; K5 at [32, 64, 47 and 3 clips, 1001 or 37 frames, 400 taps],
+   on the ``unfold`` view of reflect-padded clips and on materialised
+   frames; time kernel, plain version and library call (K5's: the
+   torch.stft -> abs -> baddbmm -> log chain);
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -30,17 +36,34 @@ layers, 5 FAM layers; seeded random weights) and fails on any fault:
    (3 steps through the kernels against 3 through the plain attention);
    training utterances per second and one step's eager vs device time with
    its kernel breakdown;
+6b. mel training: a synthetic MELD root from ``mer_tpu_torch.data.synthetic``
+   (100 train and 20 dev dialogues; the test split MELD-shaped, 2,608
+   clips), ``mer_tpu_torch.feature_extractors.audio_mel.train`` for 3 epochs
+   at batch 32 (hard mining from pools of 96, one [96, 3, 1001, 128] f32
+   forward a step): one K5 launch per cache chunk of 64 and none in a step,
+   finite losses, a checkpoint; triplet clips per second and one step's
+   eager vs device time; an f32 parity leg (caches through K5 and through
+   the plain version differ by at most one uint8 step; 3 steps on the same
+   rows from both, losses within 1e-4);
+6c. mel export: ``...audio_mel.embeddings`` from that checkpoint: K5
+   launches = one per batch of 32 of each split; [N, 300] finite unit-norm tables (1e-5) that ``load_embeddings``
+   reads back; clips per second on the test split and one batch's eager vs
+   device time;
 7. hold each kernel against its plain version again at every shape that
-   phases 4-6 gave it (recorded at each launch), in float32 and bfloat16;
+   phases 4-6c gave it (recorded at each launch), in float32 and bfloat16
+   (K5: float32, in both layouts);
 8. one ``{"kernels": [...]}`` line, whose times and bound are per launch,
-   averaged over the main paths' launches at their own shapes; then the
-   device line last.
+   averaged over the main paths' launches at their own shapes (K5's bound
+   from the function's least work, a real FFT and the mel product over the
+   filterbank's nonzeros, with the dense algorithm's floor beside it as
+   ``dense_floor_ms``); then the device line last.
 
 Tolerances (kernel against plain version, same inputs, |err| <= atol +
 rtol |want|): K1 out f32 (2e-5, 0), bf16 (1e-2, 2**-8: the plain version
 runs on the f32 values of the bf16 inputs and is not rounded); lse 2e-5 in
 f32, 1e-3 in bf16. K2 f32 (1e-4, 1e-5), bf16 (2e-2, 2**-7: both round an f32
-value to bf16, one ulp apart at most). Dropout masks: exact. Model logits in
+value to bf16, one ulp apart at most). K5 f32 (1e-4, 1e-4) on the log
+values (tests/test_logmel_pallas.py:29's). Dropout masks: exact. Model logits in
 f32, kernel against plain attention: 1e-3. Parity leg after 3 steps: losses
 within 1e-4; every parameter within 2 x lr x 3 (Adam moves a parameter whose
 gradient is rounding noise by up to lr per step, in either direction).
@@ -73,11 +96,19 @@ TOL = {
     ("fwd", "float32"): (2e-5, 0.0), ("fwd", "bfloat16"): (1e-2, 2.0 ** -8),
     ("lse", "float32"): (2e-5, 0.0), ("lse", "bfloat16"): (1e-3, 0.0),
     ("bwd", "float32"): (1e-4, 1e-5), ("bwd", "bfloat16"): (2e-2, 2.0 ** -7),
+    ("logmel", "float32"): (1e-4, 1e-4),
 }
 DROPOUT = 0.4  # the config's model.dropout
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"  # sources mer_tpu_torch/csrc/<name>.cu
-KERNELS = (FWD, BWD)
-REPLACES = {FWD: "mer_tpu/ops/flash_attention.py:72", BWD: "mer_tpu/ops/flash_attention.py:270"}
+MEL = "logmel_fwd"
+KERNELS = (FWD, BWD, MEL)
+REPLACES = {FWD: "mer_tpu/ops/flash_attention.py:72", BWD: "mer_tpu/ops/flash_attention.py:270",
+            MEL: "mer_tpu/ops/logmel_pallas.py:78"}
+# K5: (clips, frames): the export batch, the cache chunk, a ragged chunk, a short clip
+MEL_SHAPES = [(32, 1001), (64, 1001), (47, 1001), (3, 37)]
+MEL_LAYOUTS = ("unfold", "contiguous")  # the strided view of the padded waveforms, or materialised frames
+MEL_EPOCHS, MEL_BATCH = 3, 32
+MEL_SPLIT_DIALOGUES = {"train_sent_emo.csv": 100, "dev_sent_emo.csv": 20}  # the test split is MELD-shaped
 BUCKETS = (8, 16, 24, 33)
 # (B, H, Sq, Sk, Dh): dialogue buckets, dh 96 (768/8) and 50 (300/6), one Sq != Sk
 KERNEL_SHAPES = [(32, 8, s, s, dh) for dh in (96, 50) for s in BUCKETS] + [(32, 8, 24, 33, 96)]
@@ -252,13 +283,119 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int) -> None:
         raise AssertionError(f"kernel dropout masks differ from the plain Philox mask: {bad}")
 
 
+def mel_waveforms(b: int, seed: int) -> torch.Tensor:
+    """[b, max_samples + 400] on the card: tone + noise clips of 0.5-10 s
+    (the synthetic MELD root's recipe), peak-normalised and reflect-padded
+    as the frontend pads them."""
+    from mer_tpu_torch.ops import logmel
+
+    cfg = logmel.MelConfig()
+    gen = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(cfg.sample_rate // 2, cfg.max_samples + 1, (b,), generator=gen)
+    t = torch.arange(cfg.max_samples, dtype=torch.float32) / cfg.sample_rate
+    freq = 150 + 650 * torch.rand(b, 1, generator=gen)
+    audio = 0.4 * torch.sin(2 * math.pi * freq * t) + 0.05 * torch.randn(b, cfg.max_samples, generator=gen)
+    audio = torch.where(torch.arange(cfg.max_samples) < lengths[:, None], audio, 0.0).cuda()
+    return logmel.reflect_pad_batch(audio / audio.abs().amax(dim=1, keepdim=True), lengths.cuda(),
+                                    cfg.max_samples, cfg.n_fft // 2)
+
+
+def stft_chain(padded: torch.Tensor, f: int):
+    """The library yardstick of K5, a 4-call chain from the same padded
+    buffer: torch.stft (cuFFT) -> abs -> baddbmm (mel projection + eps) ->
+    log. The port never calls it."""
+    from mer_tpu_torch.ops.logmel import EPS_F64, mel_filterbank
+
+    buf = padded[:, : (f - 1) * 160 + 400]
+    window = torch.hann_window(400, device="cuda")
+    mel_t = torch.from_numpy(mel_filterbank()).cuda().T.expand(buf.shape[0], -1, -1)
+    eps = torch.full((1, 1, 1), EPS_F64, device="cuda")
+
+    def chain():
+        mag = torch.stft(buf, 400, 160, 400, window=window, center=False, return_complex=True).abs()
+        return torch.log(torch.baddbmm(eps, mag.mT, mel_t))
+
+    return chain
+
+
+def logmel_bound(shape) -> tuple[float, float, float]:
+    """Least time (us) of one K5 call from bytes and from operations (the
+    bound is the larger), and the operations time of the dense algorithm
+    that K5 runs, reported beside the bound as its floor, not as the bound.
+
+    Bytes, at the HBM rate: the frames' footprint read once (the padded
+    buffer for the unfold view), the window and the filterbank's nonzeros,
+    the output written once. Operations, at the f32 non-tensor peak, the
+    function's least work per frame: the window (400 products), a real FFT
+    of 400 taps (2.5 n log2 n, half the 5 n log2 n of a complex FFT), the
+    magnitude (4 per bin, the square root as one), the mel product over the
+    filterbank's nonzeros only (2 per entry), eps and the log (2 per band).
+    The dense algorithm: 400 x 402 DFT and 201 x 128 mel products, 2 each."""
+    from mer_tpu_torch.ops.logmel import mel_filterbank
+
+    b, f, layout = shape
+    taps, bins, mels = 400, 201, 128
+    nnz = int(np.count_nonzero(mel_filterbank()))
+    frames = b * ((f - 1) * 160 + taps) if layout == "unfold" else b * f * taps
+    nbytes = 4 * (frames + b * f * mels + taps + nnz)
+    least = taps + 2.5 * taps * math.log2(taps) + 4 * bins + 2 * nnz + 2 * mels
+    dense = 2 * (taps * 2 * bins + bins * mels)
+    ops_us = lambda per_frame: b * f * per_frame / PEAK_FLOPS[torch.float32] * 1e6
+    return nbytes / HBM_BYTES_PER_S * 1e6, ops_us(least), ops_us(dense)
+
+
+def check_mel_case(lk, shape, i: int) -> dict:
+    """K5 against its plain version at one (clips, frames, layout), f32 with
+    TF32 off, with times; raises on a disagreement."""
+    from mer_tpu_torch.ops.logmel import frame_signal
+
+    b, f, layout = shape
+    padded = mel_waveforms(b, seed=1000 + i)
+    frames = frame_signal(padded, f, 400, 160)  # the unfold view
+    if layout == "contiguous":
+        frames = frames.contiguous()
+    out = lk.logmel_frames(frames)
+    torch.cuda.synchronize()
+    ref = lk.logmel_frames_reference(frames)
+    library = stft_chain(padded, f)
+    errs = {"out": excess(out, ref, ("logmel", "float32"))}
+    row = {"kernel": MEL, "shape": shape, "dtype": "float32", "rate": 0.0,
+           "max_abs_err": (out - ref).abs().max().item(), "excess": errs,
+           "library_max_abs_diff": (library() - ref).abs().max().item(),
+           "kernel_ms": device_ms(lambda: lk.logmel_frames(frames)),
+           "kernel_eager_ms": eager_ms(lambda: lk.logmel_frames(frames)),
+           "plain_ms": device_ms(lambda: lk.logmel_frames_reference(frames)), "library_ms": device_ms(library),
+           "library": "torch.stft (cuFFT) -> abs -> baddbmm -> log, a 4-call chain"}
+    bytes_us, ops_us, dense_ops_us = logmel_bound(shape)
+    row.update(bound_bytes_us=bytes_us, bound_ops_us=ops_us, bound_us=max(bytes_us, ops_us),
+               bound_by="bytes" if bytes_us >= ops_us else "operations",
+               dense_floor_us=max(bytes_us, dense_ops_us))
+    log("kernel " + json.dumps(row))
+    if not errs["out"] <= 0:
+        raise AssertionError(f"{MEL} disagrees with its plain version at {shape}: excess over tolerance {errs}")
+    return row
+
+
 @contextlib.contextmanager
-def main_path_run(fa):
+def main_path_run():
     """One counted run of a main path: the launch counts start at 0 and are
     read at the end into ``run``; every launch's shape, dtype and dropout
-    rate is tallied in ``PATH_SHAPES`` from the arguments the wrappers hand
-    the kernels (the tally launches nothing)."""
-    kernel_fn = fa._kernel_fn
+    rate (K5: clips, frames and layout) is tallied in ``PATH_SHAPES`` from the
+    arguments the wrappers hand the kernels (the tally launches nothing)."""
+    from mer_tpu_torch.ops import flash_attention as fa
+    from mer_tpu_torch.ops import logmel_kernel as lk
+
+    kernel_fn, mel_kernel_fn = fa._kernel_fn, lk._kernel_fn
+
+    def mel_tallying():
+        fn = mel_kernel_fn()
+
+        def launch(*args):  # (frames, clip stride, frame stride, B, F, n_fft, ...)
+            layout = "contiguous" if args[2] == args[5] else "unfold"
+            PATH_SHAPES[(MEL, (args[3], args[4], layout), "float32", 0.0)] += 1
+            return fn(*args)
+
+        return launch
 
     def tallying(name, n_pointers):
         fn = kernel_fn(name, n_pointers)
@@ -273,10 +410,11 @@ def main_path_run(fa):
         return launch
 
     run = {}
-    fa.flash_attention_forward.launches = fa.flash_attention_backward.launches = 0
-    with mock.patch.object(fa, "_kernel_fn", tallying):
+    fa.flash_attention_forward.launches = fa.flash_attention_backward.launches = lk.logmel_frames.launches = 0
+    with mock.patch.object(fa, "_kernel_fn", tallying), mock.patch.object(lk, "_kernel_fn", mel_tallying):
         yield run
     run[FWD], run[BWD] = fa.flash_attention_forward.launches, fa.flash_attention_backward.launches
+    run[MEL] = lk.logmel_frames.launches
 
 
 @contextlib.contextmanager
@@ -316,12 +454,12 @@ def offline_phase(fa, card: str) -> dict:
 
         launches = 0
         for extra, n_forward in (([], len(batches)), (["--serving-batch", "512"], len(merged))):
-            with main_path_run(fa) as run:
+            with main_path_run() as run:
                 summary = eval_entry.main(["--synthetic", "--checkpoint", ckpt, *extra])
             launches += run[FWD]
             log(f"offline {extra or 'batch 32'}: {json.dumps(summary)}; kernel launches {run[FWD]} "
                 f"= {per_forward} x {n_forward} forwards")
-            if run[FWD] != per_forward * n_forward or run[BWD]:
+            if run[FWD] != per_forward * n_forward or run[BWD] or run[MEL]:
                 raise AssertionError(f"expected {per_forward * n_forward} attention launches, got {run}")
 
         f32 = build_model(config.override(tpu__compute_dtype="float32"), torch.device("cuda"), checkpoint=ckpt)
@@ -404,9 +542,10 @@ def log_profile(kernels: dict[str, float], count: int) -> None:
     busy = sum(kernels.values())
     k1 = sum(t for n, t in kernels.items() if "flash_attention_fwd" in n)
     k2 = sum(t for n, t in kernels.items() if "flash_attention_bwd" in n)
+    k5 = sum(t for n, t in kernels.items() if "logmel_fwd" in n)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {k1 / busy}, K2 share {k2 / busy}; top: "
-        + "; ".join(f"{n[:60]} {t} us" for n, t in top))
+    log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {k1 / busy}, K2 share {k2 / busy}, "
+        f"K5 share {k5 / busy}; top: " + "; ".join(f"{n[:60]} {t} us" for n, t in top))
 
 
 def training_phase(fa, card: str) -> dict:
@@ -434,12 +573,12 @@ def training_phase(fa, card: str) -> dict:
         argv = ["--synthetic", "--config", cfg_path]
 
         t0 = time.perf_counter()
-        with main_path_run(fa) as run:
+        with main_path_run() as run:
             state, history = train_entry.main([*argv, "--epochs", str(TRAIN_EPOCHS)])
         seconds = time.perf_counter() - t0
         _, batchers, solver = build(parse_args(argv))
         steps, val_batches = TRAIN_EPOCHS * len(batchers["train"]), TRAIN_EPOCHS * len(batchers["val"])
-        want = {FWD: per_forward * (steps + val_batches), BWD: per_forward * steps}
+        want = {FWD: per_forward * (steps + val_batches), BWD: per_forward * steps, MEL: 0}
         losses = history["loss_values"]
         log(f"training: {TRAIN_EPOCHS} epochs of {len(batchers['train'])} steps in {seconds} s (model build, "
             f"checkpoints and validation included); losses {json.dumps(history)}; launches {run} "
@@ -509,14 +648,181 @@ def training_phase(fa, card: str) -> dict:
     return run
 
 
+# -- the mel feature extractor (stage 1c) -------------------------------------------
+
+
+def mel_config(tmp: str) -> str:
+    """config_audio_mel.yaml, unchanged but for checkpoints under ``tmp``."""
+    import yaml
+
+    from mer_tpu_torch.core import load_config
+    from mer_tpu_torch.feature_extractors.audio_mel import MEL_CONFIG_PATH
+
+    ckpt = os.path.join(tmp, "ckpt", "checkpoint.ckpt")
+    path = os.path.join(tmp, "mel.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(load_config(MEL_CONFIG_PATH).override(checkpoint__save_path=ckpt,
+                                                             checkpoint__load_path=ckpt).to_dict(), f)
+    return path
+
+
+def mel_training_phase(lk, card: str, root: str, cfg: str) -> int:
+    """Phase 6b; returns the K5 launches of the mel training entry point."""
+    from mer_tpu_torch.feature_extractors.audio_mel import build_solver, parse_args
+    from mer_tpu_torch.feature_extractors.audio_mel import train as mel_train
+    from mer_tpu_torch.train import load_checkpoint
+
+    argv = ["--config", cfg, "--data-root", root]
+    t0 = time.perf_counter()
+    with main_path_run() as run:
+        _, history = mel_train.main([*argv, "--epochs", str(MEL_EPOCHS)])
+    seconds = time.perf_counter() - t0
+    config, solver = build_solver(parse_args(argv))
+    n_train, n_val = len(solver.data_train), len(solver.data_val)
+    steps = n_train // MEL_BATCH
+    want = {FWD: 0, BWD: 0, MEL: math.ceil(n_train / 64) + math.ceil(n_val / 64)}
+    log(f"mel training: {n_train} train / {n_val} val clips, {MEL_EPOCHS} epochs of {steps} steps of "
+        f"[{3 * MEL_BATCH}, 3, 1001, 128] f32 in {seconds} s (caches, validation, checkpoints included); "
+        f"losses {json.dumps(history)}; launches {run} (want {want}: one K5 per cache chunk of 64, none in a step)")
+    if run != want:
+        raise AssertionError(f"mel training launches {run}, want {want}")
+    losses = history["loss_values"] + history["val_loss_values"]
+    if len(history["loss_values"]) != MEL_EPOCHS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mel training losses not finite or epochs missing: {history}")
+    saved = load_checkpoint(config.checkpoint.save_path)
+    log(f"mel checkpoint: epoch {saved['epoch']}, step {saved['extra']['step']}")
+    if saved["epoch"] != MEL_EPOCHS - 1 or saved["extra"]["step"] != MEL_EPOCHS * steps:
+        raise AssertionError(f"mel checkpoint at epoch {saved['epoch']}, step {saved['extra']['step']}")
+
+    # throughput and one step's time split (f32, the caches on the card)
+    state = solver.init_state()
+    solver.train_epoch(state)  # warm-up
+    before, times = lk.logmel_frames.launches, []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.train_epoch(state)  # ends in a device-to-host fetch
+        times.append(time.perf_counter() - t0)
+    if lk.logmel_frames.launches != before:
+        raise AssertionError("K5 launched inside mel training steps")
+    clips = steps * 3 * MEL_BATCH
+    log(f"mel training f32 epoch: {steps} steps, {clips} triplet clips (each step also embeds a mined pool of "
+        f"{3 * MEL_BATCH}), median {np.median(times) * 1e3} ms = {clips / np.median(times)} triplet clips/s ({card})")
+    spec = solver._triplet_batch(solver.data_train, MEL_BATCH)
+    step = lambda: solver.train_step(state, spec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    eager = (time.perf_counter() - t0) / 10 * 1e3
+    kernels, count = kernel_profile(step)
+    busy = sum(kernels.values()) / 1e3
+    log(f"mel training step f32 {tuple(spec.shape)}: eager {eager} ms (forward, backward, Adam; mining not "
+        f"included), device busy {busy} ms, device idle share {1 - busy / eager if kernels else 'not measured'} "
+        f"({card})")
+    log_profile(kernels, count)
+    del solver, state, spec
+
+    # parity: caches through K5 and through the plain version; 3 f32 steps from
+    # the same weights on the same rows
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, k_solver = build_solver(parse_args(argv))
+        k_state = k_solver.init_state()
+        with mock.patch.object(lk, "logmel_frames", lk.logmel_frames_reference):
+            _, p_solver = build_solver(parse_args(argv))
+            p_state = p_solver.init_state()
+        for name in ("data_train", "data_val"):
+            a, b = (getattr(s, name).device_cache.to(torch.int16) for s in (k_solver, p_solver))
+            diff = (a - b).abs()
+            log(f"mel cache {name} {tuple(a.shape)} uint8, K5 vs plain: {int((diff > 0).sum())} of {diff.numel()} "
+                f"entries differ, by at most {int(diff.max())} step")
+            if int(diff.max()) > 1:
+                raise AssertionError(f"the K5 and plain caches part by {int(diff.max())} steps")
+        k_losses, p_losses = [], []
+        for _ in range(3):
+            rows = k_solver._miner(k_solver.data_train).mine_hard_rows_device(MEL_BATCH)
+            k_losses.append(k_solver.train_step(k_state, k_solver.data_train.spectrogram_batch(rows)).item())
+            p_losses.append(p_solver.train_step(p_state, p_solver.data_train.spectrogram_batch(rows)).item())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_diff = max(abs(a - b) for a, b in zip(k_losses, p_losses))
+    log(f"mel parity f32, 3 steps on the same rows from the K5 and the plain caches: losses {k_losses} vs "
+        f"{p_losses}, max diff {loss_diff} (tol 1e-4)")
+    if not loss_diff <= 1e-4:
+        raise AssertionError("mel training from the K5 caches departs from training from the plain caches")
+    return run[MEL]
+
+
+def mel_export_phase(lk, card: str, root: str, cfg: str, tmp: str) -> int:
+    """Phase 6c; returns the K5 launches of the mel export entry point."""
+    from mer_tpu_torch.core import get_text, load_config, load_embeddings
+    from mer_tpu_torch.data import MelFeatureDataset
+    from mer_tpu_torch.feature_extractors.audio_mel import build_solver, parse_args
+    from mer_tpu_torch.feature_extractors.audio_mel import embeddings as mel_embeddings
+    from mer_tpu_torch.train import load_checkpoint
+
+    save_dir = os.path.join(tmp, "embeddings")
+    argv = ["--config", cfg, "--data-root", root]
+    t0 = time.perf_counter()
+    with main_path_run() as run:
+        tables = mel_embeddings.main(argv, save_dir=save_dir)
+    seconds = time.perf_counter() - t0
+    sizes = {mode: len(get_text(mode, root)) for mode in tables}
+    batch = int(load_config(cfg).test.data_loader.batch_size)
+    want = {FWD: 0, BWD: 0, MEL: sum(math.ceil(n / batch) for n in sizes.values())}
+    log(f"mel export: splits {sizes} in {seconds} s = {sum(sizes.values()) / seconds} clips/s (model load "
+        f"included); launches {run} (want {want}: one K5 per batch of {batch})")
+    if run != want or sizes["test"] != 2608:
+        raise AssertionError(f"mel export launches {run}, want {want}; test split {sizes['test']} clips")
+    for mode, table in tables.items():
+        norm_err = float(np.abs(np.linalg.norm(table, axis=1) - 1).max())
+        back = load_embeddings(os.path.join(save_dir, f"{mode}.pkl"))
+        log(f"mel export {mode}: {table.shape}, finite {bool(np.isfinite(table).all())}, max |norm - 1| {norm_err}")
+        if table.shape != (sizes[mode], 300) or not np.isfinite(table).all() or norm_err > 1e-5 \
+                or not np.array_equal(back, table):
+            raise AssertionError(f"mel export {mode}: bad table")
+
+    # the test split alone, from fresh wav stores, and one batch's time split
+    _, solver = build_solver(parse_args(argv), train_mode="val")
+    solver.model.load_state_dict(load_checkpoint(solver.config.checkpoint.save_path)["model_state_dict"])
+    solver.export_embeddings(MelFeatureDataset("test", solver.config, data_root=root, device=solver.device))
+    test = MelFeatureDataset("test", solver.config, data_root=root, device=solver.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.export_embeddings(test)  # ends in a device-to-host fetch
+    seconds = time.perf_counter() - t0
+    log(f"mel export f32 test split: {len(test)} clips (wav decode, K5 frontend, ResNet18) in {seconds * 1e3} ms = "
+        f"{len(test) / seconds} clips/s ({card})")
+    idx = np.arange(MEL_BATCH)
+    batch = lambda: solver.embed(test.spectrogram_batch(idx))
+    batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        batch()
+    torch.cuda.synchronize()
+    eager = (time.perf_counter() - t0) / 10 * 1e3
+    kernels, count = kernel_profile(batch)
+    busy = sum(kernels.values()) / 1e3
+    log(f"mel export batch f32 [{MEL_BATCH} clips]: eager {eager} ms (wav decode of LRU-cached clips, int16 copy, "
+        f"log-mel, forward), device busy {busy} ms, device idle share "
+        f"{1 - busy / eager if kernels else 'not measured'} ({card})")
+    log_profile(kernels, count)
+    return run[MEL]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs one NVIDIA card")
     sys.path.insert(0, REPO)
     from mer_tpu_torch import serve as serve_entry
     from mer_tpu_torch.core import CONFIG_PATH, load_config
+    from mer_tpu_torch.data import write_synthetic_meld
     from mer_tpu_torch.ops import _build
     from mer_tpu_torch.ops import flash_attention as fa
+    from mer_tpu_torch.ops import logmel_kernel as lk
 
     # 1. device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -540,20 +846,31 @@ def main() -> None:
     rows = [check_case(fa, *case, i) for i, case in enumerate(cases)]
     for s in BUCKETS:
         check_dropout_masks(fa, 32, 8, s, s)
+    rows += [check_mel_case(lk, (b, f, layout), len(rows) + i)
+             for i, (b, f, layout) in enumerate((b, f, layout) for b, f in MEL_SHAPES for layout in MEL_LAYOUTS)]
 
     # 4. offline evaluation, 5. online serving, 6. training: counts start at 0 for each path
-    launches = {FWD: offline_phase(fa, card), BWD: 0}
+    launches = {FWD: offline_phase(fa, card), BWD: 0, MEL: 0}
     per_forward = attention_calls_per_forward(load_config(CONFIG_PATH))
     for n_requests in ONLINE_REQUESTS:
-        with main_path_run(fa) as run:
+        with main_path_run() as run:
             report = serve_entry.main(["--synthetic", "--requests", str(n_requests)])
         log(f"online {n_requests} requests: {run[FWD]} kernel launches, {report['batches']} micro-batches ({card})")
-        if report["requests"] != n_requests or run[FWD] == 0 or run[FWD] % per_forward or run[BWD]:
+        if report["requests"] != n_requests or run[FWD] == 0 or run[FWD] % per_forward or run[BWD] or run[MEL]:
             raise AssertionError(f"online serving answered {report['requests']}/{n_requests} requests "
                                  f"with launches {run}")
         launches[FWD] += run[FWD]
     for name, n in training_phase(fa, card).items():
         launches[name] += n
+    # 6b. mel training, 6c. mel export, on a synthetic MELD root (MELD-shaped test split)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "meld")
+        counts = write_synthetic_meld(root, meld_shape=True, split_dialogues=MEL_SPLIT_DIALOGUES)
+        log(f"mel: synthetic MELD root {counts} in {time.perf_counter() - t0:.1f} s")
+        cfg = mel_config(tmp)
+        launches[MEL] += mel_training_phase(lk, card, root, cfg)
+        launches[MEL] += mel_export_phase(lk, card, root, cfg, tmp)
     for name in KERNELS:
         tallied = sum(n for (kernel, *_), n in PATH_SHAPES.items() if kernel == name)
         if tallied != launches[name]:
@@ -561,9 +878,12 @@ def main() -> None:
 
     # 7. kernels against their plain versions at every case the paths gave them
     checked = {(r["kernel"], r["shape"], r["dtype"], r["rate"]) for r in rows}
-    more = sorted({(kernel, shape, dtype, rate) for kernel, shape, _, rate in PATH_SHAPES
-                   for dtype in DTYPES} - checked)
-    rows += [check_case(fa, *case, len(rows) + i) for i, case in enumerate(more)]
+    more = {(kernel, shape, dtype, rate) for kernel, shape, _, rate in PATH_SHAPES if kernel != MEL
+            for dtype in DTYPES}
+    more |= {(MEL, (*shape[:2], layout), "float32", 0.0) for kernel, shape, _, _ in PATH_SHAPES if kernel == MEL
+             for layout in MEL_LAYOUTS}
+    for i, (kernel, shape, dtype, rate) in enumerate(sorted(more - checked), len(rows)):
+        rows.append(check_mel_case(lk, shape, i) if kernel == MEL else check_case(fa, kernel, shape, dtype, rate, i))
     for b, h, sq, sk in sorted({shape[:4] for (kernel, shape, _, rate) in PATH_SHAPES if rate}):
         check_dropout_masks(fa, b, h, sq, sk)
     by_case = {(r["kernel"], r["shape"], r["dtype"], r["rate"]): r for r in rows}
@@ -576,8 +896,9 @@ def main() -> None:
         for case, n in sorted(path.items()):
             r = by_case[case]
             log(f"main path {case}: {n} launches x kernel {r['kernel_ms']} ms (bound {r['bound_us'] / 1e3} ms)")
+        keys = ("kernel_ms", "plain_ms", "library_ms", "bound_bytes_us", "bound_ops_us")
         total = {key: sum(n * by_case[case][key] for case, n in path.items())
-                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_bytes_us", "bound_ops_us")}
+                 for key in keys + (("dense_floor_us",) if name == MEL else ())}
         n = launches[name]
         log(f"{name} main path: {n} launches at {len(path)} cases; summed over them {json.dumps(total)} ({card})")
         kernels.append({
@@ -592,7 +913,8 @@ def main() -> None:
             "bound_ms": max(total["bound_bytes_us"], total["bound_ops_us"]) / 1e3 / n,
             "bound_by": "bytes" if total["bound_bytes_us"] >= total["bound_ops_us"] else "operations",
             "library_ms": total["library_ms"] / n,
-            "shapes": {f"{dtype} {'x'.join(map(str, shape))} dropout {rate}": c
+            **({"dense_floor_ms": total["dense_floor_us"] / 1e3 / n} if name == MEL else {}),
+            "shapes": {f"{dtype} {'x'.join(map(str, shape))}" + ("" if name == MEL else f" dropout {rate}"): c
                        for (_, shape, dtype, rate), c in sorted(path.items())},
             "cases_checked": sum(r["kernel"] == name for r in rows),
             "card": card,

@@ -35,6 +35,17 @@ def load_embeddings(path: str | os.PathLike) -> np.ndarray:
     return arr
 
 
+def save_embeddings(path: str | os.PathLike, embeddings) -> None:
+    """Write an [N, D] table as the reference exporters do: a pickled
+    float32 ``torch.Tensor`` on the host (text/embeddings.py:86-90)."""
+    table = torch.as_tensor(np.asarray(embeddings, dtype=np.float32)).detach().cpu().clone().contiguous()
+    if table.dim() != 2:
+        raise ValueError(f"Expected [N, D] embeddings, got shape {tuple(table.shape)}")
+    os.makedirs(os.path.dirname(os.path.abspath(os.fspath(path))), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(table, f)
+
+
 def embeddings_path(base_dir: str | os.PathLike, mode: str) -> str:
     """``embeddings/<name>`` + mode -> ``embeddings/<name>/<mode>.pkl``."""
     return os.path.join(os.path.abspath(os.fspath(base_dir)), f"{mode}.pkl")

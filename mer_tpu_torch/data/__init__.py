@@ -1,4 +1,5 @@
-"""Fusion datasets and batching."""
+"""Fusion datasets and batching; the mel extractor's utterance dataset;
+synthetic data."""
 
 from mer_tpu_torch.data.fusion import (
     DEFAULT_LENGTH_BUCKETS,
@@ -8,9 +9,10 @@ from mer_tpu_torch.data.fusion import (
     collate_dialogues,
     pick_bucket,
 )
-from mer_tpu_torch.data.synthetic import SyntheticFusionDataset, synthetic_dialogues
+from mer_tpu_torch.data.mel_fe import MelFeatureDataset
+from mer_tpu_torch.data.synthetic import SyntheticFusionDataset, synthetic_dialogues, write_synthetic_meld
 
 __all__ = [
-    "DEFAULT_LENGTH_BUCKETS", "DeviceFusionBatcher", "FusionBatcher", "FusionDataset", "SyntheticFusionDataset",
-    "collate_dialogues", "pick_bucket", "synthetic_dialogues",
+    "DEFAULT_LENGTH_BUCKETS", "DeviceFusionBatcher", "FusionBatcher", "FusionDataset", "MelFeatureDataset",
+    "SyntheticFusionDataset", "collate_dialogues", "pick_bucket", "synthetic_dialogues", "write_synthetic_meld",
 ]

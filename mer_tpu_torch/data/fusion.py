@@ -123,31 +123,44 @@ class FusionBatcher:
         self.shuffle = shuffle
         self.buckets = tuple(buckets)
         self.sort_by_length = sort_by_length
+        self._seed = seed
         self._rng = np.random.default_rng(seed)
+        self._lengths = np.asarray([dataset[i]["emotion"].shape[0] for i in range(len(dataset))])
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
-    def __iter__(self):
-        n = len(self.dataset)
-        order = np.arange(n)
-        if self.shuffle:
-            self._rng.shuffle(order)
-        if self.sort_by_length:
-            lengths = np.asarray([self.dataset[i]["emotion"].shape[0] for i in order])
-            # stable sort keeps the shuffled order within equal lengths
-            order = order[np.argsort(lengths, kind="stable")]
+    def seek_epoch(self, epoch: int) -> None:
+        """Shuffle state of a fresh batcher after ``epoch`` epochs."""
+        self._rng = _seek(self._seed, epoch, self._lengths, self.batch_size, self.shuffle, self.sort_by_length)
 
-        for idxs in _batch_order(order, self.batch_size, self.shuffle, self._rng):
+    def __iter__(self):
+        for idxs in _epoch_batches(self._rng, self._lengths, self.batch_size, self.shuffle, self.sort_by_length):
             yield collate_dialogues([self.dataset[int(i)] for i in idxs], self.batch_size, self.buckets)
 
 
-def _batch_order(order: np.ndarray, batch_size: int, shuffle: bool, rng) -> list[np.ndarray]:
-    """Cut ``order`` into batches; shuffle their order when ``shuffle``."""
+def _epoch_batches(rng, lengths: np.ndarray, batch_size: int, shuffle: bool, sort_by_length: bool) -> list[np.ndarray]:
+    """One epoch's batches of dataset rows: shuffle (from ``rng``), then a
+    stable sort by dialogue length (keeping the shuffled order within equal
+    lengths), cut into batches whose order is shuffled too."""
+    order = np.arange(len(lengths))
+    if shuffle:
+        rng.shuffle(order)
+    if sort_by_length:
+        order = order[np.argsort(lengths[order], kind="stable")]
     batches = [order[i : i + batch_size] for i in range(0, len(order), batch_size)]
     if shuffle:
         rng.shuffle(batches)
     return batches
+
+
+def _seek(seed: int, epoch: int, lengths, batch_size: int, shuffle: bool, sort_by_length: bool):
+    """A generator from ``seed`` advanced past ``epoch`` epochs' draws, so a
+    run resumed at ``epoch`` sees the batches of an uninterrupted one."""
+    rng = np.random.default_rng(seed)
+    for _ in range(epoch):
+        _epoch_batches(rng, lengths, batch_size, shuffle, sort_by_length)
+    return rng
 
 
 class DeviceFusionBatcher:
@@ -169,6 +182,7 @@ class DeviceFusionBatcher:
         self.buckets = tuple(buckets)
         self.sort_by_length = sort_by_length
         self.device = torch.device(device)
+        self._seed = seed
         self._rng = np.random.default_rng(seed)
         n = len(dataset)
         self._lengths = np.asarray([dataset[i]["emotion"].shape[0] for i in range(n)])
@@ -185,13 +199,12 @@ class DeviceFusionBatcher:
     def __len__(self) -> int:
         return (self._n + self.batch_size - 1) // self.batch_size
 
+    def seek_epoch(self, epoch: int) -> None:
+        """Shuffle state of a fresh batcher after ``epoch`` epochs."""
+        self._rng = _seek(self._seed, epoch, self._lengths, self.batch_size, self.shuffle, self.sort_by_length)
+
     def __iter__(self):
-        order = np.arange(self._n)
-        if self.shuffle:
-            self._rng.shuffle(order)
-        if self.sort_by_length:
-            order = order[np.argsort(self._lengths[order], kind="stable")]
-        for idxs in _batch_order(order, self.batch_size, self.shuffle, self._rng):
+        for idxs in _epoch_batches(self._rng, self._lengths, self.batch_size, self.shuffle, self.sort_by_length):
             bucket = pick_bucket(int(self._lengths[idxs].max()), self.buckets)
             rows = np.full(self.batch_size, self._n, np.int64)  # missing dialogues: the padding row
             rows[: len(idxs)] = idxs

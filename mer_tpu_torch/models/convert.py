@@ -7,6 +7,8 @@ read: unrolled ``layers_{i}`` and scan-stacked ``layers_scan/layer`` with a
 leading layer axis, unstacked here in numpy.
 :func:`adam_state_from_jax` does the same for its optax Adam state, so a
 run resumes in the port from ``mer_tpu``'s optimizer state.
+:func:`mel_state_dict_from_jax` carries a ``mer_tpu`` mel extractor (params
+and BatchNorm stats) over to the port's torchvision-layout ResNet18.
 :func:`load_reference_checkpoint` reads ``torch.save({'epoch',
 'model_state_dict'})`` files (reference src/train.py:163-168).
 """
@@ -94,6 +96,39 @@ def state_dict_from_jax(params_np: Mapping, model_cfg) -> dict[str, torch.Tensor
     for j in range(n_hidden):
         _linear(params_np[f"classifier_{j}"], f"output_layer.{2 * j}.", out)
     _linear(params_np["classifier_out"], f"output_layer.{2 * n_hidden + 1}.", out)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # copies: writable, contiguous
+
+
+def mel_state_dict_from_jax(params_np: Mapping, batch_stats_np: Mapping) -> dict[str, torch.Tensor]:
+    """``mer_tpu``'s ``AudioMelFeatureExtractor`` params and BatchNorm stats
+    (nested dicts of numpy arrays) -> the port's ``state_dict`` in
+    torchvision's names: convolutions HWIO -> OIHW, Dense kernels
+    transposed, BatchNorm scale/bias/mean/var to weight/bias/running_mean/
+    running_var (``num_batches_tracked`` 0)."""
+    out: dict[str, np.ndarray] = {}
+
+    def conv(node: Mapping, prefix: str) -> None:
+        out[f"{prefix}weight"] = _np(node["kernel"]).transpose(3, 2, 0, 1)
+
+    def bn(node: Mapping, stats: Mapping, prefix: str) -> None:
+        out[f"{prefix}weight"], out[f"{prefix}bias"] = _np(node["scale"]), _np(node["bias"])
+        out[f"{prefix}running_mean"], out[f"{prefix}running_var"] = _np(stats["mean"]), _np(stats["var"])
+        out[f"{prefix}num_batches_tracked"] = np.zeros((), np.int64)
+
+    p, s = params_np["resnet18"], batch_stats_np["resnet18"]
+    conv(p["conv1"], "resnet18.conv1.")
+    bn(p["bn1"], s["bn1"], "resnet18.bn1.")
+    for stage in range(1, 5):
+        for block in range(2):
+            bp, bs, prefix = p[f"layer{stage}_{block}"], s[f"layer{stage}_{block}"], f"resnet18.layer{stage}.{block}."
+            for i in (1, 2):
+                conv(bp[f"conv{i}"], f"{prefix}conv{i}.")
+                bn(bp[f"bn{i}"], bs[f"bn{i}"], f"{prefix}bn{i}.")
+            if "downsample_conv" in bp:
+                conv(bp["downsample_conv"], f"{prefix}downsample.0.")
+                bn(bp["downsample_bn"], bs["downsample_bn"], f"{prefix}downsample.1.")
+    _linear(p["fc"], "resnet18.fc.", out)
+    _linear(params_np["projector"], "projector.1.", out)
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # copies: writable, contiguous
 
 

@@ -16,7 +16,9 @@
 - per-epoch checkpoints with optimizer state, early stopping with a
   best-weights shadow copy restored and promoted on stop
   (src/train.py:186-210), and resume of the optimizer, the step, the best
-  validation loss and the patience counter.
+  validation loss and the patience counter; a resumed run replays the
+  uninterrupted run's dropout masks (seeded per step) and, through the
+  batcher's ``seek_epoch``, its shuffle.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from mer_tpu_torch.core import compute_dtype
 from mer_tpu_torch.models import set_attention_generator
 from mer_tpu_torch.objectives import BatchAveragedMetrics, cross_entropy
 from mer_tpu_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
-from mer_tpu_torch.utils import RunLogger, seed_dropout
+from mer_tpu_torch.utils import RunLogger, seed_dropout, seed_step
 
 
 @dataclass
@@ -108,9 +110,10 @@ class Solver:
 
     Args:
         model: M2FNet (f32 parameters) on the training device.
-        config: the pipeline config (reference YAML schema). ``tpu.seed``
-            seeds ``nn.Dropout``'s global generators and the attention
-            dropout generator, once, here.
+        config: the pipeline config (reference YAML schema). ``nn.Dropout``'s
+            global generators and the attention dropout generator are
+            reseeded from (``tpu.seed``, step) before every training step,
+            so a resumed run replays the dropout masks of an uninterrupted one.
         class_weights: optional [C] class weights of the reference CE
             (ignore_index=-1, label_smoothing=0.1).
     """
@@ -124,8 +127,9 @@ class Solver:
         self.accum = grad_accum_steps(config.solver)
         cw = None if class_weights is None else torch.as_tensor(class_weights, device=self.device)
         self.loss_fn = partial(cross_entropy, label_smoothing=0.1, class_weights=cw, ignore_index=-1)
-        seed = int(config.get_path("tpu.seed", 0))
-        set_attention_generator(model, seed_dropout(seed, config.get_path("tpu.dropout_prng", None)))
+        self.seed = int(config.get_path("tpu.seed", 0))
+        self._attention_generator = seed_dropout(self.seed, config.get_path("tpu.dropout_prng", None))
+        set_attention_generator(model, self._attention_generator)
         self._schedule: Callable[[int], float] | None = None
 
     def init_state(self, steps_per_epoch: int) -> TrainState:
@@ -154,6 +158,7 @@ class Solver:
         state.model.train()
         total, batches = torch.zeros((), device=self.device), 0
         for batch in batcher:
+            seed_step(self.seed, state.step, self._attention_generator)
             loss, _, _ = self._forward(state.model, batch)
             loss.backward()
             accumulate_and_step(state, self.accum, self._schedule)
@@ -205,6 +210,7 @@ class Solver:
             start_epoch = int(restored["epoch"]) + 1
             min_loss_val = float(extra.get("min_loss_val", float("inf")))
             patience_counter = int(extra.get("patience_counter", 0))
+            train_batcher.seek_epoch(start_epoch)  # the shuffle of an uninterrupted run's epoch
             self.logger.print(f"Resumed from {load_path} at epoch {start_epoch}")
 
         history: dict[str, list] = {"loss_values": [], "val_loss_values": []}

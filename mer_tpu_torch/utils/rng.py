@@ -4,11 +4,14 @@ As in ``mer_tpu``, the dropout *stream* is not part of the contract; only
 the Bernoulli distribution is. Two streams feed training:
 
 - ``nn.Dropout`` (residual, feed-forward, projection and classifier dropout)
-  draws from PyTorch's global generators, seeded once from ``seed + 1`` when
-  the trainer starts (``mer_tpu`` keys its dropout on ``seed + 1`` too);
+  draws from PyTorch's global generators;
 - attention dropout inside the kernels draws two 32-bit seed words per call
-  from a host ``torch.Generator`` seeded from ``seed + 2``, so no call
-  synchronises with the card and the global generators are never used.
+  from a host ``torch.Generator``, so no call synchronises with the card.
+
+Both are reseeded before every training step from (``seed``, step), as
+``mer_tpu`` folds the step into its dropout key
+(``mer_tpu/train/solver.py:196``): a run resumed at step k draws the masks
+of an uninterrupted run from step k on.
 
 ``tpu.dropout_prng`` chooses between the TPU's hardware generator and
 threefry in ``mer_tpu``; it has no meaning on CUDA. Its value is checked
@@ -17,15 +20,25 @@ threefry in ``mer_tpu``; it has no meaning on CUDA. Its value is checked
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DROPOUT_PRNG_VALUES = ("auto", "rbg", "threefry2x32")
 
 
 def seed_dropout(seed: int, dropout_prng: str | None = None) -> torch.Generator:
-    """Seed ``nn.Dropout``'s global generators and return the host generator
-    of attention dropout, both derived from ``seed``."""
+    """The host generator of attention dropout, with both streams seeded
+    for step 0 of ``seed``."""
     if (dropout_prng or "auto") not in DROPOUT_PRNG_VALUES:
         raise ValueError(f"tpu.dropout_prng must be one of {DROPOUT_PRNG_VALUES}, got {dropout_prng!r}")
-    torch.manual_seed(seed + 1)
-    return torch.Generator().manual_seed(seed + 2)
+    generator = torch.Generator()
+    seed_step(seed, 0, generator)
+    return generator
+
+
+def seed_step(seed: int, step: int, attention_generator: torch.Generator) -> None:
+    """Seed the global generators (``nn.Dropout``) and the attention-dropout
+    generator for training step ``step`` of a run seeded with ``seed``."""
+    global_seed, attention_seed = np.random.SeedSequence([seed, step]).generate_state(2, np.uint64)
+    torch.manual_seed(int(global_seed))
+    attention_generator.manual_seed(int(attention_seed))

@@ -139,7 +139,12 @@ def test_serve_entry_point_report(slice_setup, capsys):
 
 def test_port_imports_neither_jax_nor_mer_tpu():
     code = ("import sys, mer_tpu_torch, mer_tpu_torch.test, mer_tpu_torch.serve, mer_tpu_torch.train, "
-            "mer_tpu_torch.train.pipeline, mer_tpu_torch.utils, mer_tpu_torch.objectives.classification; "
+            "mer_tpu_torch.train.pipeline, mer_tpu_torch.utils, mer_tpu_torch.objectives.classification, "
+            "mer_tpu_torch.ops.logmel, mer_tpu_torch.ops.logmel_kernel, mer_tpu_torch.data.audio_io, "
+            "mer_tpu_torch.data.synthetic, mer_tpu_torch.data.mel_fe, mer_tpu_torch.models.resnet, "
+            "mer_tpu_torch.models.convert, mer_tpu_torch.mining.triplet, mer_tpu_torch.objectives.embedding, "
+            "mer_tpu_torch.train.mel_solver, mer_tpu_torch.feature_extractors.audio_mel.train, "
+            "mer_tpu_torch.feature_extractors.audio_mel.embeddings, mer_tpu_torch.core.artifacts; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mer_tpu')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -59,6 +59,17 @@ DATA = dict(d_text=D, d_audio=D, mean_len=4.0, max_len=8)  # one length bucket: 
 LR = 5e-5
 
 
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    """Tests run in several worker processes at once; torch's default pool
+    (one thread per core in every worker) oversubscribes the cores. Two
+    threads per test, then restored."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _write_config(path, **solver):
     with open(os.path.join(REPO_ROOT, "src", "config.yaml")) as f:
         raw = yaml.safe_load(f)
@@ -310,23 +321,21 @@ def test_resume_two_plus_one_epochs_equals_three(setup, accum, first):
     state, step, best loss and patience restored): the same weights as 3
     epochs straight, bit for bit (f32, CPU). With accumulation 2 and 3 steps
     per epoch the checkpoint falls inside an accumulation window, whose
-    gradients it carries. The resumed run's batcher is advanced by the
-    epochs it did not run, as its shuffle state is not checkpointed."""
+    gradients it carries. The resumed run's batcher seeks its shuffle to
+    the epoch it resumes at."""
     tmp = str(setup["tmp"])
     cpu = torch.device("cpu")
     data = SyntheticFusionDataset(n_dialogues=24, seed=0, **DATA)
     resume = dict(epochs=3, grad_accum_steps=accum,
                   early_stopping={"enabled": True, "patience": 5, "restore_best_weights": True})
 
-    def run(name, epochs, load=False, skip=0):
+    def run(name, epochs, load=False):
         path = _fit_config(tmp, name, **resume)
         config = load_config(path)
         if load:
             config = config.override(checkpoint__load_checkpoint=True, checkpoint__load_path=load)
         config = config.override(solver__epochs=epochs)
         batcher = DeviceFusionBatcher(data, batch_size=BATCH, shuffle=True, seed=0, device=cpu)
-        for _ in range(skip):
-            list(batcher)
         val = DeviceFusionBatcher(data, batch_size=BATCH, sort_by_length=False, device=cpu)
         model = _port_model(path, setup["params"])
         state, history = Solver(model, config).fit(batcher, val)
@@ -336,8 +345,40 @@ def test_resume_two_plus_one_epochs_equals_three(setup, accum, first):
     config, _, _ = run(f"resumed{accum}", first)
     if accum == 2:
         assert load_checkpoint(config.checkpoint.save_path)["accumulated_grads"]
-    _, resumed, history = run(f"resumed{accum}", 3, load=config.checkpoint.save_path, skip=first)
+    _, resumed, history = run(f"resumed{accum}", 3, load=config.checkpoint.save_path)
     assert resumed.step == straight.step == 9 and history["loss_values"] == history3["loss_values"][first:]
+    for name, value in straight.model.state_dict().items():
+        torch.testing.assert_close(resumed.model.state_dict()[name], value, rtol=0, atol=0, msg=name)
+
+
+def test_resume_replays_dropout_and_shuffle(setup):
+    """Dropout 0.4 (``nn.Dropout`` and attention dropout), f32: 2 epochs, a
+    checkpoint, and a resumed third epoch give the losses (within 1e-6) and
+    the weights of 3 epochs straight. The dropout generators are seeded from
+    (seed, step) and the resumed batcher seeks its shuffle to epoch 2, so
+    nothing here advances it by hand."""
+    tmp = str(setup["tmp"])
+    cpu = torch.device("cpu")
+    data = SyntheticFusionDataset(n_dialogues=16, seed=0, **DATA)
+    resume = dict(epochs=3, early_stopping={"enabled": False, "patience": 5, "restore_best_weights": False})
+
+    def run(name, epochs, load=None):
+        config = load_config(_fit_config(tmp, name, **resume)).override(model__dropout=0.4, solver__epochs=epochs)
+        if load:
+            config = config.override(checkpoint__load_checkpoint=True, checkpoint__load_path=load)
+        batcher = DeviceFusionBatcher(data, batch_size=BATCH, shuffle=True, seed=0, device=cpu)
+        val = DeviceFusionBatcher(data, batch_size=BATCH, sort_by_length=False, device=cpu)
+        model = M2FNet.from_config(config.model)
+        model.load_state_dict(_port_model(setup["config"], setup["params"]).state_dict())
+        state, history = Solver(model, config).fit(batcher, val)
+        return config, state, history
+
+    _, straight, history3 = run("dropout_straight", 3)
+    config, _, history2 = run("dropout_resumed", 2)
+    _, resumed, history1 = run("dropout_resumed", 3, load=config.checkpoint.save_path)
+    assert resumed.step == straight.step == 6
+    np.testing.assert_allclose(history2["loss_values"] + history1["loss_values"], history3["loss_values"],
+                               rtol=0, atol=1e-6)
     for name, value in straight.model.state_dict().items():
         torch.testing.assert_close(resumed.model.state_dict()[name], value, rtol=0, atol=0, msg=name)
 
