@@ -5,10 +5,12 @@
 
 Drives the port's fusion serving and training paths at the full width of
 the default config (``src/config.yaml``: 768-wide, 8 heads, 6 + 6 encoder
-layers, 5 FAM layers; seeded random weights) and the mel feature
-extractor's training and export at its only shape (ResNet18 over [3, 1001,
-128] log-mel images of 10 s clips, 300-wide embeddings; seeded random
-weights), and fails on any fault:
+layers, 5 FAM layers; seeded random weights), the mel feature extractor's
+training and export at its only shape (ResNet18 over [3, 1001, 128] log-mel
+images of 10 s clips, 300-wide embeddings; seeded random weights) and the
+wav2vec2 feature extractor's export and evaluation at the full width and
+depth of ``Wav2Vec2Config.base()`` (7 convs of 512 channels, 12 layers of
+768, 12 heads; seeded random weights), and fails on any fault:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build every CUDA kernel from ``mer_tpu_torch/csrc``, one nvcc per source,
@@ -19,7 +21,11 @@ weights), and fails on any fault:
    exactly; K5 at [32, 64, 47 and 3 clips, 1001 or 37 frames, 400 taps],
    on the ``unfold`` view of reflect-padded clips and on materialised
    frames; time kernel, plain version and library call (K5's: the
-   torch.stft -> abs -> baddbmm -> log chain);
+   torch.stft -> abs -> baddbmm -> log chain); K7 and K6 at [32 clips, every
+   wave bucket 32,000 .. 160,000 samples] and at a ragged [2, 40,005]
+   (library: the F.conv1d + F.group_norm + F.gelu chain, and six F.conv1d +
+   F.gelu); K1 at the wav2vec2 encoder's shapes [32 or 2, 12, S, S, 64],
+   S = 99 .. 499, with padded keys;
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -49,8 +55,18 @@ weights), and fails on any fault:
    launches = one per batch of 32 of each split; [N, 300] finite unit-norm tables (1e-5) that ``load_embeddings``
    reads back; clips per second on the test split and one batch's eager vs
    device time;
+6d. wav2vec2 export: a seeded ``AudioERC`` checkpoint, then
+   ``mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings`` over the
+   three splits of that root in batches of 32 (per batch: K7 once, K6 once,
+   K1 12 times; no other kernel), [N, 768] finite tables that
+   ``load_embeddings`` reads back; clips per second on the test split and one
+   batch's eager vs device time with the shares of K6, K7 and K1; an f32 leg
+   that embeds the same batches through the kernels and through the plain
+   versions;
+6e. wav2vec2 evaluation: ``...audio_wav2vec2.test`` on the 2,608-clip test
+   split at the config's batch of 2 (1,304 forwards), finite loss and metrics;
 7. hold each kernel against its plain version again at every shape that
-   phases 4-6c gave it (recorded at each launch), in float32 and bfloat16
+   phases 4-6e gave it (recorded at each launch), in float32 and bfloat16
    (K5: float32, in both layouts);
 8. one ``{"kernels": [...]}`` line, whose times and bound are per launch,
    averaged over the main paths' launches at their own shapes (K5's bound
@@ -63,7 +79,11 @@ rtol |want|): K1 out f32 (2e-5, 0), bf16 (1e-2, 2**-8: the plain version
 runs on the f32 values of the bf16 inputs and is not rounded); lse 2e-5 in
 f32, 1e-3 in bf16. K2 f32 (1e-4, 1e-5), bf16 (2e-2, 2**-7: both round an f32
 value to bf16, one ulp apart at most). K5 f32 (1e-4, 1e-4) on the log
-values (tests/test_logmel_pallas.py:29's). Dropout masks: exact. Model logits in
+values (tests/test_logmel_pallas.py:29's). K7 f32 (1e-4, 1e-4: its variance is the
+one-pass E[y^2] - mean^2, tests/test_w2v_conv_pallas.py:71), K6 f32 (2e-5,
+2e-5, :35), both in bf16 within 2e-2 of the plain version's largest value
+(:44). wav2vec2 embeddings in f32, kernels against plain versions: 1e-3.
+Dropout masks: exact. Model logits in
 f32, kernel against plain attention: 1e-3. Parity leg after 3 steps: losses
 within 1e-4; every parameter within 2 x lr x 3 (Adam moves a parameter whose
 gradient is rounding noise by up to lr per step, in either direction).
@@ -74,6 +94,8 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import functools
+import itertools
 import json
 import math
 import os
@@ -91,19 +113,32 @@ HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DTYPE_NAMES = {0: "float32", 1: "bfloat16"}  # the kernels' dtype codes
+DTYPE_LABELS = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # (atol, rtol) per kernel output and dtype
 TOL = {
     ("fwd", "float32"): (2e-5, 0.0), ("fwd", "bfloat16"): (1e-2, 2.0 ** -8),
     ("lse", "float32"): (2e-5, 0.0), ("lse", "bfloat16"): (1e-3, 0.0),
     ("bwd", "float32"): (1e-4, 1e-5), ("bwd", "bfloat16"): (2e-2, 2.0 ** -7),
     ("logmel", "float32"): (1e-4, 1e-4),
+    ("w2v_layer0_gn", "float32"): (1e-4, 1e-4), ("w2v_conv_tail", "float32"): (2e-5, 2e-5),
 }
+W2V_BF16_REL = 2e-2  # K6 and K7 in bf16: |err| <= this x the plain version's largest value
 DROPOUT = 0.4  # the config's model.dropout
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"  # sources mer_tpu_torch/csrc/<name>.cu
 MEL = "logmel_fwd"
-KERNELS = (FWD, BWD, MEL)
+W2V0, W2V_TAIL = "w2v_layer0_gn", "w2v_conv_tail"  # K7, K6
+KERNELS = (FWD, BWD, MEL, W2V0, W2V_TAIL)
+ZERO = dict.fromkeys(KERNELS, 0)
 REPLACES = {FWD: "mer_tpu/ops/flash_attention.py:72", BWD: "mer_tpu/ops/flash_attention.py:270",
-            MEL: "mer_tpu/ops/logmel_pallas.py:78"}
+            MEL: "mer_tpu/ops/logmel_pallas.py:78", W2V0: "mer_tpu/ops/w2v_conv_pallas.py:194",
+            W2V_TAIL: "mer_tpu/ops/w2v_conv_pallas.py:135"}
+# K7 (clips, samples) and, through T0 = (samples - 10) // 5 + 1, K6 (clips, T0): the export batch at every
+# wave bucket, and a ragged length with an odd last tile
+W2V_BUCKETS = (32000, 64000, 96000, 128000, 160000)
+W2V_SHAPES = [(32, n) for n in W2V_BUCKETS] + [(2, 40005)]
+W2V_EXPORT_BATCH, W2V_LAYERS, W2V_HEADS = 32, 12, 12
+# K1 at the wav2vec2 encoder: (B, H, S, S, 64), S the frames of each bucket, export and evaluation batch
+W2V_ATTENTION_SHAPES = [(b, W2V_HEADS, s, s, 64) for b in (32, 2) for s in (99, 199, 299, 399, 499)]
 # K5: (clips, frames): the export batch, the cache chunk, a ragged chunk, a short clip
 MEL_SHAPES = [(32, 1001), (64, 1001), (47, 1001), (3, 37)]
 MEL_LAYOUTS = ("unfold", "contiguous")  # the strided view of the padded waveforms, or materialised frames
@@ -146,9 +181,9 @@ def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def eager_ms(fn, iters: int = 200) -> float:
+def eager_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     """Time per call issued eagerly from Python (host launch cost included)."""
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -233,14 +268,19 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int) -> dict:
     q, k, v, g, mask = attention_inputs(shape, DTYPES[dtype], seed=i)
     seed = dropout_seed(i, rate)
     out, lse = fa.flash_attention_forward(q, k, v, mask, seed, rate)
+    # the dialogue shapes take microseconds a call; the wav2vec2 encoder's take milliseconds
+    big = shape[0] * shape[1] * shape[2] * shape[3] > 1 << 24
+    time_device = functools.partial(device_ms, reps=4, replays=3) if big else device_ms
+    time_eager = functools.partial(eager_ms, iters=10, warmup=2) if big else eager_ms
     if kernel == FWD:
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask, seed, rate)
         errs = {"out": excess(out, ref_out, ("fwd", dtype)), "lse": excess(lse, ref_lse, ("lse", dtype))}
         max_abs_err = (out.float() - ref_out).abs().max().item()
+        del ref_out, ref_lse
         call = lambda: fa.flash_attention_forward(q, k, v, mask, seed, rate)
         plain = lambda: fa.flash_attention_reference(q, k, v, mask, seed, rate)
-        library = device_ms(lambda: sdpa_forward(q, k, v, mask, rate))
+        library = time_device(lambda: sdpa_forward(q, k, v, mask, rate))
     else:
         grads = fa.flash_attention_backward(q, k, v, mask, out, lse, g, seed, rate)
         torch.cuda.synchronize()
@@ -251,8 +291,8 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int) -> dict:
         plain = lambda: fa.flash_attention_backward_reference(q, k, v, mask, out, lse, g, seed, rate)
         library = library_backward_ms(q, k, v, mask, g, rate)
     row = {"kernel": kernel, "shape": shape, "dtype": dtype, "rate": rate, "max_abs_err": max_abs_err,
-           "excess": errs, "kernel_ms": device_ms(call), "kernel_eager_ms": eager_ms(call),
-           "plain_ms": device_ms(plain), "library_ms": library}
+           "excess": errs, "kernel_ms": time_device(call), "kernel_eager_ms": time_eager(call),
+           "plain_ms": time_device(plain), "library_ms": library}
     bytes_us, ops_us = attention_bound(kernel, shape, DTYPES[dtype])
     row.update(bound_bytes_us=bytes_us, bound_ops_us=ops_us, bound_us=max(bytes_us, ops_us),
                bound_by="bytes" if bytes_us >= ops_us else "operations")
@@ -380,22 +420,36 @@ def check_mel_case(lk, shape, i: int) -> dict:
 def main_path_run():
     """One counted run of a main path: the launch counts start at 0 and are
     read at the end into ``run``; every launch's shape, dtype and dropout
-    rate (K5: clips, frames and layout) is tallied in ``PATH_SHAPES`` from the
-    arguments the wrappers hand the kernels (the tally launches nothing)."""
+    rate (K5: clips, frames and layout; K7: clips and samples; K6: clips and
+    layer-0 frames) is tallied in ``PATH_SHAPES`` from the arguments the
+    wrappers hand the kernels (the tally launches nothing)."""
     from mer_tpu_torch.ops import flash_attention as fa
     from mer_tpu_torch.ops import logmel_kernel as lk
+    from mer_tpu_torch.ops import w2v_conv as wc
 
-    kernel_fn, mel_kernel_fn = fa._kernel_fn, lk._kernel_fn
+    kernel_fn, mel_kernel_fn, l0_kernel_fn, tail_kernel_fn = fa._kernel_fn, lk._kernel_fn, wc._l0_kernel_fn, \
+        wc._tail_kernel_fn
 
-    def mel_tallying():
-        fn = mel_kernel_fn()
+    def tallying_by(name, get_fn, case):
+        """``get_fn`` with every launch tallied under ``case(args)`` = (shape, dtype name)."""
 
-        def launch(*args):  # (frames, clip stride, frame stride, B, F, n_fft, ...)
-            layout = "contiguous" if args[2] == args[5] else "unfold"
-            PATH_SHAPES[(MEL, (args[3], args[4], layout), "float32", 0.0)] += 1
-            return fn(*args)
+        def patched():
+            fn = get_fn()
 
-        return launch
+            def launch(*args):
+                PATH_SHAPES[(name, *case(args), 0.0)] += 1
+                return fn(*args)
+
+            return launch
+
+        return patched
+
+    # K5 (frames, clip stride, frame stride, B, F, n_fft, ...); K7 (dtype, 7 pointers, B, L, ...);
+    # K6 (dtype, 6 pointers, B, T0, stream)
+    mel_tallying = tallying_by(MEL, mel_kernel_fn, lambda a: (
+        (a[3], a[4], "contiguous" if a[2] == a[5] else "unfold"), "float32"))
+    l0_tallying = tallying_by(W2V0, l0_kernel_fn, lambda a: ((a[8], a[9]), DTYPE_NAMES[a[0]]))
+    tail_tallying = tallying_by(W2V_TAIL, tail_kernel_fn, lambda a: ((a[7], a[8]), DTYPE_NAMES[a[0]]))
 
     def tallying(name, n_pointers):
         fn = kernel_fn(name, n_pointers)
@@ -409,12 +463,16 @@ def main_path_run():
 
         return launch
 
+    wrappers = {FWD: fa.flash_attention_forward, BWD: fa.flash_attention_backward, MEL: lk.logmel_frames,
+                W2V0: wc.layer0_gn, W2V_TAIL: wc.conv_stack_fused}
     run = {}
-    fa.flash_attention_forward.launches = fa.flash_attention_backward.launches = lk.logmel_frames.launches = 0
-    with mock.patch.object(fa, "_kernel_fn", tallying), mock.patch.object(lk, "_kernel_fn", mel_tallying):
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    with mock.patch.object(fa, "_kernel_fn", tallying), mock.patch.object(lk, "_kernel_fn", mel_tallying), \
+            mock.patch.object(wc, "_l0_kernel_fn", l0_tallying), \
+            mock.patch.object(wc, "_tail_kernel_fn", tail_tallying):
         yield run
-    run[FWD], run[BWD] = fa.flash_attention_forward.launches, fa.flash_attention_backward.launches
-    run[MEL] = lk.logmel_frames.launches
+    run.update({name: wrapper.launches for name, wrapper in wrappers.items()})
 
 
 @contextlib.contextmanager
@@ -459,7 +517,7 @@ def offline_phase(fa, card: str) -> dict:
             launches += run[FWD]
             log(f"offline {extra or 'batch 32'}: {json.dumps(summary)}; kernel launches {run[FWD]} "
                 f"= {per_forward} x {n_forward} forwards")
-            if run[FWD] != per_forward * n_forward or run[BWD] or run[MEL]:
+            if run != {**ZERO, FWD: per_forward * n_forward}:
                 raise AssertionError(f"expected {per_forward * n_forward} attention launches, got {run}")
 
         f32 = build_model(config.override(tpu__compute_dtype="float32"), torch.device("cuda"), checkpoint=ckpt)
@@ -518,18 +576,26 @@ def attention_calls_per_forward(config) -> int:
 
 def kernel_profile(fn) -> tuple[dict[str, float], int]:
     """Device time (us) by kernel name over one call, and the number of
-    kernels it ran (copies and memsets left out), from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels it ran (copies and memsets left out), from torch.profiler. The
+    tracer can miss the first launches after it starts, so the window holds a
+    warm-up call first, and only what starts inside the marked second call
+    counts."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
-    torch.cuda.synchronize()
+    marker = "chip_smoke measured call"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        with record_function(marker):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    marks = [e.time_range for e in events if e.name == marker and e.device_type == torch.autograd.DeviceType.CPU]
     totals: dict[str, float] = {}
     count = 0
-    for e in prof.events():  # user annotations (Optimizer.step) span kernels already counted
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+    for e in events:  # user annotations (Optimizer.step, the marker) span kernels already counted
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False) \
+                and marks and marks[0].start <= e.time_range.start <= marks[0].end:
             totals[e.name] = totals.get(e.name, 0.0) + e.time_range.elapsed_us()
             count += not e.name.startswith(("Memcpy", "Memset"))
     return totals, count
@@ -540,12 +606,12 @@ def log_profile(kernels: dict[str, float], count: int) -> None:
         log("  profiler: no device activity recorded (kernel breakdown not measured)")
         return
     busy = sum(kernels.values())
-    k1 = sum(t for n, t in kernels.items() if "flash_attention_fwd" in n)
-    k2 = sum(t for n, t in kernels.items() if "flash_attention_bwd" in n)
-    k5 = sum(t for n, t in kernels.items() if "logmel_fwd" in n)
+    share = lambda fragment: sum(t for n, t in kernels.items() if fragment in n) / busy
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {k1 / busy}, K2 share {k2 / busy}, "
-        f"K5 share {k5 / busy}; top: " + "; ".join(f"{n[:60]} {t} us" for n, t in top))
+    log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {share('flash_attention_fwd')}, "
+        f"K2 share {share('flash_attention_bwd')}, K5 share {share('logmel_fwd')}, "
+        f"K6 share {share('w2v_conv_s2_gelu')}, K7 share {share('w2v_layer0')}; top: "
+        + "; ".join(f"{n[:60]} {t} us" for n, t in top))
 
 
 def training_phase(fa, card: str) -> dict:
@@ -578,7 +644,7 @@ def training_phase(fa, card: str) -> dict:
         seconds = time.perf_counter() - t0
         _, batchers, solver = build(parse_args(argv))
         steps, val_batches = TRAIN_EPOCHS * len(batchers["train"]), TRAIN_EPOCHS * len(batchers["val"])
-        want = {FWD: per_forward * (steps + val_batches), BWD: per_forward * steps, MEL: 0}
+        want = {**ZERO, FWD: per_forward * (steps + val_batches), BWD: per_forward * steps}
         losses = history["loss_values"]
         log(f"training: {TRAIN_EPOCHS} epochs of {len(batchers['train'])} steps in {seconds} s (model build, "
             f"checkpoints and validation included); losses {json.dumps(history)}; launches {run} "
@@ -680,7 +746,7 @@ def mel_training_phase(lk, card: str, root: str, cfg: str) -> int:
     config, solver = build_solver(parse_args(argv))
     n_train, n_val = len(solver.data_train), len(solver.data_val)
     steps = n_train // MEL_BATCH
-    want = {FWD: 0, BWD: 0, MEL: math.ceil(n_train / 64) + math.ceil(n_val / 64)}
+    want = {**ZERO, MEL: math.ceil(n_train / 64) + math.ceil(n_val / 64)}
     log(f"mel training: {n_train} train / {n_val} val clips, {MEL_EPOCHS} epochs of {steps} steps of "
         f"[{3 * MEL_BATCH}, 3, 1001, 128] f32 in {seconds} s (caches, validation, checkpoints included); "
         f"losses {json.dumps(history)}; launches {run} (want {want}: one K5 per cache chunk of 64, none in a step)")
@@ -771,7 +837,7 @@ def mel_export_phase(lk, card: str, root: str, cfg: str, tmp: str) -> int:
     seconds = time.perf_counter() - t0
     sizes = {mode: len(get_text(mode, root)) for mode in tables}
     batch = int(load_config(cfg).test.data_loader.batch_size)
-    want = {FWD: 0, BWD: 0, MEL: sum(math.ceil(n / batch) for n in sizes.values())}
+    want = {**ZERO, MEL: sum(math.ceil(n / batch) for n in sizes.values())}
     log(f"mel export: splits {sizes} in {seconds} s = {sum(sizes.values()) / seconds} clips/s (model load "
         f"included); launches {run} (want {want}: one K5 per batch of {batch})")
     if run != want or sizes["test"] != 2608:
@@ -813,6 +879,252 @@ def mel_export_phase(lk, card: str, root: str, cfg: str, tmp: str) -> int:
     return run[MEL]
 
 
+# -- the wav2vec2 feature extractor (stage 1b): export and evaluation ------------------
+
+
+def w2v_waveforms(b: int, n_samples: int, seed: int) -> torch.Tensor:
+    """[b, n_samples] f32 on the card: tone + noise clips (the synthetic MELD
+    root's recipe) of ragged lengths, the first one full, zero past each end."""
+    gen = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(n_samples // 4, n_samples + 1, (b,), generator=gen)
+    lengths[0] = n_samples
+    t = torch.arange(n_samples, dtype=torch.float32) / 16000
+    freq = 150 + 650 * torch.rand(b, 1, generator=gen)
+    audio = 0.4 * torch.sin(2 * math.pi * freq * t) + 0.05 * torch.randn(b, n_samples, generator=gen)
+    return torch.where(torch.arange(n_samples) < lengths[:, None], audio, 0.0).cuda()
+
+
+def w2v_bound(kernel: str, shape, dtype) -> tuple[float, float]:
+    """Least time (us) of one K7 or K6 call from bytes at the HBM rate (each
+    input read once, each output written once) and from the conv products'
+    FLOPs at the dense peak of the dtype; the bound is the larger. K7 (clips,
+    samples): wave, taps, gamma, beta in, [B, T0, 512] out; 2 x 10 x 512 per
+    frame, and 8 per value for the statistics, the affine and the GELU (the
+    erf as one). K6 (clips, T0): [B, T0, 512] and the 16 x 512 x 512 weights
+    in, [B, T6, 512] out; 2 x k x 512 x 512 per frame of each layer."""
+    from mer_tpu_torch.ops import w2v_conv as wc
+
+    esize = torch.tensor([], dtype=dtype).element_size()
+    c = wc.CHANNELS
+    if kernel == W2V0:
+        b, n = shape
+        t0 = wc.conv_out_length(n, wc.L0_TAPS, wc.L0_STRIDE)
+        nbytes = (b * n + wc.L0_TAPS * c + b * t0 * c) * esize + 2 * c * 4
+        flops = b * t0 * c * (2 * wc.L0_TAPS + 8)
+    else:
+        b, t0 = shape
+        lengths = wc.tail_lengths(t0)
+        nbytes = (b * t0 * c + sum(wc.TAIL_TAPS) * c * c + b * lengths[-1] * c) * esize
+        flops = 2 * c * c * b * sum(k * t for k, t in zip(wc.TAIL_TAPS, lengths))
+    return nbytes / HBM_BYTES_PER_S * 1e6, flops / PEAK_FLOPS[dtype] * 1e6
+
+
+def check_w2v_case(wc, frontend, kernel: str, shape, dtype_name: str, i: int) -> dict:
+    """K7 at (clips, samples) or K6 at (clips, layer-0 frames) against its
+    plain version on the card, with times; raises on a disagreement. The
+    weights are the seeded model's (``frontend``: its conv feature extractor
+    on the card); K6 is fed K7's output at the sample count that gives its
+    frame count. The library yardstick runs the same chain in the compute
+    dtype, channels first, and is used nowhere in the port."""
+    import torch.nn.functional as F
+
+    dtype = DTYPES[dtype_name]
+    first = frontend.conv_layers[0]
+    w0, gamma, beta = first.conv.weight.detach(), first.layer_norm.weight.detach(), first.layer_norm.bias.detach()
+    tail_w = [layer.conv.weight.detach() for layer in frontend.conv_layers[1:]]
+    b = shape[0]
+    n = shape[1] if kernel == W2V0 else wc.L0_STRIDE * (shape[1] - 1) + wc.L0_TAPS
+    wave = w2v_waveforms(b, n, seed=2000 + i)
+    if kernel == W2V0:
+        call = lambda: wc.layer0_gn(wave, w0, gamma, beta, dtype=dtype)
+        plain = lambda: wc.layer0_gn_reference(wave, w0, gamma, beta, dtype=dtype)
+        wave_c, w0_c, gamma_c, beta_c = wave.to(dtype)[:, None, :], w0.to(dtype), gamma.to(dtype), beta.to(dtype)
+        library = lambda: F.gelu(F.group_norm(F.conv1d(wave_c, w0_c, stride=wc.L0_STRIDE), wc.CHANNELS, gamma_c,
+                                              beta_c, first.layer_norm.eps))
+        library_name = "F.conv1d -> F.group_norm -> F.gelu in the compute dtype, [B, 512, T0], a 3-call chain"
+    else:
+        x0 = wc.layer0_gn(wave, w0, gamma, beta, dtype=dtype)
+        if x0.shape[1] != shape[1]:
+            raise AssertionError(f"{n} samples gave {x0.shape[1]} layer-0 frames, want {shape[1]}")
+        call = lambda: wc.conv_stack_fused(x0, tail_w)
+        plain = lambda: wc.conv_tail_reference(x0, tail_w)
+        x0_c, tail_c = x0.transpose(1, 2).contiguous(), [w.to(dtype) for w in tail_w]
+
+        def library():
+            x = x0_c
+            for w in tail_c:
+                x = F.gelu(F.conv1d(x, w, stride=2))
+            return x
+
+        library_name = "6 x (F.conv1d -> F.gelu) in the compute dtype, [B, 512, T], a 12-call chain"
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    diff = (got.float() - want.float()).abs()
+    if dtype_name == "float32":
+        atol, rtol = TOL[(kernel, dtype_name)]
+        errs = {"out": (diff - atol - rtol * want.abs()).max().item()}
+    else:
+        errs = {"out": diff.max().item() - W2V_BF16_REL * want.float().abs().max().item()}
+    row = {"kernel": kernel, "shape": shape, "dtype": dtype_name, "rate": 0.0, "max_abs_err": diff.max().item(),
+           "largest_value": want.float().abs().max().item(), "excess": errs,
+           "finite": bool(torch.isfinite(got.float()).all())}
+    del got, want, diff
+    time_device = functools.partial(device_ms, reps=2, replays=3)
+    row.update(kernel_ms=time_device(call), kernel_eager_ms=eager_ms(call, iters=3, warmup=1),
+               plain_ms=time_device(plain), library_ms=time_device(library), library=library_name)
+    bytes_us, ops_us = w2v_bound(kernel, shape, dtype)
+    row.update(bound_bytes_us=bytes_us, bound_ops_us=ops_us, bound_us=max(bytes_us, ops_us),
+               bound_by="bytes" if bytes_us >= ops_us else "operations")
+    log("kernel " + json.dumps(row))
+    torch.cuda.empty_cache()  # the plain versions' f32 intermediates
+    if not (errs["out"] <= 0 and row["finite"]):
+        raise AssertionError(f"{kernel} disagrees with its plain version at {shape} {dtype_name}: "
+                             f"excess over tolerance {errs}")
+    return row
+
+
+@contextlib.contextmanager
+def plain_w2v_conv(wc):
+    """The conv frontend through the plain versions instead of K7 and K6."""
+    with mock.patch.object(wc, "layer0_gn", wc.layer0_gn_reference), \
+            mock.patch.object(wc, "conv_stack_fused", wc.conv_tail_reference):
+        yield
+
+
+def w2v_config(tmp: str) -> str:
+    """audio_wav2vec2/config.yaml, unchanged but for the checkpoint under ``tmp``."""
+    import yaml
+
+    from mer_tpu_torch.core import load_config
+    from mer_tpu_torch.feature_extractors.audio_wav2vec2 import W2V_CONFIG_PATH
+
+    path = os.path.join(tmp, "w2v.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(load_config(W2V_CONFIG_PATH).override(
+            checkpoint__save_path=os.path.join(tmp, "w2v_ckpt", "checkpoint.ckpt")).to_dict(), f)
+    return path
+
+
+def w2v_phase(fa, wc, card: str, root: str, tmp: str, model) -> dict:
+    """Phases 6d and 6e; returns the launches of the two wav2vec2 entry points."""
+    from mer_tpu_torch.core import get_text, load_config, load_embeddings
+    from mer_tpu_torch.data.wav2vec2_fe import Wav2Vec2Batcher, Wav2Vec2FeatureDataset, w2v_batch_to_inputs
+    from mer_tpu_torch.feature_extractors.audio_wav2vec2 import embeddings as w2v_embeddings
+    from mer_tpu_torch.feature_extractors.audio_wav2vec2 import test as w2v_test
+    from mer_tpu_torch.models import save_reference_checkpoint
+
+    cfg = w2v_config(tmp)
+    config = load_config(cfg)
+    os.makedirs(os.path.dirname(config.checkpoint.save_path))
+    save_reference_checkpoint(config.checkpoint.save_path, model)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"wav2vec2: AudioERC base config, {n_params} parameters, seeded checkpoint "
+        f"{os.path.getsize(config.checkpoint.save_path)} bytes")
+    argv = ["--config", cfg, "--data-root", root, "--random-init"]
+    per_batch = {**ZERO, W2V0: 1, W2V_TAIL: 1, FWD: W2V_LAYERS}
+    launches = dict(ZERO)
+
+    # 6d. export: the three splits, bf16 (the config's compute dtype)
+    save_dir = os.path.join(tmp, "embeddings_w2v")
+    t0 = time.perf_counter()
+    with main_path_run() as run:
+        tables = w2v_embeddings.main(argv, save_dir=save_dir)
+    seconds = time.perf_counter() - t0
+    sizes = {mode: len(get_text(mode, root)) for mode in tables}
+    n_batches = sum(math.ceil(n / W2V_EXPORT_BATCH) for n in sizes.values())
+    want = {name: n * n_batches for name, n in per_batch.items()}
+    log(f"wav2vec2 export: splits {sizes} in {seconds} s = {sum(sizes.values()) / seconds} clips/s (model build and "
+        f"load included); launches {run} (want {want}: per batch of {W2V_EXPORT_BATCH} K7 once, K6 once, K1 "
+        f"{W2V_LAYERS} times)")
+    if run != want or sizes["test"] != 2608:
+        raise AssertionError(f"wav2vec2 export launches {run}, want {want}; test split {sizes['test']} clips")
+    for mode, table in tables.items():
+        back = load_embeddings(os.path.join(save_dir, f"{mode}.pkl"))
+        log(f"wav2vec2 export {mode}: {table.shape} {table.dtype}, finite {bool(np.isfinite(table).all())}, "
+            f"mean |x| {float(np.abs(table).mean())}")
+        if table.shape != (sizes[mode], 768) or table.dtype != np.float32 or not np.isfinite(table).all() \
+                or not np.abs(table).sum(axis=1).all() or not np.array_equal(back, table):
+            raise AssertionError(f"wav2vec2 export {mode}: bad table")
+    for name in KERNELS:
+        launches[name] += run[name]
+
+    # 6e. evaluation: the test split at the config's batch size
+    batch = int(config.test.data_loader.batch_size)
+    t0 = time.perf_counter()
+    with main_path_run() as run:
+        result = w2v_test.main(argv)
+    seconds = time.perf_counter() - t0
+    n_batches = math.ceil(sizes["test"] / batch)
+    want = {name: n * n_batches for name, n in per_batch.items()}
+    log(f"wav2vec2 evaluation: {sizes['test']} clips in {n_batches} batches of {batch} in {seconds} s = "
+        f"{sizes['test'] / seconds} clips/s (model build and load included): {json.dumps(result)}; launches {run} "
+        f"(want {want})")
+    if run != want or not all(math.isfinite(v) for v in result.values()) or not 0 <= result["accuracy"] <= 1:
+        raise AssertionError(f"wav2vec2 evaluation launches {run}, want {want}; result {result}")
+    for name in KERNELS:
+        launches[name] += run[name]
+
+    # throughput of the export on the test split alone, from a fresh wav store
+    for dtype in (torch.bfloat16, torch.float32):
+        model.set_compute_dtype(dtype)
+        w2v_embeddings.export_split(model, Wav2Vec2FeatureDataset("val", data_root=root))  # warm-up
+        test = Wav2Vec2FeatureDataset("test", data_root=root)
+        widths = collections.Counter(b["audio"].shape[1] for b in Wav2Vec2Batcher(test, W2V_EXPORT_BATCH))
+        test = Wav2Vec2FeatureDataset("test", data_root=root)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w2v_embeddings.export_split(model, test)  # ends in a device-to-host fetch
+        seconds = time.perf_counter() - t0
+        log(f"wav2vec2 export {DTYPE_LABELS[dtype]} test split: {len(test)} clips (wav decode, K7, K6, 12 layers) in "
+            f"{seconds * 1e3} ms = {len(test) / seconds} clips/s; batch widths {dict(sorted(widths.items()))} ({card})")
+
+    # one export batch: eager against device time, and where the device time goes
+    model.set_compute_dtype(torch.bfloat16)
+    batches = list(Wav2Vec2Batcher(Wav2Vec2FeatureDataset("test", data_root=root), W2V_EXPORT_BATCH))
+    widest = max(batches, key=lambda b: b["audio"].shape[1])
+    inputs = w2v_batch_to_inputs(widest, "cuda")
+    with torch.inference_mode():
+        step = lambda: model.embed(*inputs)
+        eager = eager_ms(step, iters=5, warmup=2)
+        device = device_ms(step, reps=1, replays=5)
+        kernels, count = kernel_profile(step)
+    log(f"wav2vec2 export batch bf16 {tuple(inputs[0].shape)}: eager {eager} ms, device-only (CUDA graph replay) "
+        f"{device} ms, device idle share of the eager batch {1 - device / eager} ({card})")
+    log_profile(kernels, count)
+    # one evaluation batch, at the width most of the first 64 have
+    firsts = list(itertools.islice(Wav2Vec2Batcher(Wav2Vec2FeatureDataset("test", data_root=root), batch), 64))
+    common = collections.Counter(b["audio"].shape[1] for b in firsts).most_common(1)[0][0]
+    inputs = w2v_batch_to_inputs(next(b for b in firsts if b["audio"].shape[1] == common), "cuda")
+    with torch.inference_mode():
+        step = lambda: model(*inputs)
+        eager = eager_ms(step, iters=20, warmup=3)
+        device = device_ms(step, reps=1, replays=10)
+        kernels, count = kernel_profile(step)
+    log(f"wav2vec2 evaluation batch bf16 {tuple(inputs[0].shape)}: eager {eager} ms, device-only (CUDA graph replay) "
+        f"{device} ms, device idle share of the eager batch {1 - device / eager} ({card})")
+    log_profile(kernels, count)
+
+    # f32: the same batches through the kernels and through the plain versions
+    model.set_compute_dtype(torch.float32)
+    eval_batches = list(Wav2Vec2Batcher(Wav2Vec2FeatureDataset("val", data_root=root), batch))[:2]
+    worst = 0.0
+    with torch.inference_mode():
+        for b in [min(batches, key=lambda b: b["audio"].shape[1]), widest, *eval_batches]:
+            args = w2v_batch_to_inputs(b, "cuda")
+            with_kernels = model.embed(*args)
+            with plain_w2v_conv(wc), plain_attention(fa):
+                with_plain = model.embed(*args)
+            err = (with_kernels - with_plain).abs().max().item()
+            worst = max(worst, err)
+            log(f"wav2vec2 f32 embeddings {tuple(args[0].shape)} -> {tuple(with_kernels.shape)}, kernels (K7, K6, K1) "
+                f"vs plain versions: max abs diff {err}, largest value {with_plain.abs().max().item()} (tol 1e-3)")
+            torch.cuda.empty_cache()
+    if not worst <= 1e-3:
+        raise AssertionError(f"f32 embeddings through the kernels differ from the plain versions by {worst}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs one NVIDIA card")
@@ -821,8 +1133,10 @@ def main() -> None:
     from mer_tpu_torch.core import CONFIG_PATH, load_config
     from mer_tpu_torch.data import write_synthetic_meld
     from mer_tpu_torch.ops import _build
+    from mer_tpu_torch.models.wav2vec2 import audio_erc_from_seed
     from mer_tpu_torch.ops import flash_attention as fa
     from mer_tpu_torch.ops import logmel_kernel as lk
+    from mer_tpu_torch.ops import w2v_conv as wc
 
     # 1. device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -848,15 +1162,26 @@ def main() -> None:
         check_dropout_masks(fa, 32, 8, s, s)
     rows += [check_mel_case(lk, (b, f, layout), len(rows) + i)
              for i, (b, f, layout) in enumerate((b, f, layout) for b, f in MEL_SHAPES for layout in MEL_LAYOUTS)]
+    # K7 and K6 with the seeded wav2vec2 model's conv weights; K1 at its encoder's shapes
+    w2v_model = audio_erc_from_seed(0).cuda().eval()
+    frontend = w2v_model.wav2vec2.feature_extractor
+    for b, n in W2V_SHAPES:
+        for dtype in DTYPES:
+            rows.append(check_w2v_case(wc, frontend, W2V0, (b, n), dtype, len(rows)))
+            t0 = wc.conv_out_length(n, wc.L0_TAPS, wc.L0_STRIDE)
+            rows.append(check_w2v_case(wc, frontend, W2V_TAIL, (b, t0), dtype, len(rows)))
+    rows += [check_case(fa, FWD, shape, dtype, 0.0, len(rows) + i)
+             for i, (shape, dtype) in enumerate((shape, dtype) for shape in W2V_ATTENTION_SHAPES for dtype in DTYPES)]
 
     # 4. offline evaluation, 5. online serving, 6. training: counts start at 0 for each path
-    launches = {FWD: offline_phase(fa, card), BWD: 0, MEL: 0}
+    launches = {**ZERO, FWD: offline_phase(fa, card)}
     per_forward = attention_calls_per_forward(load_config(CONFIG_PATH))
     for n_requests in ONLINE_REQUESTS:
         with main_path_run() as run:
             report = serve_entry.main(["--synthetic", "--requests", str(n_requests)])
         log(f"online {n_requests} requests: {run[FWD]} kernel launches, {report['batches']} micro-batches ({card})")
-        if report["requests"] != n_requests or run[FWD] == 0 or run[FWD] % per_forward or run[BWD] or run[MEL]:
+        if report["requests"] != n_requests or run[FWD] == 0 or run[FWD] % per_forward \
+                or run != {**ZERO, FWD: run[FWD]}:
             raise AssertionError(f"online serving answered {report['requests']}/{n_requests} requests "
                                  f"with launches {run}")
         launches[FWD] += run[FWD]
@@ -871,6 +1196,11 @@ def main() -> None:
         cfg = mel_config(tmp)
         launches[MEL] += mel_training_phase(lk, card, root, cfg)
         launches[MEL] += mel_export_phase(lk, card, root, cfg, tmp)
+        # 6d. wav2vec2 export, 6e. wav2vec2 evaluation, on the same root
+        for name, n in w2v_phase(fa, wc, card, root, tmp, w2v_model).items():
+            launches[name] += n
+    del w2v_model
+    torch.cuda.empty_cache()
     for name in KERNELS:
         tallied = sum(n for (kernel, *_), n in PATH_SHAPES.items() if kernel == name)
         if tallied != launches[name]:
@@ -879,11 +1209,16 @@ def main() -> None:
     # 7. kernels against their plain versions at every case the paths gave them
     checked = {(r["kernel"], r["shape"], r["dtype"], r["rate"]) for r in rows}
     more = {(kernel, shape, dtype, rate) for kernel, shape, _, rate in PATH_SHAPES if kernel != MEL
-            for dtype in DTYPES}
+            for dtype in DTYPES}  # K1, K2, K6, K7: both dtypes at every shape
     more |= {(MEL, (*shape[:2], layout), "float32", 0.0) for kernel, shape, _, _ in PATH_SHAPES if kernel == MEL
              for layout in MEL_LAYOUTS}
     for i, (kernel, shape, dtype, rate) in enumerate(sorted(more - checked), len(rows)):
-        rows.append(check_mel_case(lk, shape, i) if kernel == MEL else check_case(fa, kernel, shape, dtype, rate, i))
+        if kernel == MEL:
+            rows.append(check_mel_case(lk, shape, i))
+        elif kernel in (W2V0, W2V_TAIL):
+            rows.append(check_w2v_case(wc, frontend, kernel, shape, dtype, i))
+        else:
+            rows.append(check_case(fa, kernel, shape, dtype, rate, i))
     for b, h, sq, sk in sorted({shape[:4] for (kernel, shape, _, rate) in PATH_SHAPES if rate}):
         check_dropout_masks(fa, b, h, sq, sk)
     by_case = {(r["kernel"], r["shape"], r["dtype"], r["rate"]): r for r in rows}
@@ -914,7 +1249,7 @@ def main() -> None:
             "bound_by": "bytes" if total["bound_bytes_us"] >= total["bound_ops_us"] else "operations",
             "library_ms": total["library_ms"] / n,
             **({"dense_floor_ms": total["dense_floor_us"] / 1e3 / n} if name == MEL else {}),
-            "shapes": {f"{dtype} {'x'.join(map(str, shape))}" + ("" if name == MEL else f" dropout {rate}"): c
+            "shapes": {f"{dtype} {'x'.join(map(str, shape))}" + (f" dropout {rate}" if name in (FWD, BWD) else ""): c
                        for (_, shape, dtype, rate), c in sorted(path.items())},
             "cases_checked": sum(r["kernel"] == name for r in rows),
             "card": card,

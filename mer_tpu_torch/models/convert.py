@@ -8,7 +8,9 @@ leading layer axis, unstacked here in numpy.
 :func:`adam_state_from_jax` does the same for its optax Adam state, so a
 run resumes in the port from ``mer_tpu``'s optimizer state.
 :func:`mel_state_dict_from_jax` carries a ``mer_tpu`` mel extractor (params
-and BatchNorm stats) over to the port's torchvision-layout ResNet18.
+and BatchNorm stats) over to the port's torchvision-layout ResNet18, and
+:func:`audio_state_dict_from_jax` a ``mer_tpu`` wav2vec2 ``AudioERC`` to the
+port's, under Hugging Face's key names.
 :func:`load_reference_checkpoint` reads ``torch.save({'epoch',
 'model_state_dict'})`` files (reference src/train.py:163-168).
 """
@@ -129,6 +131,47 @@ def mel_state_dict_from_jax(params_np: Mapping, batch_stats_np: Mapping) -> dict
                 bn(bp["downsample_bn"], bs["downsample_bn"], f"{prefix}downsample.1.")
     _linear(p["fc"], "resnet18.fc.", out)
     _linear(params_np["projector"], "projector.1.", out)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # copies: writable, contiguous
+
+
+def audio_state_dict_from_jax(params_np: Mapping) -> dict[str, torch.Tensor]:
+    """``mer_tpu``'s ``AudioERC`` params (nested dicts of numpy arrays) -> the
+    port's ``state_dict``: the inverse of ``convert_hf_wav2vec2``
+    (``mer_tpu/models/wav2vec2.py:392``), so the backbone carries Hugging
+    Face's names under ``wav2vec2.``. Conv kernels [k, in, out] -> [out, in, k]
+    (the positional conv's as a folded ``weight``), Dense kernels transposed,
+    the GroupNorm as ``conv_layers.0.layer_norm``. Both encoder layouts are
+    read: unrolled ``layer_{i}`` and scan-stacked ``layers_scan/layer``."""
+    out: dict[str, np.ndarray] = {}
+
+    def conv(node: Mapping, prefix: str) -> None:
+        out[f"{prefix}weight"] = _np(node["kernel"]).transpose(2, 1, 0)
+        if "bias" in node:
+            out[f"{prefix}bias"] = _np(node["bias"])
+
+    backbone, prefix = params_np["wav2vec2"], "wav2vec2."
+    fe = backbone["feature_extractor"]
+    for i in range(sum(k.startswith("conv_") for k in fe)):
+        conv(fe[f"conv_{i}"], f"{prefix}feature_extractor.conv_layers.{i}.conv.")
+    _layernorm(fe["group_norm"], f"{prefix}feature_extractor.conv_layers.0.layer_norm.", out)
+    _layernorm(backbone["feature_projection_norm"], f"{prefix}feature_projection.layer_norm.", out)
+    _linear(backbone["feature_projection"], f"{prefix}feature_projection.projection.", out)
+    conv(backbone["pos_conv_embed"]["conv"], f"{prefix}encoder.pos_conv_embed.conv.")
+    _layernorm(backbone["encoder_layer_norm"], f"{prefix}encoder.layer_norm.", out)
+    if "layers_scan" in backbone:
+        layers = _unstack(backbone["layers_scan"]["layer"])
+    else:
+        layers = [backbone[f"layer_{i}"] for i in range(sum(k.startswith("layer_") for k in backbone))]
+    for i, layer in enumerate(layers):
+        p = f"{prefix}encoder.layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(layer[name], f"{p}attention.{name}.", out)
+        _layernorm(layer["layer_norm"], f"{p}layer_norm.", out)
+        _linear(layer["intermediate"], f"{p}feed_forward.intermediate_dense.", out)
+        _linear(layer["output"], f"{p}feed_forward.output_dense.", out)
+        _layernorm(layer["final_layer_norm"], f"{p}final_layer_norm.", out)
+    _linear(params_np["head_dense"], "head_dense.", out)
+    _linear(params_np["head_out"], "head_out.", out)
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # copies: writable, contiguous
 
 

@@ -1,4 +1,6 @@
-"""Attention op and the port's hand-written kernels."""
+"""Attention op and the port's hand-written kernels (attention forward and
+backward here; the log-mel kernel in ``logmel_kernel``, the wav2vec2 conv
+frontend's in ``w2v_conv``)."""
 
 from mer_tpu_torch.ops.attention import dot_product_attention
 from mer_tpu_torch.ops.flash_attention import (

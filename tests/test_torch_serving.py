@@ -144,7 +144,11 @@ def test_port_imports_neither_jax_nor_mer_tpu():
             "mer_tpu_torch.data.synthetic, mer_tpu_torch.data.mel_fe, mer_tpu_torch.models.resnet, "
             "mer_tpu_torch.models.convert, mer_tpu_torch.mining.triplet, mer_tpu_torch.objectives.embedding, "
             "mer_tpu_torch.train.mel_solver, mer_tpu_torch.feature_extractors.audio_mel.train, "
-            "mer_tpu_torch.feature_extractors.audio_mel.embeddings, mer_tpu_torch.core.artifacts; "
+            "mer_tpu_torch.feature_extractors.audio_mel.embeddings, mer_tpu_torch.core.artifacts, "
+            "mer_tpu_torch.ops.w2v_conv, mer_tpu_torch.models.wav2vec2, mer_tpu_torch.data.wav2vec2_fe, "
+            "mer_tpu_torch.train.fe_solver, mer_tpu_torch.feature_extractors.fe_common, "
+            "mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings, "
+            "mer_tpu_torch.feature_extractors.audio_wav2vec2.test; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mer_tpu')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
