@@ -8,9 +8,14 @@ the default config (``src/config.yaml``: 768-wide, 8 heads, 6 + 6 encoder
 layers, 5 FAM layers; seeded random weights), the mel feature extractor's
 training and export at its only shape (ResNet18 over [3, 1001, 128] log-mel
 images of 10 s clips, 300-wide embeddings; seeded random weights) and the
-wav2vec2 feature extractor's export and evaluation at the full width and
-depth of ``Wav2Vec2Config.base()`` (7 convs of 512 channels, 12 layers of
-768, 12 heads; seeded random weights), and fails on any fault:
+wav2vec2 feature extractor's export, evaluation and fine-tuning at the full
+width and depth of ``Wav2Vec2Config.base()`` (7 convs of 512 channels, 12
+layers of 768, 12 heads; seeded random weights), its conv frontend's profile
+entry point, and the text feature extractor's fine-tuning, evaluation and
+export at the full width and depth of RoBERTa-base (12 layers of 768, 12
+heads of 64, vocabulary 50,265; seeded random weights, the hash tokenizer),
+and fails on any fault. The script runs itself under ``PYTHONHASHSEED=0``, so
+that two runs see the same tokens:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build every CUDA kernel from ``mer_tpu_torch/csrc``, one nvcc per source,
@@ -24,6 +29,8 @@ depth of ``Wav2Vec2Config.base()`` (7 convs of 512 channels, 12 layers of
    torch.stft -> abs -> baddbmm -> log chain); K7 and K6 at [32 clips, every
    wave bucket 32,000 .. 160,000 samples] and at a ragged [2, 40,005]
    (library: the F.conv1d + F.group_norm + F.gelu chain, and six F.conv1d +
+   F.gelu); K8 on the stock layer-0 conv output at [32, 31999, 512], [2,
+   12799, 512] and [3, 301, 512] with 7 valid rows (library: F.group_norm +
    F.gelu); K1 at the wav2vec2 encoder's shapes [32 or 2, 12, S, S, 64],
    S = 99 .. 499, with padded keys;
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
@@ -65,8 +72,30 @@ depth of ``Wav2Vec2Config.base()`` (7 convs of 512 channels, 12 layers of
    versions;
 6e. wav2vec2 evaluation: ``...audio_wav2vec2.test`` on the 2,608-clip test
    split at the config's batch of 2 (1,304 forwards), finite loss and metrics;
+6f. the conv frontend's profile entry point,
+   ``mer_tpu_torch.scripts.profile_w2v_conv 32 10 --fused --l0fused --gnfused``
+   in bf16: each variant's numerics against the stock stack (5e-2 of its
+   largest value: two bf16 pipelines rounded after every layer) and its ms per
+   batch; per call K7 + K6 (fused), K7 (l0fused), K8 (gnfused);
+6g. text: ``...text.train --epochs 3`` (2 frozen + 1 fine-tune) on the same
+   root, whose utterances are 2-100 words long (token buckets 64, 128, 256),
+   at the config's batch of 16 in bf16: K1 12 times per forward, K2 never in a
+   frozen epoch and 12 times per fine-tune step; the frozen epochs change the
+   head alone, the first fine-tune update (lr 0) changes nothing, the second
+   changes every tensor whose step exceeds its rounding; then ``...text.test``
+   and ``...text.embeddings`` (three finite [N, 768] tables, every row written);
+   utterances per second, the bucket histogram, one profiled training step;
+6h. wav2vec2 fine-tuning: ``...audio_wav2vec2.train --epochs 3`` at the
+   config's ``tpu.batch_size_override`` of 16, on a second synthetic root
+   whose train and dev clips are 0.5-10 s long (all five wave buckets, so K1
+   and K2 at S = 99 .. 499): K7 and K6 once per frozen step
+   and per validation batch and never in a fine-tune step (the stock
+   differentiable convolutions run there), K1 12 per forward, K2 12 per
+   fine-tune step; an f32 leg of 2 frozen + 2 fine-tune steps through the
+   kernels against the plain versions (losses within 1e-4); clips per second,
+   one profiled fine-tune step, peak device memory;
 7. hold each kernel against its plain version again at every shape that
-   phases 4-6e gave it (recorded at each launch), in float32 and bfloat16
+   phases 4-6h gave it (recorded at each launch), in float32 and bfloat16
    (K5: float32, in both layouts);
 8. one ``{"kernels": [...]}`` line, whose times and bound are per launch,
    averaged over the main paths' launches at their own shapes (K5's bound
@@ -82,7 +111,7 @@ value to bf16, one ulp apart at most). K5 f32 (1e-4, 1e-4) on the log
 values (tests/test_logmel_pallas.py:29's). K7 f32 (1e-4, 1e-4: its variance is the
 one-pass E[y^2] - mean^2, tests/test_w2v_conv_pallas.py:71), K6 f32 (2e-5,
 2e-5, :35), both in bf16 within 2e-2 of the plain version's largest value
-(:44). wav2vec2 embeddings in f32, kernels against plain versions: 1e-3.
+(:44). K8 f32 (1e-4, 1e-4), bf16 as K7. wav2vec2 embeddings in f32, kernels against plain versions: 1e-3.
 Dropout masks: exact. Model logits in
 f32, kernel against plain attention: 1e-3. Parity leg after 3 steps: losses
 within 1e-4; every parameter within 2 x lr x 3 (Adam moves a parameter whose
@@ -121,22 +150,31 @@ TOL = {
     ("bwd", "float32"): (1e-4, 1e-5), ("bwd", "bfloat16"): (2e-2, 2.0 ** -7),
     ("logmel", "float32"): (1e-4, 1e-4),
     ("w2v_layer0_gn", "float32"): (1e-4, 1e-4), ("w2v_conv_tail", "float32"): (2e-5, 2e-5),
+    ("w2v_gn_gelu", "float32"): (1e-4, 1e-4),
 }
-W2V_BF16_REL = 2e-2  # K6 and K7 in bf16: |err| <= this x the plain version's largest value
+W2V_BF16_REL = 2e-2  # K6, K7 and K8 in bf16: |err| <= this x the plain version's largest value
+PROFILE_BF16_REL = 5e-2  # a profile variant against the stock bf16 stack, of its largest value
 DROPOUT = 0.4  # the config's model.dropout
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"  # sources mer_tpu_torch/csrc/<name>.cu
 MEL = "logmel_fwd"
-W2V0, W2V_TAIL = "w2v_layer0_gn", "w2v_conv_tail"  # K7, K6
-KERNELS = (FWD, BWD, MEL, W2V0, W2V_TAIL)
+W2V0, W2V_TAIL, GN = "w2v_layer0_gn", "w2v_conv_tail", "w2v_gn_gelu"  # K7, K6, K8
+KERNELS = (FWD, BWD, MEL, W2V0, W2V_TAIL, GN)
 ZERO = dict.fromkeys(KERNELS, 0)
 REPLACES = {FWD: "mer_tpu/ops/flash_attention.py:72", BWD: "mer_tpu/ops/flash_attention.py:270",
             MEL: "mer_tpu/ops/logmel_pallas.py:78", W2V0: "mer_tpu/ops/w2v_conv_pallas.py:194",
-            W2V_TAIL: "mer_tpu/ops/w2v_conv_pallas.py:135"}
+            W2V_TAIL: "mer_tpu/ops/w2v_conv_pallas.py:135", GN: "mer_tpu/ops/w2v_conv_pallas.py:320"}
 # K7 (clips, samples) and, through T0 = (samples - 10) // 5 + 1, K6 (clips, T0): the export batch at every
 # wave bucket, and a ragged length with an odd last tile
 W2V_BUCKETS = (32000, 64000, 96000, 128000, 160000)
 W2V_SHAPES = [(32, n) for n in W2V_BUCKETS] + [(2, 40005)]
 W2V_EXPORT_BATCH, W2V_LAYERS, W2V_HEADS = 32, 12, 12
+# K8 (clips, rows, valid rows): the profile entry's batch, a short batch, a ragged one with few valid rows
+GN_SHAPES = [(32, 31999, 31999), (2, 12799, 12799), (3, 301, 7)]
+PROFILE_REPEATS = 5
+FE_EPOCHS, FE_FROZEN = 3, 2  # the text and wav2vec2 fine-tuning runs: the configs' 2 frozen epochs + 1
+TEXT_WORDS = (2, 100)  # words per utterance of the synthetic root: context windows in the 64, 128, 256 buckets
+TEXT_LAYERS = 12
+W2V_TRAIN_SECONDS = (0.5, 10.0)  # clip lengths of the wav2vec2 training root: batches in all five wave buckets
 # K1 at the wav2vec2 encoder: (B, H, S, S, 64), S the frames of each bucket, export and evaluation batch
 W2V_ATTENTION_SHAPES = [(b, W2V_HEADS, s, s, 64) for b in (32, 2) for s in (99, 199, 299, 399, 499)]
 # K5: (clips, frames): the export batch, the cache chunk, a ragged chunk, a short clip
@@ -268,8 +306,8 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int) -> dict:
     q, k, v, g, mask = attention_inputs(shape, DTYPES[dtype], seed=i)
     seed = dropout_seed(i, rate)
     out, lse = fa.flash_attention_forward(q, k, v, mask, seed, rate)
-    # the dialogue shapes take microseconds a call; the wav2vec2 encoder's take milliseconds
-    big = shape[0] * shape[1] * shape[2] * shape[3] > 1 << 24
+    # the dialogue shapes take microseconds a call; the wav2vec2 and RoBERTa encoders' take milliseconds
+    big = shape[0] * shape[1] * shape[2] * shape[3] > 1 << 22
     time_device = functools.partial(device_ms, reps=4, replays=3) if big else device_ms
     time_eager = functools.partial(eager_ms, iters=10, warmup=2) if big else eager_ms
     if kernel == FWD:
@@ -303,21 +341,21 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int) -> dict:
     return row
 
 
-def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int) -> None:
+def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROPOUT) -> None:
     """Read the kernels' dropout masks off exactly: with v = I the forward's
     out[i, j] is P_ij D_ij, with g = I the backward's dv[j, i] is too."""
     seed = (0xC0FFEE, sq * 100 + sk)
-    want = fa.dropout_factor(seed, (b, h, sq, sk), DROPOUT, "cuda") > 0
+    want = fa.dropout_factor(seed, (b, h, sq, sk), rate, "cuda") > 0
     eye = lambda n: torch.eye(n, device="cuda").expand(b, h, n, n).contiguous()
     gen = torch.Generator(device="cuda").manual_seed(sk)
     q, k = torch.randn(b, h, sq, sk, device="cuda", generator=gen), torch.randn(b, h, sk, sk, device="cuda", generator=gen)
-    fwd_mask = fa.flash_attention_forward(q, k, eye(sk), None, seed, DROPOUT)[0] > 0
+    fwd_mask = fa.flash_attention_forward(q, k, eye(sk), None, seed, rate)[0] > 0
     q = torch.randn(b, h, sq, sq, device="cuda", generator=gen)
     k, v = (torch.randn(b, h, sk, sq, device="cuda", generator=gen) for _ in range(2))
-    out, lse = fa.flash_attention_forward(q, k, v, None, seed, DROPOUT)
-    bwd_mask = fa.flash_attention_backward(q, k, v, None, out, lse, eye(sq), seed, DROPOUT)[2].transpose(2, 3) > 0
+    out, lse = fa.flash_attention_forward(q, k, v, None, seed, rate)
+    bwd_mask = fa.flash_attention_backward(q, k, v, None, out, lse, eye(sq), seed, rate)[2].transpose(2, 3) > 0
     bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum())
-    log(f"dropout masks at B={b} H={h} Sq={sq} Sk={sk}: {want.numel()} probabilities, keep rate "
+    log(f"dropout masks at B={b} H={h} Sq={sq} Sk={sk} rate {rate}: {want.numel()} probabilities, keep rate "
         f"{want.float().mean().item()}, mismatches forward {bad[0]}, backward {bad[1]}")
     if bad != (0, 0):
         raise AssertionError(f"kernel dropout masks differ from the plain Philox mask: {bad}")
@@ -416,19 +454,29 @@ def check_mel_case(lk, shape, i: int) -> dict:
     return row
 
 
+def kernel_wrappers() -> dict:
+    """Kernel name -> the wrapper whose ``launches`` counts it."""
+    from mer_tpu_torch.ops import flash_attention as fa
+    from mer_tpu_torch.ops import logmel_kernel as lk
+    from mer_tpu_torch.ops import w2v_conv as wc
+
+    return {FWD: fa.flash_attention_forward, BWD: fa.flash_attention_backward, MEL: lk.logmel_frames,
+            W2V0: wc.layer0_gn, W2V_TAIL: wc.conv_stack_fused, GN: wc.gn_gelu}
+
+
 @contextlib.contextmanager
 def main_path_run():
     """One counted run of a main path: the launch counts start at 0 and are
     read at the end into ``run``; every launch's shape, dtype and dropout
     rate (K5: clips, frames and layout; K7: clips and samples; K6: clips and
-    layer-0 frames) is tallied in ``PATH_SHAPES`` from the arguments the
+    layer-0 frames; K8: clips, rows and valid rows) is tallied in ``PATH_SHAPES`` from the arguments the
     wrappers hand the kernels (the tally launches nothing)."""
     from mer_tpu_torch.ops import flash_attention as fa
     from mer_tpu_torch.ops import logmel_kernel as lk
     from mer_tpu_torch.ops import w2v_conv as wc
 
-    kernel_fn, mel_kernel_fn, l0_kernel_fn, tail_kernel_fn = fa._kernel_fn, lk._kernel_fn, wc._l0_kernel_fn, \
-        wc._tail_kernel_fn
+    kernel_fn, mel_kernel_fn, l0_kernel_fn, tail_kernel_fn, gn_kernel_fn = fa._kernel_fn, lk._kernel_fn, \
+        wc._l0_kernel_fn, wc._tail_kernel_fn, wc._gn_kernel_fn
 
     def tallying_by(name, get_fn, case):
         """``get_fn`` with every launch tallied under ``case(args)`` = (shape, dtype name)."""
@@ -445,11 +493,12 @@ def main_path_run():
         return patched
 
     # K5 (frames, clip stride, frame stride, B, F, n_fft, ...); K7 (dtype, 7 pointers, B, L, ...);
-    # K6 (dtype, 6 pointers, B, T0, stream)
+    # K6 (dtype, 6 pointers, B, T0, stream); K8 (dtype, 6 pointers, B, rows, valid rows, ...)
     mel_tallying = tallying_by(MEL, mel_kernel_fn, lambda a: (
         (a[3], a[4], "contiguous" if a[2] == a[5] else "unfold"), "float32"))
     l0_tallying = tallying_by(W2V0, l0_kernel_fn, lambda a: ((a[8], a[9]), DTYPE_NAMES[a[0]]))
     tail_tallying = tallying_by(W2V_TAIL, tail_kernel_fn, lambda a: ((a[7], a[8]), DTYPE_NAMES[a[0]]))
+    gn_tallying = tallying_by(GN, gn_kernel_fn, lambda a: ((a[7], a[8], a[9]), DTYPE_NAMES[a[0]]))
 
     def tallying(name, n_pointers):
         fn = kernel_fn(name, n_pointers)
@@ -463,14 +512,14 @@ def main_path_run():
 
         return launch
 
-    wrappers = {FWD: fa.flash_attention_forward, BWD: fa.flash_attention_backward, MEL: lk.logmel_frames,
-                W2V0: wc.layer0_gn, W2V_TAIL: wc.conv_stack_fused}
+    wrappers = kernel_wrappers()
     run = {}
     for wrapper in wrappers.values():
         wrapper.launches = 0
     with mock.patch.object(fa, "_kernel_fn", tallying), mock.patch.object(lk, "_kernel_fn", mel_tallying), \
             mock.patch.object(wc, "_l0_kernel_fn", l0_tallying), \
-            mock.patch.object(wc, "_tail_kernel_fn", tail_tallying):
+            mock.patch.object(wc, "_tail_kernel_fn", tail_tallying), \
+            mock.patch.object(wc, "_gn_kernel_fn", gn_tallying):
         yield run
     run.update({name: wrapper.launches for name, wrapper in wrappers.items()})
 
@@ -610,7 +659,7 @@ def log_profile(kernels: dict[str, float], count: int) -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {share('flash_attention_fwd')}, "
         f"K2 share {share('flash_attention_bwd')}, K5 share {share('logmel_fwd')}, "
-        f"K6 share {share('w2v_conv_s2_gelu')}, K7 share {share('w2v_layer0')}; top: "
+        f"K6 share {share('w2v_conv_s2_gelu')}, K7 share {share('w2v_layer0')}, K8 share {share('w2v_gn_')}; top: "
         + "; ".join(f"{n[:60]} {t} us" for n, t in top))
 
 
@@ -901,11 +950,19 @@ def w2v_bound(kernel: str, shape, dtype) -> tuple[float, float]:
     samples): wave, taps, gamma, beta in, [B, T0, 512] out; 2 x 10 x 512 per
     frame, and 8 per value for the statistics, the affine and the GELU (the
     erf as one). K6 (clips, T0): [B, T0, 512] and the 16 x 512 x 512 weights
-    in, [B, T6, 512] out; 2 x k x 512 x 512 per frame of each layer."""
+    in, [B, T6, 512] out; 2 x k x 512 x 512 per frame of each layer. K8 (clips,
+    rows, valid rows): [B, T, 512] in and out, gamma and beta in; no product:
+    3 operations per valid value for the statistics and 8 per value for the
+    affine and the GELU (the erf as one), at the f32 non-tensor peak whatever
+    the storage dtype."""
     from mer_tpu_torch.ops import w2v_conv as wc
 
     esize = torch.tensor([], dtype=dtype).element_size()
     c = wc.CHANNELS
+    if kernel == GN:
+        b, rows, t_valid = shape
+        nbytes = 2 * b * rows * c * esize + 2 * c * 4
+        return nbytes / HBM_BYTES_PER_S * 1e6, b * c * (3 * t_valid + 8 * rows) / PEAK_FLOPS[torch.float32] * 1e6
     if kernel == W2V0:
         b, n = shape
         t0 = wc.conv_out_length(n, wc.L0_TAPS, wc.L0_STRIDE)
@@ -920,11 +977,11 @@ def w2v_bound(kernel: str, shape, dtype) -> tuple[float, float]:
 
 
 def check_w2v_case(wc, frontend, kernel: str, shape, dtype_name: str, i: int) -> dict:
-    """K7 at (clips, samples) or K6 at (clips, layer-0 frames) against its
-    plain version on the card, with times; raises on a disagreement. The
-    weights are the seeded model's (``frontend``: its conv feature extractor
-    on the card); K6 is fed K7's output at the sample count that gives its
-    frame count. The library yardstick runs the same chain in the compute
+    """K7 at (clips, samples), K6 at (clips, layer-0 frames) or K8 at (clips,
+    rows, valid rows) against its plain version on the card, with times; raises
+    on a disagreement. The weights are the seeded model's (``frontend``: its
+    conv feature extractor on the card); K6 is fed K7's output at the sample
+    count that gives its frame count, K8 the stock layer-0 convolution's. The library yardstick runs the same chain in the compute
     dtype, channels first, and is used nowhere in the port."""
     import torch.nn.functional as F
 
@@ -935,6 +992,8 @@ def check_w2v_case(wc, frontend, kernel: str, shape, dtype_name: str, i: int) ->
     b = shape[0]
     n = shape[1] if kernel == W2V0 else wc.L0_STRIDE * (shape[1] - 1) + wc.L0_TAPS
     wave = w2v_waveforms(b, n, seed=2000 + i)
+    if kernel == GN and shape[2] < shape[1]:
+        wave[:, wc.L0_STRIDE * shape[2]:] = 1.0  # rows past the valid ones must not reach the statistics
     if kernel == W2V0:
         call = lambda: wc.layer0_gn(wave, w0, gamma, beta, dtype=dtype)
         plain = lambda: wc.layer0_gn_reference(wave, w0, gamma, beta, dtype=dtype)
@@ -942,6 +1001,17 @@ def check_w2v_case(wc, frontend, kernel: str, shape, dtype_name: str, i: int) ->
         library = lambda: F.gelu(F.group_norm(F.conv1d(wave_c, w0_c, stride=wc.L0_STRIDE), wc.CHANNELS, gamma_c,
                                               beta_c, first.layer_norm.eps))
         library_name = "F.conv1d -> F.group_norm -> F.gelu in the compute dtype, [B, 512, T0], a 3-call chain"
+    elif kernel == GN:
+        t_valid, eps = shape[2], first.layer_norm.eps
+        y_c = F.conv1d(wave.to(dtype)[:, None, :], w0.to(dtype), stride=wc.L0_STRIDE)  # [B, 512, T0], stock
+        y = y_c.transpose(1, 2).contiguous()
+        if y.shape[1] != shape[1]:
+            raise AssertionError(f"{n} samples gave {y.shape[1]} layer-0 frames, want {shape[1]}")
+        call = lambda: wc.gn_gelu(y, gamma, beta, t_valid, eps)
+        plain = lambda: wc.gn_gelu_reference(y, gamma, beta, t_valid, eps)
+        gamma_c, beta_c = gamma.to(dtype), beta.to(dtype)
+        library = lambda: F.gelu(F.group_norm(y_c, wc.CHANNELS, gamma_c, beta_c, eps))  # statistics over every row
+        library_name = "F.group_norm -> F.gelu in the compute dtype, [B, 512, T], a 2-call chain"
     else:
         x0 = wc.layer0_gn(wave, w0, gamma, beta, dtype=dtype)
         if x0.shape[1] != shape[1]:
@@ -1125,7 +1195,350 @@ def w2v_phase(fa, wc, card: str, root: str, tmp: str, model) -> dict:
     return launches
 
 
+# -- the conv frontend's profile entry point, text and wav2vec2 fine-tuning ------------
+
+
+def profile_phase(card: str) -> dict:
+    """Phase 6f; returns the launches of the conv frontend's profile entry point."""
+    from mer_tpu_torch.scripts import profile_w2v_conv
+
+    with main_path_run() as run:
+        results = profile_w2v_conv.main(["32", "10", "--fused", "--l0fused", "--gnfused",
+                                         "--repeats", str(PROFILE_REPEATS)])
+    calls = 1 + 2 + PROFILE_REPEATS  # the numerics on two clips, two warm-up batches, the timed batches
+    want = {**ZERO, W2V0: 2 * calls, W2V_TAIL: calls, GN: calls}
+    log(f"profile_w2v_conv [32, 160000] bf16: {json.dumps(results)}; launches {run} (want {want}: per call K7 + K6 "
+        f"for --fused, K7 for --l0fused, K8 for --gnfused; {calls} calls each) ({card})")
+    if run != want:
+        raise AssertionError(f"profile entry launches {run}, want {want}")
+    for name, r in results.items():
+        if not (r["max_rel_err"] <= PROFILE_BF16_REL and r["ms"] > 0):
+            raise AssertionError(f"profile variant {name} departs from the stock stack: {r}")
+    return run
+
+
+@contextlib.contextmanager
+def fe_training_probe():
+    """Watch ``FESolver`` train: per training epoch its phase, steps, kernel
+    launches and which parameters it changed; and the parameters the first two
+    fine-tune updates left unchanged against the start of the fine-tune phase."""
+    from mer_tpu_torch.train import fe_solver
+
+    train_epoch, step = fe_solver.FESolver.train_epoch, fe_solver.accumulate_and_step
+    probe = {"epochs": [], "unchanged_after_update": {}, "snapshot": None}
+    wrappers = kernel_wrappers()
+    counts = lambda: {name: w.launches for name, w in wrappers.items()}
+
+    def unchanged(model, snapshot) -> set:
+        return {n for n, p in model.named_parameters() if torch.equal(p.detach(), snapshot[n])}
+
+    def probed_epoch(self, state, batcher, epoch):
+        before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        if epoch == self.num_frozen_epochs:
+            probe["snapshot"] = before
+        start = counts()
+        out = train_epoch(self, state, batcher, epoch)
+        end = counts()
+        probe["epochs"].append({"epoch": epoch, "phase": state.phase, "steps": len(batcher),
+                                "launches": {k: end[k] - start[k] for k in end},
+                                "unchanged": unchanged(state.model, before), "names": set(before)})
+        return out
+
+    def probed_step(train_state, accum, schedule):
+        updated = step(train_state, accum, schedule)
+        n = train_state.step // accum
+        if updated and probe["snapshot"] is not None and n in (1, 2) and n not in probe["unchanged_after_update"]:
+            probe["unchanged_after_update"][n] = unchanged(train_state.model, probe["snapshot"])
+        return updated
+
+    with mock.patch.object(fe_solver.FESolver, "train_epoch", probed_epoch), \
+            mock.patch.object(fe_solver, "accumulate_and_step", probed_step):
+        yield probe
+
+
+def softmax_blind(name: str) -> bool:
+    """A key bias shifts every score of a query alike, so the softmax and with
+    it the loss ignore it: its gradient is rounding noise and may be exactly 0."""
+    return name.endswith(("key.bias", "k_proj.bias"))
+
+
+def check_fe_phases(what: str, probe: dict, backbone: str, per_step: dict) -> None:
+    """The freeze / fine-tune contract on a probed run: launches per step of
+    each phase (``per_step``: phase -> kernel -> launches), the head alone
+    changed by the frozen epochs, nothing by the first fine-tune update (lr 0),
+    and by the second every tensor whose step exceeds its rounding (the norms'
+    weights sit at 1.0, where the warmup's first steps round away), and by the
+    epoch's end every tensor the loss can see."""
+    epochs = probe["epochs"]
+    if [e["phase"] for e in epochs] != ["frozen"] * FE_FROZEN + ["finetune"] * (FE_EPOCHS - FE_FROZEN):
+        raise AssertionError(f"{what}: phases {[e['phase'] for e in epochs]}")
+    for e in epochs:
+        want = {**ZERO, **{k: n * e["steps"] for k, n in per_step[e["phase"]].items()}}
+        changed = e["names"] - e["unchanged"]
+        log(f"{what} epoch {e['epoch']} ({e['phase']}, {e['steps']} steps): launches {e['launches']} (want {want}); "
+            f"{len(changed)} of {len(e['names'])} parameter tensors changed")
+        if e["launches"] != want:
+            raise AssertionError(f"{what} epoch {e['epoch']}: launches {e['launches']}, want {want}")
+        if e["phase"] == "frozen" and (any(n.startswith(backbone + ".") for n in changed)
+                                       or changed != {n for n in e["names"] if not n.startswith(backbone + ".")}):
+            raise AssertionError(f"{what} epoch {e['epoch']}: a frozen epoch must change the head alone: {changed}")
+        if e["phase"] == "finetune" and not all(softmax_blind(n) for n in e["unchanged"]):
+            raise AssertionError(f"{what} epoch {e['epoch']}: a fine-tune epoch left unchanged {e['unchanged']}")
+    first, second = probe["unchanged_after_update"][1], probe["unchanged_after_update"][2]
+    names = epochs[-1]["names"]
+    is_norm_weight = lambda n: n.lower().endswith(("layernorm.weight", "layer_norm.weight"))
+    log(f"{what}: the first fine-tune update (lr 0) left {len(first)} of {len(names)} tensors unchanged; the second "
+        f"left {len(second)} ({sorted(second)[:4]}...: norm weights at 1.0 and key biases)")
+    if first != names or not all(is_norm_weight(n) or softmax_blind(n) for n in second):
+        raise AssertionError(f"{what}: first update changed {names - first}; second left {second}")
+
+
+def fe_config(tmp: str, src: str, name: str, test_model_path: bool = False) -> str:
+    """A feature-extractor config, unchanged but for its checkpoint under
+    ``tmp`` (and ``test.model_path``, which the text evaluation reads, set to it)."""
+    import yaml
+
+    from mer_tpu_torch.core import load_config
+
+    path = os.path.join(tmp, f"{name}.yaml")
+    ckpt = os.path.join(tmp, f"{name}_ckpt", "checkpoint.ckpt")
+    with open(path, "w") as f:
+        overrides = {"test__model_path": ckpt} if test_model_path else {}
+        yaml.safe_dump(load_config(src).override(checkpoint__save_path=ckpt, **overrides).to_dict(), f)
+    return path
+
+
+def profile_training_step(what: str, step, card: str) -> None:
+    """One training step's eager time against its device time, and its kernels."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    eager = (time.perf_counter() - t0) / 5 * 1e3
+    kernels, count = kernel_profile(step)
+    busy = sum(kernels.values()) / 1e3
+    log(f"{what}: eager {eager} ms (forward, backward, AdamW, loss fetch), device busy {busy} ms, device idle share "
+        f"{1 - busy / eager if kernels else 'not measured'} ({card})")
+    log_profile(kernels, count)
+
+
+def text_phase(fa, card: str, root: str, tmp: str) -> dict:
+    """Phase 6g; returns the launches of the three text entry points."""
+    from mer_tpu_torch.core import get_text, load_config, load_embeddings
+    from mer_tpu_torch.data.text_fe import TextBatcher, TextFeatureDataset, ToyWhitespaceTokenizer, \
+        text_batch_to_inputs
+    from mer_tpu_torch.feature_extractors.text import TEXT_CONFIG_PATH
+    from mer_tpu_torch.feature_extractors.text import embeddings as text_embeddings
+    from mer_tpu_torch.feature_extractors.text import test as text_test
+    from mer_tpu_torch.feature_extractors.text import train as text_train
+    from mer_tpu_torch.models.roberta import text_erc_from_seed
+    from mer_tpu_torch.train.fe_solver import FESolver
+
+    cfg = fe_config(tmp, TEXT_CONFIG_PATH, "text", test_model_path=True)  # evaluate what the training writes
+    config = load_config(cfg)
+    argv = ["--config", cfg, "--data-root", root, "--random-init", "--toy-tokenizer"]
+    sizes = {mode: len(get_text(mode, root)) for mode in ("train", "val", "test")}
+    batch = int(config.train.data_loader.batch_size)
+    steps, val_batches = math.ceil(sizes["train"] / batch), math.ceil(sizes["val"] / batch)
+    launches = dict(ZERO)
+
+    # training: 2 frozen epochs + 1 fine-tune epoch, bf16 (the config's)
+    t0 = time.perf_counter()
+    with main_path_run() as run, fe_training_probe() as probe:
+        state, history = text_train.main([*argv, "--epochs", str(FE_EPOCHS)])
+    seconds = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.model.parameters())
+    want = {**ZERO, FWD: TEXT_LAYERS * FE_EPOCHS * (steps + val_batches), BWD: TEXT_LAYERS * (FE_EPOCHS - FE_FROZEN) * steps}
+    log(f"text training: TextERC base config, {n_params} parameters; {sizes['train']} train / {sizes['val']} val "
+        f"utterances, {FE_EPOCHS} epochs of {steps} steps of {batch} in {seconds} s (model build, validation, "
+        f"checkpoints included) = {FE_EPOCHS * sizes['train'] / seconds} utterances/s; losses {json.dumps(history)}; "
+        f"launches {run} (want {want}: K1 {TEXT_LAYERS} per forward, K2 {TEXT_LAYERS} per fine-tune step) ({card})")
+    if run != want:
+        raise AssertionError(f"text training launches {run}, want {want}")
+    if len(history["loss_values"]) != FE_EPOCHS or not all(
+            math.isfinite(x) for x in history["loss_values"] + history["val_loss_values"]):
+        raise AssertionError(f"text training losses not finite or epochs missing: {history}")
+    check_fe_phases("text training", probe, "roberta",
+                    {"frozen": {FWD: TEXT_LAYERS}, "finetune": {FWD: TEXT_LAYERS, BWD: TEXT_LAYERS}})
+    if any(m.dtype != torch.float32 for st in state.finetune.optimizer.state.values() for m in st.values()):
+        raise AssertionError("AdamW state is not float32 under bf16 compute")
+    for name in KERNELS:
+        launches[name] += run[name]
+    del state, probe
+    torch.cuda.empty_cache()
+
+    # evaluation of the test split at the config's batch, from the trained checkpoint
+    test_batch = int(config.test.data_loader.batch_size)
+    t0 = time.perf_counter()
+    with main_path_run() as run:
+        result = text_test.main(argv)
+    seconds = time.perf_counter() - t0
+    want = {**ZERO, FWD: TEXT_LAYERS * math.ceil(sizes["test"] / test_batch)}
+    log(f"text evaluation: {sizes['test']} utterances in batches of {test_batch} in {seconds} s = "
+        f"{sizes['test'] / seconds} utterances/s (model build and load included): {json.dumps(result)}; launches "
+        f"{run} (want {want}) ({card})")
+    if run != want or sizes["test"] != 2608 or not all(math.isfinite(v) for v in result.values()):
+        raise AssertionError(f"text evaluation launches {run}, want {want}; result {result}")
+    for name in KERNELS:
+        launches[name] += run[name]
+
+    # export of the three splits in batches of 32
+    save_dir = os.path.join(tmp, "embeddings_text")
+    t0 = time.perf_counter()
+    with main_path_run() as run:
+        tables = text_embeddings.main(argv, save_dir=save_dir)
+    seconds = time.perf_counter() - t0
+    n_batches = sum(math.ceil(n / text_embeddings.EXPORT_BATCH) for n in sizes.values())
+    want = {**ZERO, FWD: TEXT_LAYERS * n_batches}
+    log(f"text export: splits {sizes} in {seconds} s = {sum(sizes.values()) / seconds} utterances/s (model build and "
+        f"load included); launches {run} (want {want}) ({card})")
+    if run != want:
+        raise AssertionError(f"text export launches {run}, want {want}")
+    for mode, table in tables.items():
+        back = load_embeddings(os.path.join(save_dir, f"{mode}.pkl"))
+        log(f"text export {mode}: {table.shape} {table.dtype}, finite {bool(np.isfinite(table).all())}, "
+            f"mean |x| {float(np.abs(table).mean())}")
+        if table.shape != (sizes[mode], 768) or table.dtype != np.float32 or not np.isfinite(table).all() \
+                or not np.abs(table).sum(axis=1).all() or not np.array_equal(back, table):
+            raise AssertionError(f"text export {mode}: bad table")
+    for name in KERNELS:
+        launches[name] += run[name]
+
+    # the token buckets the batches landed in; the test split's export alone; one fine-tune step
+    tokenizer = ToyWhitespaceTokenizer(vocab_size=50265)
+    datasets = {mode: TextFeatureDataset(mode, tokenizer, data_root=root) for mode in sizes}
+    histogram = {f"{mode} batch {b}": dict(sorted(collections.Counter(
+        x["text"].shape[1] for x in TextBatcher(datasets[mode], b)).items()))
+        for mode, b in (("train", batch), ("val", batch), ("test", test_batch), ("test", text_embeddings.EXPORT_BATCH))}
+    log(f"text token buckets (batches per width): {json.dumps(histogram)}")
+    if not {64, 128, 256} <= {w for h in histogram.values() for w in h}:
+        raise AssertionError(f"the synthetic root's context windows miss a token bucket: {histogram}")
+    model = text_erc_from_seed(0, dtype=torch.bfloat16).cuda().eval()
+    text_embeddings.export_split(model, datasets["val"])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text_embeddings.export_split(model, datasets["test"])  # ends in a device-to-host fetch
+    seconds = time.perf_counter() - t0
+    log(f"text export bf16 test split: {sizes['test']} utterances (tokenizer, 12 layers on K1, CLS row) in "
+        f"{seconds * 1e3} ms = {sizes['test'] / seconds} utterances/s ({card})")
+    solver = FESolver(model, config, backbone_key="roberta", batch_to_inputs=text_batch_to_inputs)
+    state = solver.init_state(steps)
+    batches = list(TextBatcher(datasets["train"], batch))
+    widest = max(batches, key=lambda b: b["text"].shape[1])
+    solver.train_epoch(state, batches, epoch=FE_FROZEN)  # warm-up: AdamW's state, the allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.train_epoch(state, batches, epoch=FE_FROZEN)  # ends in a device-to-host fetch
+    seconds = time.perf_counter() - t0
+    log(f"text fine-tune bf16 epoch: {len(batches)} steps of {batch}, {sizes['train']} utterances in {seconds * 1e3} "
+        f"ms = {sizes['train'] / seconds} utterances/s ({card})")
+    profile_training_step(f"text fine-tune step bf16 {tuple(widest['text'].shape)}",
+                          lambda: solver.train_epoch(state, [widest], epoch=FE_FROZEN), card)
+    return launches
+
+
+def w2v_training_phase(fa, wc, card: str, root: str, tmp: str) -> dict:
+    """Phase 6h; returns the launches of the wav2vec2 training entry point."""
+    from mer_tpu_torch.core import get_text, load_config
+    from mer_tpu_torch.data.wav2vec2_fe import Wav2Vec2Batcher, Wav2Vec2FeatureDataset, w2v_batch_to_inputs
+    from mer_tpu_torch.feature_extractors.audio_wav2vec2 import W2V_CONFIG_PATH
+    from mer_tpu_torch.feature_extractors.audio_wav2vec2 import train as w2v_train
+    from mer_tpu_torch.models.wav2vec2 import audio_erc_from_seed
+    from mer_tpu_torch.train import load_checkpoint
+    from mer_tpu_torch.train.fe_solver import FESolver
+
+    cfg = fe_config(tmp, W2V_CONFIG_PATH, "w2v_train")
+    config = load_config(cfg)
+    argv = ["--config", cfg, "--data-root", root, "--random-init"]
+    sizes = {mode: len(get_text(mode, root)) for mode in ("train", "val")}
+    batch = int(config.get_path("tpu.batch_size_override"))
+    steps, val_batches = math.ceil(sizes["train"] / batch), math.ceil(sizes["val"] / batch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with main_path_run() as run, fe_training_probe() as probe:
+        state, history = w2v_train.main([*argv, "--epochs", str(FE_EPOCHS)])
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    served = FE_FROZEN * steps + FE_EPOCHS * val_batches  # forwards whose frontend runs K7 and K6
+    want = {**ZERO, FWD: W2V_LAYERS * FE_EPOCHS * (steps + val_batches), BWD: W2V_LAYERS * (FE_EPOCHS - FE_FROZEN) * steps,
+            W2V0: served, W2V_TAIL: served}
+    log(f"wav2vec2 training: {sizes['train']} train / {sizes['val']} val clips, {FE_EPOCHS} epochs of {steps} steps "
+        f"of {batch} in {seconds} s (model build, wav decode, validation, checkpoints included) = "
+        f"{FE_EPOCHS * sizes['train'] / seconds} clips/s; peak device memory {peak} bytes; losses "
+        f"{json.dumps(history)}; launches {run} (want {want}: K7 and K6 once per frozen step and validation batch, "
+        f"never in a fine-tune step; K1 {W2V_LAYERS} per forward, K2 {W2V_LAYERS} per fine-tune step) ({card})")
+    if run != want:
+        raise AssertionError(f"wav2vec2 training launches {run}, want {want}")
+    if len(history["loss_values"]) != FE_EPOCHS or not all(
+            math.isfinite(x) for x in history["loss_values"] + history["val_loss_values"]):
+        raise AssertionError(f"wav2vec2 training losses not finite or epochs missing: {history}")
+    check_fe_phases("wav2vec2 training", probe, "wav2vec2",
+                    {"frozen": {FWD: W2V_LAYERS, W2V0: 1, W2V_TAIL: 1}, "finetune": {FWD: W2V_LAYERS, BWD: W2V_LAYERS}})
+    saved = load_checkpoint(config.checkpoint.save_path)
+    if set(saved) != {"epoch", "model_state_dict"} or saved["epoch"] != FE_EPOCHS - 1:
+        raise AssertionError(f"wav2vec2 checkpoint holds {set(saved)} at epoch {saved.get('epoch')}")
+    del state, probe, saved
+    torch.cuda.empty_cache()
+
+    # one fine-tune epoch's throughput and one step's time split, bf16, at the widest batch
+    model = audio_erc_from_seed(0, dtype=torch.bfloat16).cuda()
+    solver = FESolver(model, config, backbone_key="wav2vec2", batch_to_inputs=w2v_batch_to_inputs)
+    state = solver.init_state(steps)
+    batches = list(Wav2Vec2Batcher(Wav2Vec2FeatureDataset("train", data_root=root), batch))
+    widest = max(batches, key=lambda b: b["audio"].shape[1])
+    for phase, epoch in (("frozen", 0), ("fine-tune", FE_FROZEN)):
+        solver.train_epoch(state, batches[:2], epoch=epoch)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.train_epoch(state, batches, epoch=epoch)  # ends in a device-to-host fetch
+        seconds = time.perf_counter() - t0
+        log(f"wav2vec2 {phase} bf16 epoch: {len(batches)} steps of {batch}, {sizes['train']} clips (LRU-cached wavs) in "
+            f"{seconds * 1e3} ms = {sizes['train'] / seconds} clips/s ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    profile_training_step(f"wav2vec2 fine-tune step bf16 {tuple(widest['audio'].shape)}",
+                          lambda: solver.train_epoch(state, [widest], epoch=FE_FROZEN), card)
+    log(f"wav2vec2 fine-tune step bf16 {tuple(widest['audio'].shape)}: peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+    del solver, state, model
+    torch.cuda.empty_cache()
+
+    # f32, dropout on (both versions draw the same masks): 2 frozen + 2 fine-tune steps through the kernels
+    # against the plain versions, from the same weights on the same batches
+    results = []
+    for through in ("kernels", "plain"):
+        model = audio_erc_from_seed(0, dtype=torch.float32).cuda()
+        solver = FESolver(model, config, backbone_key="wav2vec2", batch_to_inputs=w2v_batch_to_inputs)
+        state = solver.init_state(steps)
+        with (contextlib.nullcontext() if through == "kernels" else plain_kernels(fa, wc)):
+            losses = [solver.train_epoch(state, [b], epoch=epoch)[1]
+                      for epoch in (0, FE_FROZEN) for b in (batches[0], widest)]
+        results.append((losses, {n: p.detach().clone() for n, p in model.named_parameters()}))
+        del solver, state, model
+        torch.cuda.empty_cache()
+    (k_losses, k_params), (p_losses, p_params) = results
+    loss_diff = max(abs(a - b) for a, b in zip(k_losses, p_losses))
+    diffs = torch.cat([(k_params[n] - p_params[n]).abs().flatten() for n in k_params])
+    lr = float(config.solver.frozen.lr)
+    log(f"wav2vec2 training parity f32, 2 frozen + 2 fine-tune steps, kernels (K7, K6, K1, K2) vs plain versions: "
+        f"losses {k_losses} vs {p_losses}, max diff {loss_diff} (tol 1e-4); params max diff {diffs.max().item()} "
+        f"(tol {2 * lr * 2}: AdamW moves a parameter whose gradient is rounding noise by up to lr per step)")
+    if not (loss_diff <= 1e-4 and diffs.max().item() <= 2 * lr * 2 + 1e-6):
+        raise AssertionError("wav2vec2 training through the kernels departs from training through the plain versions")
+    return run
+
+
+@contextlib.contextmanager
+def plain_kernels(fa, wc):
+    with plain_w2v_conv(wc), plain_attention(fa):
+        yield
+
+
 def main() -> None:
+    if os.environ.get("PYTHONHASHSEED") != "0":  # the hash tokenizer's ids: the same tokens in every run
+        os.execve(sys.executable, [sys.executable, *sys.argv], {**os.environ, "PYTHONHASHSEED": "0"})
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs one NVIDIA card")
     sys.path.insert(0, REPO)
@@ -1170,6 +1583,9 @@ def main() -> None:
             rows.append(check_w2v_case(wc, frontend, W2V0, (b, n), dtype, len(rows)))
             t0 = wc.conv_out_length(n, wc.L0_TAPS, wc.L0_STRIDE)
             rows.append(check_w2v_case(wc, frontend, W2V_TAIL, (b, t0), dtype, len(rows)))
+    for shape in GN_SHAPES:
+        for dtype in DTYPES:
+            rows.append(check_w2v_case(wc, frontend, GN, shape, dtype, len(rows)))
     rows += [check_case(fa, FWD, shape, dtype, 0.0, len(rows) + i)
              for i, (shape, dtype) in enumerate((shape, dtype) for shape in W2V_ATTENTION_SHAPES for dtype in DTYPES)]
 
@@ -1191,15 +1607,25 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         root = os.path.join(tmp, "meld")
-        counts = write_synthetic_meld(root, meld_shape=True, split_dialogues=MEL_SPLIT_DIALOGUES)
-        log(f"mel: synthetic MELD root {counts} in {time.perf_counter() - t0:.1f} s")
+        counts = write_synthetic_meld(root, meld_shape=True, split_dialogues=MEL_SPLIT_DIALOGUES, words=TEXT_WORDS)
+        log(f"synthetic MELD root {counts}, utterances of {TEXT_WORDS} words, in {time.perf_counter() - t0:.1f} s")
         cfg = mel_config(tmp)
         launches[MEL] += mel_training_phase(lk, card, root, cfg)
         launches[MEL] += mel_export_phase(lk, card, root, cfg, tmp)
         # 6d. wav2vec2 export, 6e. wav2vec2 evaluation, on the same root
         for name, n in w2v_phase(fa, wc, card, root, tmp, w2v_model).items():
             launches[name] += n
-    del w2v_model
+        # 6f. the conv frontend's profile entry, 6g. text, 6h. wav2vec2 fine-tuning, on the same root
+        # (wav2vec2 trains on a root of its own: train and dev clips of 0.5-10 s, so every wave bucket is reached)
+        long_root = os.path.join(tmp, "meld_long")
+        counts = write_synthetic_meld(long_root, split_dialogues={**MEL_SPLIT_DIALOGUES, "test_sent_emo.csv": 2},
+                                      clip_seconds=W2V_TRAIN_SECONDS)
+        log(f"synthetic MELD root for wav2vec2 training {counts}, clips of {W2V_TRAIN_SECONDS} s")
+        for phase in (profile_phase(card), text_phase(fa, card, root, tmp),
+                      w2v_training_phase(fa, wc, card, long_root, tmp)):
+            for name, n in phase.items():
+                launches[name] += n
+    del w2v_model  # its conv frontend serves phase 7
     torch.cuda.empty_cache()
     for name in KERNELS:
         tallied = sum(n for (kernel, *_), n in PATH_SHAPES.items() if kernel == name)
@@ -1209,18 +1635,20 @@ def main() -> None:
     # 7. kernels against their plain versions at every case the paths gave them
     checked = {(r["kernel"], r["shape"], r["dtype"], r["rate"]) for r in rows}
     more = {(kernel, shape, dtype, rate) for kernel, shape, _, rate in PATH_SHAPES if kernel != MEL
-            for dtype in DTYPES}  # K1, K2, K6, K7: both dtypes at every shape
+            for dtype in DTYPES}  # K1, K2, K6, K7, K8: both dtypes at every shape
     more |= {(MEL, (*shape[:2], layout), "float32", 0.0) for kernel, shape, _, _ in PATH_SHAPES if kernel == MEL
              for layout in MEL_LAYOUTS}
     for i, (kernel, shape, dtype, rate) in enumerate(sorted(more - checked), len(rows)):
         if kernel == MEL:
             rows.append(check_mel_case(lk, shape, i))
-        elif kernel in (W2V0, W2V_TAIL):
+        elif kernel in (W2V0, W2V_TAIL, GN):
             rows.append(check_w2v_case(wc, frontend, kernel, shape, dtype, i))
         else:
             rows.append(check_case(fa, kernel, shape, dtype, rate, i))
-    for b, h, sq, sk in sorted({shape[:4] for (kernel, shape, _, rate) in PATH_SHAPES if rate}):
-        check_dropout_masks(fa, b, h, sq, sk)
+    # the exact read-off needs v = I, so Sk as a head dim; wider shapes are held by value (check_case with dropout)
+    for b, h, sq, sk, rate in sorted({(*shape[:4], rate) for (kernel, shape, _, rate) in PATH_SHAPES if rate
+                                      and max(shape[2:4]) <= fa.MAX_HEAD_DIM}):
+        check_dropout_masks(fa, b, h, sq, sk, rate)
     by_case = {(r["kernel"], r["shape"], r["dtype"], r["rate"]): r for r in rows}
 
     # 8. kernel line (times per launch, averaged over the main paths' launches

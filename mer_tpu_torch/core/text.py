@@ -2,7 +2,8 @@
 
 ``get_text`` follows the reference's src/utils.py:33-76: read
 ``{train,dev,test}_sent_emo.csv``, drop the four corrupted clips and fix
-cp1252 mojibake.
+cp1252 mojibake. ``get_utterance_with_context`` builds the text extractor's
+``prev <sep> current <sep> next`` strings (reference text/utils.py:61-92).
 """
 
 from __future__ import annotations
@@ -70,6 +71,26 @@ def map_emotions(df: pd.DataFrame) -> pd.DataFrame:
     df = df.copy()
     df["Emotion"] = df["Emotion"].map(EMOTION_LABELS)
     return df
+
+
+def get_utterance_with_context(df: pd.DataFrame, idx: int, separator: str) -> str:
+    """``prev <sep> current <sep> next`` for row ``idx`` of ``df``: the
+    neighbours are the utterances before and after it in its dialogue's sorted
+    ``Utterance_ID`` order; a missing neighbour leaves a bare separator on
+    that side."""
+    row = df.iloc[idx]
+    dialogue = df[df["Dialogue_ID"] == int(row["Dialogue_ID"])]
+    utt_ids = sorted(dialogue["Utterance_ID"].to_list())
+    pos = utt_ids.index(int(row["Utterance_ID"]))
+
+    def utterance(utt_id) -> str:
+        return dialogue[dialogue["Utterance_ID"] == utt_id].iloc[0]["Utterance"]
+
+    parts = [utterance(utt_ids[pos - 1])] if pos > 0 else []
+    parts += [separator, str(row["Utterance"]), separator]
+    if pos < len(utt_ids) - 1:
+        parts.append(utterance(utt_ids[pos + 1]))
+    return " ".join(str(p) for p in parts)
 
 
 def dialogue_index(df: pd.DataFrame) -> dict[int, list[int]]:

@@ -12,9 +12,11 @@ corrupted rows ``get_text`` must drop; the same seed writes the same files
 as the script. ``--meld-shape`` writes a test split with the real MELD test
 statistics (280 dialogues, exactly 2,608 usable utterances, durations
 lognormal with mean ~3.2 s, clipped to [0.5, 10] s) and tiny train and dev
-splits::
+splits. ``--words LO HI`` gives every utterance a seeded number of words in
+[LO, HI] (the default is the script's three-word utterance), so the text
+extractor's context windows reach the wider token buckets::
 
-    python -m mer_tpu_torch.data.synthetic OUT_DIR [--dialogues N] [--meld-shape]
+    python -m mer_tpu_torch.data.synthetic OUT_DIR [--dialogues N] [--meld-shape] [--words LO HI]
 """
 
 from __future__ import annotations
@@ -81,8 +83,29 @@ MELD_SPLITS = {
 SAMPLE_RATE = 16000
 
 
-def _row(n: int, dia: int, utt: int, emotion: str) -> dict:
-    return {"Sr No.": n, "Utterance": f"synthetic utterance {dia}-{utt}", "Speaker": "Synth", "Emotion": emotion,
+_WORDS = ("oh", "well", "you", "know", "really", "that", "is", "what", "we", "were", "on", "a", "break", "okay", "fine",
+          "could", "this", "be", "any", "more", "coffee", "please", "how", "doing", "no", "way", "pivot", "again")
+
+
+def _utterance(dia: int, utt: int, words: tuple[int, int] | None) -> str:
+    """The script's ``synthetic utterance D-U``, or with ``words`` = (lo, hi)
+    a seeded number of words in that range, skewed as MELD's are: most
+    utterances in the lowest eighth of the range, one in twenty in its upper
+    half. The generator is seeded by (dialogue, utterance), so the text does
+    not touch the stream that draws emotions and audio."""
+    if words is None:
+        return f"synthetic utterance {dia}-{utt}"
+    lo, hi = words
+    rng = np.random.default_rng([dia, utt])
+    if rng.random() < 0.05:
+        n = int(rng.integers((lo + hi + 1) // 2, hi + 1))
+    else:
+        n = int(rng.integers(lo, lo + max((hi - lo) // 8, 0) + 1))
+    return " ".join(_WORDS[i] for i in rng.integers(0, len(_WORDS), size=n))
+
+
+def _row(n: int, dia: int, utt: int, emotion: str, words: tuple[int, int] | None = None) -> dict:
+    return {"Sr No.": n, "Utterance": _utterance(dia, utt, words), "Speaker": "Synth", "Emotion": emotion,
             "Sentiment": "neutral", "Dialogue_ID": dia, "Utterance_ID": utt, "Season": 1, "Episode": 1,
             "StartTime": "0", "EndTime": "1"}
 
@@ -101,28 +124,29 @@ def _write_csv(root: str, csv_name: str, rows: list[dict]):
     return df
 
 
-def write_split(root: str, csv_name: str, n_dialogues: int, rng) -> int:
-    """One small split: 1-7 utterances a dialogue, 0.5-2 s clips, the
-    corrupted rows appended; returns the usable utterance count."""
+def write_split(root: str, csv_name: str, n_dialogues: int, rng, words: tuple[int, int] | None = None,
+                clip_seconds: tuple[float, float] = (0.5, 2.0)) -> int:
+    """One small split: 1-7 utterances a dialogue, clips of ``clip_seconds``
+    (0.5-2 s), the corrupted rows appended; returns the usable utterance count."""
     from mer_tpu_torch.data.audio_io import save_wav
 
     wav_dir, corrupted = MELD_SPLITS[csv_name]
     rows = []
     for dia in range(n_dialogues):
         for utt in range(int(rng.integers(1, 8))):
-            rows.append(_row(len(rows) + 1, dia, utt, EMOTIONS[int(rng.integers(0, 7))]))
+            rows.append(_row(len(rows) + 1, dia, utt, EMOTIONS[int(rng.integers(0, 7))], words))
     for dia, utt in corrupted:
         rows.append({**rows[-1], "Dialogue_ID": dia, "Utterance_ID": utt, "Utterance": "corrupted"})
     df = _write_csv(root, csv_name, rows)
     out_dir = os.path.join(root, wav_dir)
     os.makedirs(out_dir, exist_ok=True)
     for dia, utt in zip(df["Dialogue_ID"], df["Utterance_ID"]):
-        n = int(rng.integers(8000, 32000))
+        n = int(rng.integers(int(clip_seconds[0] * SAMPLE_RATE), int(clip_seconds[1] * SAMPLE_RATE)))
         save_wav(os.path.join(out_dir, f"dia{dia}_utt{utt}.wav"), _tone(rng, n), SAMPLE_RATE)
     return len(rows) - len(corrupted)
 
 
-def write_meld_shaped_test(root: str, rng) -> int:
+def write_meld_shaped_test(root: str, rng, words: tuple[int, int] | None = None) -> int:
     """The real MELD test shape: 280 dialogues, 2,610 rows of which the two
     corrupted clips are filtered, leaving 2,608 usable utterances."""
     from mer_tpu_torch.data.audio_io import save_wav
@@ -139,7 +163,7 @@ def write_meld_shaped_test(root: str, rng) -> int:
     rows = []
     for dia in range(n_dialogues):
         for utt in range(int(counts[dia])):
-            rows.append(_row(len(rows) + 1, dia, utt, EMOTIONS[int(rng.integers(0, 7))]))
+            rows.append(_row(len(rows) + 1, dia, utt, EMOTIONS[int(rng.integers(0, 7))], words))
     df = _write_csv(root, "test_sent_emo.csv", rows)
     out_dir = os.path.join(root, wav_dir)
     os.makedirs(out_dir, exist_ok=True)
@@ -154,20 +178,25 @@ def write_meld_shaped_test(root: str, rng) -> int:
 
 
 def write_synthetic_meld(root: str, n_dialogues: int = 20, meld_shape: bool = False,
-                         split_dialogues: dict[str, int] | None = None) -> dict[str, int]:
+                         split_dialogues: dict[str, int] | None = None,
+                         words: tuple[int, int] | None = None,
+                         clip_seconds: tuple[float, float] = (0.5, 2.0)) -> dict[str, int]:
     """Write a synthetic MELD root from seed 0; returns usable utterances
     per CSV. ``split_dialogues`` overrides the dialogue count of a small
-    split (``{"train_sent_emo.csv": 100}``)."""
+    split (``{"train_sent_emo.csv": 100}``); ``words`` = (lo, hi) gives every
+    utterance that many seeded words instead of the fixed three (labels and
+    wavs are the same either way); ``clip_seconds`` is the range of the small
+    splits' clip lengths."""
     rng = np.random.default_rng(0)
     scale = {"train_sent_emo.csv": 1.0, "dev_sent_emo.csv": 0.4, "test_sent_emo.csv": 0.6}
     counts = {}
     for csv_name in MELD_SPLITS:
         if meld_shape and csv_name == "test_sent_emo.csv":
-            counts[csv_name] = write_meld_shaped_test(root, rng)
+            counts[csv_name] = write_meld_shaped_test(root, rng, words)
             continue
         n_dia = 2 if meld_shape else max(int(n_dialogues * scale[csv_name]), 2)
         n_dia = (split_dialogues or {}).get(csv_name, n_dia)
-        counts[csv_name] = write_split(root, csv_name, n_dia, rng)
+        counts[csv_name] = write_split(root, csv_name, n_dia, rng, words, clip_seconds)
     return counts
 
 
@@ -177,8 +206,11 @@ def main(argv=None) -> dict[str, int]:
     p.add_argument("--dialogues", type=int, default=20)
     p.add_argument("--meld-shape", action="store_true",
                    help="a test split of MELD's test statistics (2,608 usable utterances); train and dev tiny")
+    p.add_argument("--words", type=int, nargs=2, metavar=("LO", "HI"), default=None,
+                   help="words per utterance, drawn from a seed in [LO, HI] (default: a fixed three-word utterance)")
     args = p.parse_args(argv)
-    counts = write_synthetic_meld(args.out_dir, args.dialogues, args.meld_shape)
+    counts = write_synthetic_meld(args.out_dir, args.dialogues, args.meld_shape,
+                                  words=tuple(args.words) if args.words else None)
     for csv_name, n in counts.items():
         print(f"{csv_name}: {n} utterances")
     print(f"Synthetic MELD root at {os.path.abspath(args.out_dir)}")

@@ -1,14 +1,20 @@
 """Shared wiring of the text and wav2vec2 feature-extractor entry points
 (counterpart of ``src/feature_extractors/fe_common.py``).
 
-Ported so far, for the wav2vec2 extractor's export and evaluation:
-:func:`parse_args`, :func:`resolve_compute_dtype`, :func:`load_wav2vec2_model`
-and :func:`export_embedding_table`. ``--int8``, ``--pp``, ``--remat`` and
+:func:`parse_args`, :func:`resolve_compute_dtype`, the model loaders
+:func:`load_wav2vec2_model` and :func:`load_text_model_and_tokenizer`,
+:func:`with_pretrained_backbone`, :func:`load_finetuned` and
+:func:`export_embedding_table`. ``--int8``, ``--pp``, ``--remat`` and
 ``--zero1`` are parsed and refused: the serving engine, the pipeline, the
 rematerialisation and the sharded optimizer they select are not ported. The
-encoder has one layout here, so ``--scan-layers`` has no counterpart, and the
-export always loops over batches (``mer_tpu``'s ``--per-batch-export`` shape;
+encoders have one layout here, so ``--scan-layers`` has no counterpart, and the
+exports always loop over batches (``mer_tpu``'s ``--per-batch-export`` shape;
 its scan grouping exists to save jit dispatches).
+
+Nothing is downloaded. Without ``--random-init`` the pretrained backbone must
+be a local ``--pretrained`` file (a ``torch.save``'d Hugging Face
+``state_dict``) or a directory holding one as ``pytorch_model.bin``; without
+``--toy-tokenizer`` the RoBERTa tokenizer's files must be in that directory.
 """
 
 from __future__ import annotations
@@ -19,8 +25,11 @@ import os
 import numpy as np
 import torch
 
+from mer_tpu_torch.data.text_fe import ToyWhitespaceTokenizer, load_roberta_tokenizer
 from mer_tpu_torch.models.convert import read_torch_checkpoint
+from mer_tpu_torch.models.roberta import RobertaConfig, TextERC, text_erc_from_seed
 from mer_tpu_torch.models.wav2vec2 import AudioERC, Wav2Vec2Config, audio_erc_from_seed
+from mer_tpu_torch.train.checkpoint import load_checkpoint
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _UNPORTED = {"int8": "the int8 serving engine", "pp": "pipeline parallelism",
@@ -31,10 +40,15 @@ def parse_args(argv=None, default_config: str | None = None, prog: str | None = 
     p = argparse.ArgumentParser(prog=prog)
     p.add_argument("--config", default=default_config)
     p.add_argument("--data-root", default=None, help="directory containing MELD.Raw (default ./data)")
+    p.add_argument("--epochs", type=int, default=None, help="training: override solver.epochs")
     p.add_argument("--random-init", action="store_true",
                    help="seeded random backbone weights instead of pretrained ones (smoke runs)")
+    p.add_argument("--toy-tokenizer", action="store_true",
+                   help="text: the hash tokenizer instead of the Hugging Face RoBERTa vocabulary")
     p.add_argument("--pretrained", default=None,
-                   help="local file: a torch.save'd wav2vec2-base state_dict (Hugging Face key names)")
+                   help="local file: a torch.save'd backbone state_dict (Hugging Face key names), or a directory "
+                        "holding it as pytorch_model.bin (text: beside the tokenizer's files)")
+    p.add_argument("--variant", default=None, help="text: roberta-base (default) or roberta-large")
     dtype = p.add_mutually_exclusive_group()
     dtype.add_argument("--bf16", action="store_true", help="force bf16 compute over the f32 weights")
     dtype.add_argument("--f32", action="store_true", help="force float32 compute")
@@ -62,22 +76,85 @@ def resolve_compute_dtype(args, config=None) -> torch.dtype:
     return torch.bfloat16 if name in ("bfloat16", "bf16") else torch.float32
 
 
+def _pretrained_state_dict(args, variant: str, reference: str) -> dict | None:
+    """The pretrained backbone's ``state_dict`` from ``--pretrained``, None
+    under ``--random-init``; anything else is a loud error."""
+    if args.random_init:
+        return None
+    path = args.pretrained
+    if path and os.path.isdir(path):
+        path = os.path.join(path, "pytorch_model.bin")
+    if not (path and os.path.isfile(path)):
+        raise RuntimeError(
+            f"pretrained backbone '{args.pretrained or variant}' is unavailable (this package downloads nothing). "
+            "Stage the weights locally and pass --pretrained <state_dict file>, or run with --random-init for a "
+            f"smoke run; results will NOT match the reference's fine-tuned artifacts ({reference}).")
+    return read_torch_checkpoint(path)
+
+
+def _seed(config) -> int:
+    return int(config.get_path("tpu.seed", 0)) if config is not None else 0
+
+
 def load_wav2vec2_model(args, variant: str = "facebook/wav2vec2-base", config=None) -> tuple[AudioERC, dict | None]:
     """(model on the host, pretrained backbone ``state_dict`` or None): the
     base-config ``AudioERC`` with seeded random weights (``tpu.seed``) in the
     resolved compute dtype. Without ``--random-init`` the pretrained backbone
     must be a local ``--pretrained`` file; nothing is downloaded."""
-    dtype = resolve_compute_dtype(args, config)
-    seed = int(config.get_path("tpu.seed", 0)) if config is not None else 0
-    model = audio_erc_from_seed(seed, Wav2Vec2Config.base(), dtype)
-    if args.random_init:
-        return model, None
-    if not (args.pretrained and os.path.isfile(args.pretrained)):
-        raise RuntimeError(
-            f"pretrained backbone '{args.pretrained or variant}' is unavailable (this package downloads nothing). "
-            "Stage the weights locally and pass --pretrained <state_dict file>, or run with --random-init for a "
-            "smoke run; results will NOT match the reference's fine-tuned artifacts (audio_wav2vec2/model.py:9).")
-    return model, read_torch_checkpoint(args.pretrained)
+    model = audio_erc_from_seed(_seed(config), Wav2Vec2Config.base(), resolve_compute_dtype(args, config))
+    return model, _pretrained_state_dict(args, variant, "audio_wav2vec2/model.py:9")
+
+
+def load_text_model_and_tokenizer(args, variant: str | None = None, config=None):
+    """(model on the host, tokenizer, pretrained backbone ``state_dict`` or
+    None): ``TextERC`` with seeded random weights (``tpu.seed``) in the
+    resolved compute dtype. The variant comes from ``--variant``, then
+    ``variant``, then the config's ``test.pretrained_model`` (the reference's
+    knob), then ``roberta-base``; a name holding "large" picks the large
+    config. ``--toy-tokenizer`` picks the hash tokenizer over the variant's
+    vocabulary size, else the Hugging Face tokenizer is read from local files."""
+    variant = (args.variant or variant or (config.get_path("test.pretrained_model") if config is not None else None)
+               or "roberta-base")
+    cfg = RobertaConfig.large() if "large" in variant else RobertaConfig.base()
+    model = text_erc_from_seed(_seed(config), cfg, resolve_compute_dtype(args, config))
+    tokenizer = (ToyWhitespaceTokenizer(vocab_size=cfg.vocab_size) if args.toy_tokenizer
+                 else load_roberta_tokenizer(args.pretrained or variant))
+    return model, tokenizer, _pretrained_state_dict(args, variant, "text/model.py:16")
+
+
+def with_pretrained_backbone(model: TextERC | AudioERC, pretrained: dict | None):
+    """``model`` with its backbone filled from the pretrained ``state_dict``
+    (its head keeps the seeded weights); unchanged when there is none."""
+    if pretrained is not None:
+        model.load_backbone(pretrained)
+    return model
+
+
+def set_float32_exact(dtype: torch.dtype) -> None:
+    """In float32 turn TF32 off, so f32 means f32 on the card."""
+    if dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def load_finetuned(model: TextERC | AudioERC, pretrained: dict | None, ckpt_path: str, need_checkpoint: bool):
+    """``model`` with the fine-tuned checkpoint at ``ckpt_path`` (a
+    ``model_state_dict`` or a bare ``state_dict``) when it exists; else, unless
+    ``need_checkpoint``, with the pretrained backbone under the seeded head;
+    else an error (as the reference's entry points)."""
+    ckpt_path = os.path.abspath(ckpt_path)
+    if os.path.exists(ckpt_path):
+        ckpt = load_checkpoint(ckpt_path)
+        model.load_state_dict(ckpt.get("model_state_dict", ckpt), strict=True)
+        print(f"Loaded fine-tuned checkpoint {ckpt_path}")
+    elif need_checkpoint:
+        raise FileNotFoundError(f"Checkpoint not found at {ckpt_path}")
+    elif pretrained is not None:
+        model.load_backbone(pretrained)
+        print("Checkpoint not found; exporting with pretrained backbone")
+    else:
+        raise ValueError("Checkpoint not found")
+    return model
 
 
 def export_embedding_table(embed_batches, n_rows: int, dim: int) -> np.ndarray:

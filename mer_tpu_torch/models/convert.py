@@ -9,7 +9,8 @@ leading layer axis, unstacked here in numpy.
 run resumes in the port from ``mer_tpu``'s optimizer state.
 :func:`mel_state_dict_from_jax` carries a ``mer_tpu`` mel extractor (params
 and BatchNorm stats) over to the port's torchvision-layout ResNet18, and
-:func:`audio_state_dict_from_jax` a ``mer_tpu`` wav2vec2 ``AudioERC`` to the
+:func:`audio_state_dict_from_jax` a ``mer_tpu`` wav2vec2 ``AudioERC`` and
+:func:`text_state_dict_from_jax` a ``mer_tpu`` RoBERTa ``TextERC`` to the
 port's, under Hugging Face's key names.
 :func:`load_reference_checkpoint` reads ``torch.save({'epoch',
 'model_state_dict'})`` files (reference src/train.py:163-168).
@@ -172,6 +173,37 @@ def audio_state_dict_from_jax(params_np: Mapping) -> dict[str, torch.Tensor]:
         _layernorm(layer["final_layer_norm"], f"{p}final_layer_norm.", out)
     _linear(params_np["head_dense"], "head_dense.", out)
     _linear(params_np["head_out"], "head_out.", out)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # copies: writable, contiguous
+
+
+def text_state_dict_from_jax(params_np: Mapping) -> dict[str, torch.Tensor]:
+    """``mer_tpu``'s ``TextERC`` params (nested dicts of numpy arrays) -> the
+    port's ``state_dict``: the inverse of ``convert_hf_roberta``
+    (``mer_tpu/models/roberta.py:227``, under ``roberta.``) and
+    ``convert_hf_classification_head`` (``:272``, under ``classifier_head.``).
+    Embedding tables as they are, Dense kernels transposed, LayerNorm scale to
+    weight. Both encoder layouts are read: unrolled ``layer_{i}`` and
+    scan-stacked ``layers_scan/layer``."""
+    out: dict[str, np.ndarray] = {}
+    backbone, prefix = params_np["roberta"], "roberta."
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        out[f"{prefix}embeddings.{name}.weight"] = _np(backbone[name]["embedding"])
+    _layernorm(backbone["embeddings_layernorm"], f"{prefix}embeddings.LayerNorm.", out)
+    if "layers_scan" in backbone:
+        layers = _unstack(backbone["layers_scan"]["layer"])
+    else:
+        layers = [backbone[f"layer_{i}"] for i in range(sum(k.startswith("layer_") for k in backbone))]
+    for i, layer in enumerate(layers):
+        p = f"{prefix}encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            _linear(layer["attention"][name], f"{p}attention.self.{name}.", out)
+        _linear(layer["attention_output"], f"{p}attention.output.dense.", out)
+        _layernorm(layer["attention_layernorm"], f"{p}attention.output.LayerNorm.", out)
+        _linear(layer["intermediate"], f"{p}intermediate.dense.", out)
+        _linear(layer["output"], f"{p}output.dense.", out)
+        _layernorm(layer["output_layernorm"], f"{p}output.LayerNorm.", out)
+    _linear(params_np["classifier_head"]["dense"], "classifier_head.dense.", out)
+    _linear(params_np["classifier_head"]["out_proj"], "classifier_head.out_proj.", out)
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # copies: writable, contiguous
 
 

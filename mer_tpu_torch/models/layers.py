@@ -9,7 +9,7 @@ through the hand-written kernels on the card. Batch-first [B, S, D].
 
 In train mode attention dropout draws its seed words from the host
 ``torch.Generator`` that :func:`set_attention_generator` hands every
-:class:`MultiheadAttention`; dropout elsewhere is stock ``nn.Dropout``.
+:class:`SeededAttention`; dropout elsewhere is stock ``nn.Dropout``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,15 @@ from torch import nn
 from mer_tpu_torch.ops.attention import dot_product_attention
 
 
-class MultiheadAttention(nn.Module):
+class SeededAttention(nn.Module):
+    """Base of the attention modules whose train-mode dropout runs inside the
+    kernels: ``generator`` is the host ``torch.Generator`` the seed words of
+    each call are drawn from (:func:`set_attention_generator`)."""
+
+    generator: torch.Generator | None = None
+
+
+class MultiheadAttention(SeededAttention):
     """``torch.nn.MultiheadAttention`` parity (batch_first): packed
     ``in_proj_weight`` [3D, D] / ``in_proj_bias`` [3D] and ``out_proj``."""
 
@@ -36,7 +44,6 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
-        self.generator: torch.Generator | None = None  # attention-dropout seeds (train mode)
 
     def _heads(self, x: torch.Tensor, which: int) -> torch.Tensor:
         d = self.embed_dim
@@ -99,8 +106,9 @@ class TransformerEncoder(nn.Module):
 
 
 def set_attention_generator(model: nn.Module, generator: torch.Generator | None) -> None:
-    """Give every :class:`MultiheadAttention` of ``model`` the host generator
-    its train-mode attention dropout draws seed words from."""
+    """Give every :class:`SeededAttention` of ``model`` (M2FNet's
+    :class:`MultiheadAttention`, the wav2vec2 and RoBERTa attentions) the host
+    generator its train-mode attention dropout draws seed words from."""
     for module in model.modules():
-        if isinstance(module, MultiheadAttention):
+        if isinstance(module, SeededAttention):
             module.generator = generator

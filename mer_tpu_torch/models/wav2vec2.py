@@ -21,9 +21,18 @@ keys.
 
 On a CUDA tensor the conv frontend runs kernels K7 then K6
 (:mod:`mer_tpu_torch.ops.w2v_conv`) in [B, T, C] layout throughout, and the
-attention kernel K1; on a CPU tensor their plain versions. One encoder layout,
-unrolled. Forward only in this module's use so far: dropout is not applied
-(``mer_tpu``'s ``deterministic=True``).
+attention kernels K1 and K2; on a CPU tensor their plain versions. K7 and K6
+are forward-only, as the TPU kernels they replace: when the frontend trains
+(grad enabled and one of its parameters requires grad) it takes the stock
+differentiable convolutions instead, as ``mer_tpu``'s training differentiates
+XLA's. One encoder layout, unrolled.
+
+Dropout (train mode, ``mer_tpu``'s ``deterministic=False``): ``hidden_dropout``
+after the feature projection, after the positional conv's LayerNorm, and in
+every layer on the attention output, on the feed-forward's GELU and on its
+output; ``attention_dropout`` on the attention probabilities inside K1 and K2,
+seeded from the generator :func:`~mer_tpu_torch.models.layers.set_attention_generator`
+hands the attentions. Eval mode applies none.
 
 Mixed precision as in ``mer_tpu`` (Flax ``dtype`` against ``param_dtype``): the
 parameters stay float32 and ``dtype`` is the compute dtype. Linear and conv
@@ -40,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mer_tpu_torch.models.layers import SeededAttention
 from mer_tpu_torch.ops import w2v_conv
 from mer_tpu_torch.ops.attention import dot_product_attention
 
@@ -95,7 +105,10 @@ class ConvFeatureExtractor(nn.Module):
     """Temporal conv stack on raw waveforms [B, L] -> [B, T, C]: layer 0 with
     its GroupNorm and GELU through :func:`~mer_tpu_torch.ops.w2v_conv.layer0_gn`
     (K7), layers 1.. through :func:`~mer_tpu_torch.ops.w2v_conv.conv_stack_fused`
-    (K6)."""
+    (K6). The kernels have no backward (nor have ``mer_tpu``'s), so when the
+    stack trains, i.e. grad is enabled and one of its parameters requires grad,
+    it runs :func:`~mer_tpu_torch.ops.w2v_conv.conv_stack_stock` instead. The
+    choice follows what can be differentiated, never what is built or present."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
@@ -107,6 +120,10 @@ class ConvFeatureExtractor(nn.Module):
 
     def forward(self, waveforms: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         first = self.conv_layers[0]
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            return w2v_conv.conv_stack_stock(waveforms, [layer.conv.weight for layer in self.conv_layers],
+                                             first.layer_norm.weight, first.layer_norm.bias, self.strides,
+                                             eps=first.layer_norm.eps, dtype=dtype)
         x = w2v_conv.layer0_gn(waveforms, first.conv.weight, first.layer_norm.weight, first.layer_norm.bias,
                                stride=self.strides[0], eps=first.layer_norm.eps, dtype=dtype)
         return w2v_conv.conv_stack_fused(x, [layer.conv.weight for layer in self.conv_layers[1:]], self.strides[1:])
@@ -117,9 +134,11 @@ class FeatureProjection(nn.Module):
         super().__init__()
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.dropout = cfg.hidden_dropout
 
     def forward(self, feats: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return _linear(_layer_norm(feats, self.layer_norm, dtype), self.projection, dtype)
+        x = _linear(_layer_norm(feats, self.layer_norm, dtype), self.projection, dtype)
+        return F.dropout(x, self.dropout, self.training)
 
 
 class ConvPositionalEmbedding(nn.Module):
@@ -142,11 +161,12 @@ class ConvPositionalEmbedding(nn.Module):
         return F.gelu(x).transpose(1, 2)
 
 
-class _Attention(nn.Module):
+class _Attention(SeededAttention):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
+        self.dropout = cfg.attention_dropout
         self.q_proj, self.k_proj, self.v_proj, self.out_proj = (nn.Linear(h, h) for _ in range(4))
 
     def forward(self, hidden: torch.Tensor, key_padding_mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -157,7 +177,8 @@ class _Attention(nn.Module):
                 .transpose(1, 2).contiguous()  # [B, H, S, Dh]
 
         out = dot_product_attention(heads(self.q_proj), heads(self.k_proj), heads(self.v_proj),
-                                    key_padding_mask=key_padding_mask)
+                                    key_padding_mask=key_padding_mask,
+                                    dropout_rate=self.dropout if self.training else 0.0, generator=self.generator)
         return _linear(out.transpose(1, 2).reshape(b, s, h), self.out_proj, dtype)
 
 
@@ -166,13 +187,16 @@ class _FeedForward(nn.Module):
         super().__init__()
         self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.dropout = cfg.hidden_dropout
 
     def forward(self, hidden: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return _linear(F.gelu(_linear(hidden, self.intermediate_dense, dtype)), self.output_dense, dtype)
+        inner = F.dropout(F.gelu(_linear(hidden, self.intermediate_dense, dtype)), self.dropout, self.training)
+        return _linear(inner, self.output_dense, dtype)
 
 
 class Wav2Vec2EncoderLayer(nn.Module):
-    """Post-LN: ``x = layer_norm(x + attention(x))``, ``x = final_layer_norm(x + feed_forward(x))``."""
+    """Post-LN: ``x = layer_norm(x + drop(attention(x)))``,
+    ``x = final_layer_norm(x + drop(feed_forward(x)))``."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
@@ -180,10 +204,12 @@ class Wav2Vec2EncoderLayer(nn.Module):
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.feed_forward = _FeedForward(cfg)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dropout = cfg.hidden_dropout
 
     def forward(self, hidden: torch.Tensor, key_padding_mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        hidden = _layer_norm(hidden + self.attention(hidden, key_padding_mask, dtype), self.layer_norm, dtype)
-        return _layer_norm(hidden + self.feed_forward(hidden, dtype), self.final_layer_norm, dtype)
+        drop = lambda x: F.dropout(x, self.dropout, self.training)
+        hidden = _layer_norm(hidden + drop(self.attention(hidden, key_padding_mask, dtype)), self.layer_norm, dtype)
+        return _layer_norm(hidden + drop(self.feed_forward(hidden, dtype)), self.final_layer_norm, dtype)
 
 
 class _Encoder(nn.Module):
@@ -192,11 +218,13 @@ class _Encoder(nn.Module):
         self.pos_conv_embed = ConvPositionalEmbedding(cfg)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(Wav2Vec2EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.dropout = cfg.hidden_dropout
 
     def forward(self, x: torch.Tensor, frame_valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         # padded frames are zeroed before the positional conv (HF semantics)
         x = torch.where(frame_valid[..., None], x, 0.0)
         x = _layer_norm(x + self.pos_conv_embed(x, dtype), self.layer_norm, dtype)
+        x = F.dropout(x, self.dropout, self.training)
         key_padding_mask = ~frame_valid
         for layer in self.layers:
             x = layer(x, key_padding_mask, dtype)

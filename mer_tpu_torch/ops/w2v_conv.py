@@ -1,4 +1,4 @@
-"""The wav2vec2 conv frontend's kernels K7 and K6 (hand-written CUDA) and
+"""The wav2vec2 conv frontend's kernels K7, K6 and K8 (hand-written CUDA) and
 their plain versions.
 
 Replaces the TPU kernels of ``mer_tpu/ops/w2v_conv_pallas.py``:
@@ -10,13 +10,19 @@ Replaces the TPU kernels of ``mer_tpu/ops/w2v_conv_pallas.py``:
 - K6, :func:`conv_stack_fused`: ``conv_stack_fused`` (``:467``; ``_kernel``
   ``:135``), conv layers 1..6 (k 3, 3, 3, 3, 2, 2, stride 2, 512 -> 512, no
   bias) with the exact GELU after each: [B, T0, 512] -> [B, T6, 512].
+- K8, :func:`gn_gelu`: ``gn_gelu_pallas`` (``:345``; ``_gn_stats_kernel``
+  ``:320`` and ``_gn_apply_kernel`` ``:335``), the GroupNorm(512, 512) and
+  exact GELU alone, on a layer-0 conv output [B, T, 512] that something else
+  computed, with the statistics over the rows ``< t_valid`` only. It serves
+  :func:`conv_stack_gnfused` (stock convs + K8); :func:`conv_stack_l0fused`
+  is K7 + stock tail convs. Both are the profiling variants of
+  ``mer_tpu_torch.scripts.profile_w2v_conv``.
 
-The CUDA sources are ``mer_tpu_torch/csrc/w2v_layer0_gn.cu`` and
-``w2v_conv_tail.cu``; their headers state the design and the bound. The
-wrappers launch them for CUDA tensors, with no switch and no fallback, and
-take the plain versions (:func:`layer0_gn_reference`,
-:func:`conv_tail_reference`: stock ``F.conv1d``, ``F.group_norm``, ``F.gelu``)
-only for CPU tensors. The kernels know the base geometry only; any other
+The CUDA sources are ``mer_tpu_torch/csrc/w2v_layer0_gn.cu``,
+``w2v_conv_tail.cu`` and ``w2v_gn_gelu.cu``; their headers state the design
+and the bound. The wrappers launch them for CUDA tensors, with no switch and
+no fallback, and take the plain versions (:func:`layer0_gn_reference`,
+:func:`conv_tail_reference`, :func:`gn_gelu_reference`) only for CPU tensors. The kernels know the base geometry only; any other
 raises ``ValueError`` on the card, while the plain versions take any.
 
 Numerics, every version: the waveform and the weights are cast to the compute
@@ -28,8 +34,13 @@ the float32 ops on the rounded values, so float32 on the card means TF32 off
 
 Layout: activations are [B, T, C], channels last, as ``mer_tpu`` keeps them;
 weights arrive in the ``state_dict`` layout [C_out, C_in, k] and are restacked
-for the kernels (K7 tap-major, K6 per output channel). Forward only: the TPU kernels have no backward, and
-a CUDA input that requires grad raises.
+for the kernels (K7 tap-major, K6 per output channel). Forward only: the TPU
+kernels have no backward (``w2v_conv_pallas.py`` has no ``custom_vjp``;
+``mer_tpu`` trains through the XLA convs of its ``ConvFeatureExtractor``), so on
+the card a wrapper called with grad enabled on an input or parameter that
+requires grad raises: a kernel result carries no ``grad_fn`` and must never
+enter a graph. The model takes :func:`conv_stack_stock`, the differentiable
+stock route, whenever the frontend trains.
 """
 
 from __future__ import annotations
@@ -44,11 +55,13 @@ from mer_tpu_torch.ops import _build
 
 L0_KERNEL = "w2v_layer0_gn"
 TAIL_KERNEL = "w2v_conv_tail"
+GN_KERNEL = "w2v_gn_gelu"
 CHANNELS = 512
 L0_TAPS, L0_STRIDE = 10, 5
 TAIL_TAPS = (3, 3, 3, 3, 2, 2)
 TAIL_STRIDES = (2, 2, 2, 2, 2, 2)
 _L0_TILE = 256  # frames per block of K7's passes (kTileT in the source)
+_GN_TILE = 128  # rows per block of K8's passes (kTileT in the source)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -90,17 +103,58 @@ def conv_tail_reference(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return x.transpose(1, 2).contiguous()
 
 
+def gn_gelu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, t_valid: int,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of K8: x [B, T, C] -> [B, T, C] in x's dtype.
+    Per (clip, channel) sum and sum of squares over the rows ``< t_valid`` in
+    float32, the biased one-pass variance ``E[x^2] - mean^2``, then
+    ``(x - mean) * rsqrt(var + eps) * scale + bias`` and the exact GELU on
+    every row."""
+    xf = x.float()
+    valid = xf[:, :t_valid]
+    mean = valid.sum(dim=1, keepdim=True) / t_valid
+    var = (valid * valid).sum(dim=1, keepdim=True) / t_valid - mean * mean
+    y = (xf - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return F.gelu(y).to(x.dtype)
+
+
+# -- the stock route ---------------------------------------------------------------
+
+
+def _stock_convs(x: torch.Tensor, weights: Sequence[torch.Tensor], strides: Sequence[int]) -> torch.Tensor:
+    """x [B, C, T] through ``F.conv1d`` + exact GELU per layer, in x's dtype."""
+    for w, s in zip(weights, strides):
+        x = F.gelu(F.conv1d(x, w.to(x.dtype), stride=s))
+    return x
+
+
+def conv_stack_stock(wave: torch.Tensor, weights: Sequence[torch.Tensor], gamma: torch.Tensor, beta: torch.Tensor,
+                     strides: Sequence[int], *, eps: float = 1e-5,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The whole conv stack through stock, differentiable PyTorch ops, as
+    ``mer_tpu`` trains it through XLA's: wave [B, L] and the 7 conv weights
+    cast to ``dtype``, ``F.conv1d`` in ``dtype``, the GroupNorm after layer 0
+    with float32 statistics and its output cast back, exact GELU after every
+    layer -> [B, T, C]. No kernel of this module runs."""
+    x = F.conv1d(wave.to(dtype)[:, None, :], weights[0].to(dtype), stride=strides[0])
+    x = F.gelu(F.group_norm(x.float(), x.shape[1], gamma.float(), beta.float(), eps).to(dtype))
+    return _stock_convs(x, weights[1:], strides[1:]).transpose(1, 2)
+
+
 # -- kernels -----------------------------------------------------------------------
 
 
-def _on_card(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU one."""
-    if t.device.type == "cpu":
+def _on_card(what: str, x: torch.Tensor, *params: torch.Tensor) -> bool:
+    """True for a CUDA ``x`` (launch the kernel), False for a CPU one. On the
+    card, with grad enabled, an input or parameter that requires grad raises:
+    the kernels are forward-only."""
+    if x.device.type == "cpu":
         return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no {what} kernel for device {t.device}")
-    if t.requires_grad:
-        raise ValueError(f"the {what} kernel is forward-only; its input must not require grad")
+    if x.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        raise ValueError(f"the {what} kernel is forward-only (the TPU kernel has no backward): with grad enabled "
+                         "neither its input nor its parameters may require grad; train through conv_stack_stock")
     return True
 
 
@@ -141,7 +195,7 @@ def layer0_gn(wave: torch.Tensor, weight: torch.Tensor, gamma: torch.Tensor, bet
     base geometry only: k 10, stride 5, 512 channels), the plain version for
     CPU tensors. ``layer0_gn.launches`` counts kernel launches (one per call:
     the stats, finalize and apply grids)."""
-    if not _on_card(wave, "layer-0"):
+    if not _on_card("layer-0", wave, weight, gamma, beta):
         return layer0_gn_reference(wave, weight, gamma, beta, stride=stride, eps=eps, dtype=dtype)
     check_layer0_geometry(weight, stride)
     if dtype not in _DTYPE_CODE:
@@ -188,7 +242,7 @@ def conv_stack_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
     kernel K6 for CUDA tensors (the base geometry only), the plain version
     for CPU tensors. ``conv_stack_fused.launches`` counts kernel launches (one
     per call: six grids, one per layer)."""
-    if not _on_card(x, "conv-tail"):
+    if not _on_card("conv-tail", x, *weights):
         return conv_tail_reference(x, weights, strides)
     check_tail_geometry(weights, strides)
     if x.dtype not in _DTYPE_CODE:
@@ -217,3 +271,71 @@ def conv_stack_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 
 conv_stack_fused.launches = 0
+
+
+def _gn_kernel_fn():
+    fn = getattr(_build.load(GN_KERNEL), f"mer_{GN_KERNEL}")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gn_gelu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, t_valid: int, eps: float = 1e-5) -> torch.Tensor:
+    """x [B, T, 512] (a layer-0 conv output in the compute dtype) -> GroupNorm
+    over the rows ``< t_valid`` + exact GELU, [B, T, 512] in x's dtype: kernel
+    K8 for CUDA tensors, the plain version for CPU tensors. Rows ``>= t_valid``
+    stay out of the statistics and are still written. ``gn_gelu.launches``
+    counts kernel launches (one per call: the stats, finalize and apply grids)."""
+    if x.dim() != 3 or not 0 < t_valid <= x.shape[1]:
+        raise ValueError(f"expected x [B, T, C] and 0 < t_valid <= T; got {tuple(x.shape)}, t_valid {t_valid}")
+    if not _on_card("GroupNorm + GELU", x, scale, bias):
+        return gn_gelu_reference(x, scale, bias, t_valid, eps)
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"compute dtype must be float32 or bfloat16, got {x.dtype}")
+    if x.shape[2] != CHANNELS or not x.is_contiguous():
+        raise ValueError(f"expected a contiguous activation [B, T, {CHANNELS}]; got {tuple(x.shape)}, "
+                         f"strides {x.stride()}")
+    b, rows, _ = x.shape
+    out = torch.empty_like(x)
+    if b == 0:
+        return out
+    gamma, beta = (p.detach().float().contiguous() for p in (scale, bias))
+    n_tiles = -(-rows // _GN_TILE)
+    partial = torch.empty((b, n_tiles, 2, CHANNELS), dtype=torch.float32, device=x.device)
+    stats = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _gn_kernel_fn()(_DTYPE_CODE[x.dtype], x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                             partial.data_ptr(), stats.data_ptr(), out.data_ptr(), b, rows, int(t_valid), n_tiles,
+                             float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{GN_KERNEL} launch failed: cudaError {rc} at x {tuple(x.shape)} {x.dtype}")
+    gn_gelu.launches += 1
+    return out
+
+
+gn_gelu.launches = 0
+
+
+def conv_stack_gnfused(wave: torch.Tensor, weights: Sequence[torch.Tensor], gamma: torch.Tensor, beta: torch.Tensor,
+                       strides: Sequence[int], *, eps: float = 1e-5,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The conv stack with only the GroupNorm + GELU glue in a kernel
+    (``conv_stack_gnfused``, ``w2v_conv_pallas.py:403``): stock ``F.conv1d``
+    for all 7 layers, :func:`gn_gelu` (K8) after layer 0 -> [B, T6, C]. The
+    layer-0 output goes to K8 at its own length (``t_valid`` = T0); nothing is
+    padded."""
+    x = F.conv1d(wave.to(dtype)[:, None, :], weights[0].to(dtype), stride=strides[0])
+    x = x.transpose(1, 2).contiguous()  # [B, T0, C], the kernels' layout
+    x = gn_gelu(x, gamma, beta, x.shape[1], eps)
+    return _stock_convs(x.transpose(1, 2), weights[1:], strides[1:]).transpose(1, 2).contiguous()
+
+
+def conv_stack_l0fused(wave: torch.Tensor, weights: Sequence[torch.Tensor], gamma: torch.Tensor, beta: torch.Tensor,
+                       strides: Sequence[int], *, eps: float = 1e-5,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The conv stack with layer 0 + GroupNorm + GELU in a kernel
+    (``conv_stack_l0fused``, ``w2v_conv_pallas.py:442``): :func:`layer0_gn`
+    (K7), then stock ``F.conv1d`` + GELU for layers 1..6 -> [B, T6, C]."""
+    x = layer0_gn(wave, weights[0], gamma, beta, stride=strides[0], eps=eps, dtype=dtype)
+    return _stock_convs(x.transpose(1, 2), weights[1:], strides[1:]).transpose(1, 2).contiguous()

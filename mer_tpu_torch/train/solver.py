@@ -3,7 +3,8 @@
 - the optimizer of the reference's solver block: ``torch.optim.Adam`` with
   L2 ``weight_decay`` (``mer_tpu``'s ``torch_adam``, decay added to the
   gradient before the moments) and, when enabled, ExponentialLR stepped once
-  per epoch of *updates*;
+  per epoch of *updates*; for the feature-extractor solver, :func:`adamw`
+  and :func:`constant_with_warmup`;
 - ``solver.grad_accum_steps`` k with ``optax.MultiSteps`` semantics: the
   mean of k micro-gradients makes one update, and the micro-step counter
   runs across epochs;
@@ -55,6 +56,21 @@ def exponential_lr(base_lr: float, gamma: float, updates_per_epoch: int) -> Call
     """torch's ExponentialLR stepped once per epoch of updates: the
     learning rate of update ``n`` (0-based)."""
     return lambda n: base_lr * gamma ** (n // max(updates_per_epoch, 1))
+
+
+def constant_with_warmup(base_lr: float, warmup_updates: int) -> Callable[[int], float]:
+    """Hugging Face's ``get_constant_schedule_with_warmup``
+    (``mer_tpu``'s ``constant_with_warmup``): the learning rate of update ``n``
+    (0-based) is ``base_lr * min(n / max(warmup_updates, 1), 1)``, so the
+    first update runs at lr 0."""
+    return lambda n: base_lr * min(n / max(warmup_updates, 1), 1.0)
+
+
+def adamw(params, lr: float, weight_decay: float = 0.0) -> torch.optim.AdamW:
+    """``mer_tpu``'s ``torch_adamw`` (``optax.adamw`` without a mask):
+    betas 0.9 / 0.999, eps 1e-8, decoupled decay on every parameter, LayerNorms
+    and biases included."""
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
 
 def grad_accum_steps(solver_cfg) -> int:

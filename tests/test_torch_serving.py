@@ -148,7 +148,11 @@ def test_port_imports_neither_jax_nor_mer_tpu():
             "mer_tpu_torch.ops.w2v_conv, mer_tpu_torch.models.wav2vec2, mer_tpu_torch.data.wav2vec2_fe, "
             "mer_tpu_torch.train.fe_solver, mer_tpu_torch.feature_extractors.fe_common, "
             "mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings, "
-            "mer_tpu_torch.feature_extractors.audio_wav2vec2.test; "
+            "mer_tpu_torch.feature_extractors.audio_wav2vec2.test, "
+            "mer_tpu_torch.feature_extractors.audio_wav2vec2.train, mer_tpu_torch.models.roberta, "
+            "mer_tpu_torch.data.text_fe, mer_tpu_torch.core.text, mer_tpu_torch.feature_extractors.text.train, "
+            "mer_tpu_torch.feature_extractors.text.test, mer_tpu_torch.feature_extractors.text.embeddings, "
+            "mer_tpu_torch.scripts.profile_w2v_conv; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mer_tpu')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

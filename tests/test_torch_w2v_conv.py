@@ -1,4 +1,4 @@
-"""The port's wav2vec2 conv frontend (kernels K7 and K6) against the JAX package's, on the CPU.
+"""The port's wav2vec2 conv frontend (kernels K7, K6 and K8) against the JAX package's, on the CPU.
 
 Numpy-seeded waveforms and weights go through ``mer_tpu``'s Pallas kernels in
 interpret mode and its ``ConvFeatureExtractor``, and through the port's
@@ -15,7 +15,15 @@ wrappers (CPU tensors: the plain versions) and its ``ConvFeatureExtractor``:
   1,052 (a window's tail in the remainder of a layer whose last frame survives,
   ``tests/test_wav2vec2.py:125``), where the frame counts are
   209 -> 104 -> 51 -> 25 -> 12 -> 6 -> 3;
-- a geometry other than the base one is refused by the kernels' checks.
+- a geometry other than the base one is refused by the kernels' checks;
+- K8, ``gn_gelu`` against ``gn_gelu_pallas`` with ``t_valid < T``: f32 within
+  1e-4, bf16 within one ulp of the output (2**-7 of its value);
+  ``conv_stack_gnfused`` and ``conv_stack_l0fused`` against ``mer_tpu``'s, f32
+  within 1e-4;
+- the stock differentiable stack (what the frontend runs when it trains)
+  against the kernels' plain route in the forward (1e-5), and its weight
+  gradients against ``jax.grad`` through ``mer_tpu``'s ``ConvFeatureExtractor``
+  (1e-4 of each tensor's largest entry); which route the module takes.
 
 The ``cuda`` legs hold each kernel against its plain version on a card (TF32
 off) and skip here; on a machine with a card and no JAX::
@@ -182,13 +190,118 @@ def test_tail_lengths_and_stacked_weights():
         np.testing.assert_array_equal(got, params[f"conv_{i}"]["kernel"].reshape(-1, 512).T)
 
 
+def _gn_inputs(b, t, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(b, t, 512)) * 1.5 + 0.3).astype(np.float32)
+    return x, (1 + 0.1 * rng.normal(size=512)).astype(np.float32), (0.1 * rng.normal(size=512)).astype(np.float32)
+
+
+@pytest.mark.parametrize("t, t_valid", [(64, 50), (48, 48), (32, 5)])
+def test_gn_gelu_matches_pallas_f32(jx, t, t_valid):
+    jnp, _, pallas = jx
+    x, scale, bias = _gn_inputs(2, t, seed=t)
+    want = np.asarray(pallas.gn_gelu_pallas(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), t_valid,
+                                            CFG.layer_norm_eps, tile=16, interpret=True))
+    got = w2v_conv.gn_gelu(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias), t_valid,
+                           CFG.layer_norm_eps)
+    assert got.shape == want.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)  # rows >= t_valid are written too
+    assert w2v_conv.gn_gelu.launches == 0  # a CPU tensor takes the plain version
+
+
+def test_gn_gelu_matches_pallas_bf16(jx):
+    jnp, _, pallas = jx
+    x, scale, bias = _gn_inputs(2, 64, seed=9)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    want = np.asarray(pallas.gn_gelu_pallas(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16), jnp.asarray(scale),
+                                            jnp.asarray(bias), 50, CFG.layer_norm_eps, tile=16, interpret=True)
+                      .astype(jnp.float32))
+    got = w2v_conv.gn_gelu(xb, torch.from_numpy(scale), torch.from_numpy(bias), 50, CFG.layer_norm_eps)
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - want)
+    assert (err <= 2.0 ** -7 * np.abs(want) + 1e-6).all(), err.max()  # one bf16 ulp of the output
+
+
+def test_gn_gelu_checks_its_arguments():
+    x = torch.zeros(1, 8, 512)
+    for t_valid in (0, 9):
+        with pytest.raises(ValueError, match="t_valid"):
+            w2v_conv.gn_gelu(x, torch.ones(512), torch.zeros(512), t_valid)
+    ref = w2v_conv.gn_gelu_reference(torch.ones(1, 4, 3), torch.ones(3), torch.zeros(3), 4)  # any channel count
+    assert ref.shape == (1, 4, 3) and torch.isfinite(ref).all()
+
+
+@pytest.mark.parametrize("variant", ["gnfused", "l0fused"])
+def test_fused_variants_match_jax_f32(jx, variant):
+    jnp, _, pallas = jx
+    wave, params = _inputs(2, 4005, seed=11)
+    weights, gamma, beta = _torch_weights(params)
+    want = np.asarray(getattr(pallas, f"conv_stack_{variant}")(params, jnp.asarray(wave), CFG, dtype=jnp.float32,
+                                                                tile=256, interpret=True))
+    with torch.no_grad():
+        got = getattr(w2v_conv, f"conv_stack_{variant}")(torch.from_numpy(wave), weights, gamma, beta,
+                                                         CFG.conv_stride, eps=CFG.layer_norm_eps)
+    assert got.shape == want.shape and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_stock_stack_forward_and_weight_gradients_match_jax(jx):
+    """The route the frontend trains through: forward against the kernels'
+    plain route, weight gradients against ``jax.grad`` through ``mer_tpu``'s
+    ``ConvFeatureExtractor`` (both differentiate stock convolutions)."""
+    import jax
+
+    jnp, wav2vec2, _ = jx
+    wave, params = _inputs(2, 1052, seed=13)
+    cot = np.random.default_rng(14).normal(size=(2, 3, 512)).astype(np.float32)
+    model = _port_extractor(params).train()
+    out = model(torch.from_numpy(wave))  # grad enabled, parameters require grad: the stock route
+    assert out.requires_grad
+    with torch.no_grad():
+        plain = model(torch.from_numpy(wave))  # K7's and K6's plain versions
+    torch.testing.assert_close(out.detach(), plain, rtol=1e-5, atol=1e-5)
+    (out * torch.from_numpy(cot)).sum().backward()
+
+    jax_model = wav2vec2.ConvFeatureExtractor(CFG)
+    grads = jax.grad(lambda p: jnp.sum(jax_model.apply({"params": p}, jnp.asarray(wave)) * jnp.asarray(cot)))(params)
+    for i, layer in enumerate(model.conv_layers):
+        want = np.asarray(grads[f"conv_{i}"]["kernel"]).transpose(2, 1, 0)
+        np.testing.assert_allclose(layer.conv.weight.grad.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+    for name, attr in (("scale", "weight"), ("bias", "bias")):
+        want = np.asarray(grads["group_norm"][name])
+        got = getattr(model.conv_layers[0].layer_norm, attr).grad.numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+def test_frontend_takes_the_stock_route_only_when_it_trains():
+    from unittest import mock
+
+    wave, params = _inputs(1, 1052, seed=15)
+    model = _port_extractor(params)
+    wave = torch.from_numpy(wave)
+
+    def routes(**patches):
+        with mock.patch.object(w2v_conv, "conv_stack_stock", wraps=w2v_conv.conv_stack_stock) as stock, \
+                mock.patch.object(w2v_conv, "layer0_gn", wraps=w2v_conv.layer0_gn) as k7:
+            model(wave)
+        return stock.call_count, k7.call_count
+
+    assert routes() == (1, 0)  # grad enabled, parameters require grad
+    with torch.no_grad():
+        assert routes() == (0, 1)
+    model.requires_grad_(False)  # the frozen phase
+    assert routes() == (0, 1)
+    model.conv_layers[3].conv.weight.requires_grad_(True)  # any conv or GroupNorm parameter
+    assert routes() == (1, 0)
+
+
 # -- on a card ---------------------------------------------------------------------
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: kernels K6 and K7 have no CPU mode")
+        pytest.skip("needs an NVIDIA card: kernels K6, K7 and K8 have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -230,3 +343,46 @@ def test_kernel_wrappers_raise_on_cuda(cuda):
     base = [torch.zeros(512, 512, k, device=cuda) for k in w2v_conv.TAIL_TAPS]
     with pytest.raises(ValueError, match="no frame"):
         w2v_conv.conv_stack_fused(torch.zeros(1, 50, 512, device=cuda), base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, t_valid", [((2, 12799, 512), 12799), ((32, 31999, 512), 31999),
+                                            ((3, 301, 512), 7)])
+def test_gn_gelu_kernel_matches_plain_version(cuda, shape, t_valid, dtype):
+    gen = torch.Generator().manual_seed(shape[1])
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.3).to(cuda, dtype)
+    scale, bias = (1 + 0.1 * torch.randn(512, generator=gen)).to(cuda), (0.1 * torch.randn(512, generator=gen)).to(cuda)
+    before = w2v_conv.gn_gelu.launches
+    got = w2v_conv.gn_gelu(x, scale, bias, t_valid, 1e-5)
+    torch.cuda.synchronize()
+    assert w2v_conv.gn_gelu.launches == before + 1 and got.dtype == dtype and got.shape == x.shape
+    want = w2v_conv.gn_gelu_reference(x, scale, bias, t_valid, 1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:  # both round the same f32 value once: one bf16 ulp apart at most
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-6)
+    assert torch.equal(got, w2v_conv.gn_gelu(x, scale, bias, t_valid, 1e-5))  # no atomics: the same bits every run
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_when_a_graph_would_need_their_gradient(cuda):
+    """With grad enabled, an input or parameter that requires grad raises on
+    the card (a ctypes result has no ``grad_fn``); under ``no_grad`` it runs."""
+    ones, zeros = torch.ones(512, device=cuda), torch.zeros(512, device=cuda)
+    tail = [torch.zeros(512, 512, k, device=cuda) for k in w2v_conv.TAIL_TAPS]
+    x = torch.zeros(1, 400, 512, device=cuda)
+    with pytest.raises(ValueError, match="forward-only"):
+        w2v_conv.gn_gelu(x.clone().requires_grad_(), ones, zeros, 400)
+    with pytest.raises(ValueError, match="forward-only"):
+        w2v_conv.gn_gelu(x, ones.clone().requires_grad_(), zeros, 400)
+    with pytest.raises(ValueError, match="forward-only"):
+        w2v_conv.conv_stack_fused(x.clone().requires_grad_(), tail)
+    with pytest.raises(ValueError, match="forward-only"):
+        w2v_conv.conv_stack_fused(x, [tail[0].clone().requires_grad_(), *tail[1:]])
+    with pytest.raises(ValueError, match="forward-only"):
+        w2v_conv.layer0_gn(torch.zeros(1, 800, device=cuda), torch.zeros(512, 1, 10, device=cuda).requires_grad_(),
+                           ones, zeros)
+    with torch.no_grad():
+        out = w2v_conv.gn_gelu(x.clone().requires_grad_(), ones.clone().requires_grad_(), zeros, 400)
+    assert out.shape == x.shape and not out.requires_grad

@@ -12,7 +12,11 @@ numpy-seeded, at most 8,000 samples, with ragged lengths.
 - logits and ``embed`` within 1e-4 of ``mer_tpu``'s in f32 (rtol and atol);
 - garbage in the padded samples does not move a fully valid clip;
 - a clip of 0 samples and one shorter than the receptive field give what
-  ``mer_tpu`` gives: no valid frame, a zero embedding, finite logits.
+  ``mer_tpu`` gives: no valid frame, a zero embedding, finite logits;
+- dropout: train mode with both rates 0 gives eval's logits; with the rates
+  on, two steps differ and a step repeats under the same reseed; the
+  attention receives ``attention_dropout`` and fresh seed words per layer; a
+  fully padded clip trains with a finite loss.
 """
 
 import numpy as np
@@ -23,13 +27,16 @@ import jax
 import jax.numpy as jnp
 
 from mer_tpu.models import wav2vec2 as jax_w2v
-from mer_tpu_torch.models import audio_state_dict_from_jax
+from mer_tpu_torch.models import audio_state_dict_from_jax, set_attention_generator
 from mer_tpu_torch.models.wav2vec2 import (
     AudioERC,
     Wav2Vec2Config,
     audio_erc_from_seed,
     fold_pos_conv_weight_norm,
 )
+
+from mer_tpu_torch.ops import flash_attention as fa
+from mer_tpu_torch.utils import seed_dropout, seed_step
 
 NARROW = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
               num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
@@ -203,7 +210,7 @@ def test_empty_and_too_short_clips_match_jax(models):
 
 def test_bf16_compute_keeps_f32_parameters(models):
     _, _, port = models
-    bf16 = AudioERC(CFG, torch.bfloat16)
+    bf16 = AudioERC(CFG, torch.bfloat16).eval()
     bf16.load_state_dict(port.state_dict())
     waves, lengths = _waves([WIDTH, 5003], seed=7)
     with torch.no_grad():
@@ -224,3 +231,61 @@ def test_seeded_model_is_reproducible_and_leaves_the_global_generator():
     assert not torch.equal(a.head_out.weight, c.head_out.weight)
     w = a.wav2vec2.feature_extractor.conv_layers[1].conv.weight
     assert abs(w.std().item() * (3 * 512) ** 0.5 - 1) < 0.05 and not a.head_dense.bias.any()
+
+
+def test_train_mode_without_dropout_equals_eval(models):
+    _, _, port = models
+    quiet = AudioERC(Wav2Vec2Config(**NARROW, hidden_dropout=0.0, attention_dropout=0.0))
+    quiet.load_state_dict(port.state_dict())
+    waves, lengths = _waves([WIDTH, 5003, 0], seed=8)
+    args = torch.from_numpy(waves), torch.from_numpy(lengths)
+    with torch.no_grad():
+        want = port(*args)  # eval mode, the rates of the base config
+        got = quiet.train()(*args)  # no generator needed: nothing is drawn
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)  # the stock frontend against K7's and K6's plain route
+
+
+def test_dropout_differs_between_steps_and_repeats_under_the_same_reseed(models, monkeypatch):
+    _, _, port = models
+    model = AudioERC(CFG)
+    model.load_state_dict(port.state_dict())
+    generator = seed_dropout(0)
+    set_attention_generator(model, generator)
+    calls = []
+    forward = fa.flash_attention_forward
+    monkeypatch.setattr(fa, "flash_attention_forward",
+                        lambda q, k, v, m, seed, rate: calls.append((seed, rate)) or forward(q, k, v, m, seed, rate))
+    waves, lengths = _waves([WIDTH, 5003], seed=9)
+    args = torch.from_numpy(waves), torch.from_numpy(lengths)
+    model.train()
+    outs = []
+    with torch.no_grad():
+        for step in (0, 1, 0):
+            seed_step(0, step, generator)
+            outs.append(model(*args))
+        eval_out = model.eval()(*args)
+    assert torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], outs[1])
+    assert not torch.allclose(outs[0], eval_out, atol=1e-4)
+    torch.testing.assert_close(eval_out, port(*args), rtol=0, atol=0)  # eval applies none
+    train_calls, eval_calls = calls[:6], calls[6:]
+    assert [c[1] for c in train_calls] == [CFG.attention_dropout] * 6 and len({c[0] for c in train_calls[:4]}) == 4
+    assert train_calls[:2] == train_calls[4:6] and eval_calls == [(None, 0.0)] * 4
+    with pytest.raises(ValueError, match="torch.Generator"):
+        AudioERC(CFG).train()(*args)
+
+
+def test_a_fully_padded_clip_trains_with_a_finite_loss(models):
+    """Rows without a valid key take uniform attention and pool to zeros; the
+    loss and every gradient stay finite, through the stock frontend."""
+    _, _, port = models
+    model = AudioERC(CFG)
+    model.load_state_dict(port.state_dict())
+    set_attention_generator(model, seed_dropout(3))
+    waves, lengths = _waves([WIDTH, 0, 300], seed=10)
+    logits = model.train()(torch.from_numpy(waves), torch.from_numpy(lengths))
+    loss = torch.nn.functional.cross_entropy(logits.float(), torch.tensor([1, 2, 3]))
+    loss.backward()
+    assert torch.isfinite(loss)
+    grads = [p.grad for p in model.parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    assert model.wav2vec2.feature_extractor.conv_layers[0].conv.weight.grad.abs().sum() > 0
