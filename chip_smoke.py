@@ -10,9 +10,11 @@ training and export at its only shape (ResNet18 over [3, 1001, 128] log-mel
 images of 10 s clips, 300-wide embeddings; seeded random weights) and the
 wav2vec2 feature extractor's export, evaluation and fine-tuning at the full
 width and depth of ``Wav2Vec2Config.base()`` (7 convs of 512 channels, 12
-layers of 768, 12 heads; seeded random weights), its conv frontend's profile
-entry point, and the text feature extractor's fine-tuning, evaluation and
-export at the full width and depth of RoBERTa-base (12 layers of 768, 12
+layers of 768, 12 heads; seeded random weights), on clips up to 10 s and on
+clips of 45-90 s (up to 4,499 frames: the long-sequence attention kernels K3
+and K4), its conv frontend's profile entry point, the attention bench and the
+lowering probes P, and the text feature extractor's fine-tuning, evaluation
+and export at the full width and depth of RoBERTa-base (12 layers of 768, 12
 heads of 64, vocabulary 50,265; seeded random weights, the hash tokenizer),
 and fails on any fault. The script runs itself under ``PYTHONHASHSEED=0``, so
 that two runs see the same tokens:
@@ -33,6 +35,13 @@ that two runs see the same tokens:
    12799, 512] and [3, 301, 512] with 7 valid rows (library: F.group_norm +
    F.gelu); K1 at the wav2vec2 encoder's shapes [32 or 2, 12, S, S, 64],
    S = 99 .. 499, with padded keys;
+3b. K3 at Sk = 4,097, 8,192, 16,384 and K4 at 2,049, 4,499, 8,192 ([2, 1, S,
+   S, 64] and [2, 1, S, S, 50]), f32 and bf16, with a key mask, with a fully
+   masked batch element and with dropout 0.1, against their plain versions,
+   every other batch element attending to most of its keys; the seams K1 |
+   K3 at 4,096 keys and K2 | K4 at 2,048 on the same inputs ([2, 2, S, S,
+   64]); the bf16 limit shown to fail a K3 and a K4 that read the wrong key
+   tiles; K3's and K4's dropout masks read off exactly in f32 and bf16;
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -94,20 +103,36 @@ that two runs see the same tokens:
    fine-tune step; an f32 leg of 2 frozen + 2 fine-tune steps through the
    kernels against the plain versions (losses within 1e-4); clips per second,
    one profiled fine-tune step, peak device memory;
+6i. wav2vec2 on long clips: a root of one 45-90 s clip a dialogue (8 train,
+   4 dev, 4 test), the dataset at ``max_seconds=90`` and the batcher at
+   ``seconds_buckets=(60, 90)`` (2,999 and 4,499 frames). The export of the
+   test clips in batches of 2 (per batch K7 1, K6 1 and 12 attention forwards:
+   K3 at 90 s, K1 at 60 s); 4 fine-tune steps at batch 2, bf16, attention
+   dropout 0.1 (per step 12 forwards and 12 K4; no K2, K7, K6); clips per
+   second, one profiled step (eager, device, idle share), peak memory; one
+   f32 step's loss and gradients through K3 and K4 against the plain versions;
+6j. the attention bench entry (``mer_tpu_torch.scripts.bench_attention``,
+   every shape, f32 and bf16); 6k. the probes P
+   (``mer_tpu_torch.scripts.probe_strided``), each exact, counted on their own;
 7. hold each kernel against its plain version again at every shape that
-   phases 4-6h gave it (recorded at each launch), in float32 and bfloat16
+   phases 4-6i gave it (recorded at each launch), in float32 and bfloat16
    (K5: float32, in both layouts);
 8. one ``{"kernels": [...]}`` line, whose times and bound are per launch,
    averaged over the main paths' launches at their own shapes (K5's bound
    from the function's least work, a real FFT and the mel product over the
    filterbank's nonzeros, with the dense algorithm's floor beside it as
-   ``dense_floor_ms``); then the device line last.
+   ``dense_floor_ms``; P's averaged over its six probes); then the device line last.
 
 Tolerances (kernel against plain version, same inputs, |err| <= atol +
 rtol |want|): K1 out f32 (2e-5, 0), bf16 (1e-2, 2**-8: the plain version
 runs on the f32 values of the bf16 inputs and is not rounded); lse 2e-5 in
 f32, 1e-3 in bf16. K2 f32 (1e-4, 1e-5), bf16 (2e-2, 2**-7: both round an f32
-value to bf16, one ulp apart at most). K5 f32 (1e-4, 1e-4) on the log
+value to bf16, one ulp apart at most). K3 as K1 and K4 as K2 in f32, their
+plain versions on the inputs' own dtype (they round P, and K4 dS, to it as
+the kernels do, over other tiles); in bf16 out, dq, dk and dv within
+``LONG_BF16_REL`` of the plain version's largest |value| (at 2,049-16,384
+keys they are about 0.005, under TOL's bf16 atol), lse as K1's; the seams K1
+| K3 and K2 | K4 within the same. K5 f32 (1e-4, 1e-4) on the log
 values (tests/test_logmel_pallas.py:29's). K7 f32 (1e-4, 1e-4: its variance is the
 one-pass E[y^2] - mean^2, tests/test_w2v_conv_pallas.py:71), K6 f32 (2e-5,
 2e-5, :35), both in bf16 within 2e-2 of the plain version's largest value
@@ -153,21 +178,38 @@ TOL = {
     ("w2v_gn_gelu", "float32"): (1e-4, 1e-4),
 }
 W2V_BF16_REL = 2e-2  # K6, K7 and K8 in bf16: |err| <= this x the plain version's largest value
+# K3 and K4 in bf16 (out, dq, dk, dv; the seams too): |err| <= this x the plain version's largest |value|.
+# Both sides round to bf16 last, so one ulp of the largest entry (2^-8 to 2^-7 of it) is the expected
+# worst case; a kernel reading the wrong key tiles is off by far more (phase 3b shows both)
+LONG_BF16_REL = 2e-2
 PROFILE_BF16_REL = 5e-2  # a profile variant against the stock bf16 stack, of its largest value
 DROPOUT = 0.4  # the config's model.dropout
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"  # sources mer_tpu_torch/csrc/<name>.cu
 MEL = "logmel_fwd"
 W2V0, W2V_TAIL, GN = "w2v_layer0_gn", "w2v_conv_tail", "w2v_gn_gelu"  # K7, K6, K8
-KERNELS = (FWD, BWD, MEL, W2V0, W2V_TAIL, GN)
+STREAM, TILED = "flash_attention_stream", "flash_attention_tiled_bwd"  # K3, K4
+PROBE = "probe_strided"  # P
+KERNELS = (FWD, BWD, MEL, W2V0, W2V_TAIL, GN, STREAM, TILED, PROBE)
+ATTENTION_FWD, ATTENTION_BWD = (FWD, STREAM), (BWD, TILED)
 ZERO = dict.fromkeys(KERNELS, 0)
 REPLACES = {FWD: "mer_tpu/ops/flash_attention.py:72", BWD: "mer_tpu/ops/flash_attention.py:270",
             MEL: "mer_tpu/ops/logmel_pallas.py:78", W2V0: "mer_tpu/ops/w2v_conv_pallas.py:194",
-            W2V_TAIL: "mer_tpu/ops/w2v_conv_pallas.py:135", GN: "mer_tpu/ops/w2v_conv_pallas.py:320"}
+            W2V_TAIL: "mer_tpu/ops/w2v_conv_pallas.py:135", GN: "mer_tpu/ops/w2v_conv_pallas.py:320",
+            STREAM: "mer_tpu/ops/flash_attention.py:424", TILED: "mer_tpu/ops/flash_attention.py:579",
+            PROBE: "scripts/probe_pallas_strided.py:37"}
+# K3 and K4 against their plain versions: (B, H, Sq, Sk, Dh), B = 2 for a fully masked batch element, Dh 64 and 50
+STREAM_SHAPES = [(2, 1, s, s, 64) for s in (4097, 8192, 16384)] + [(2, 1, 4097, 4097, 50)]
+TILED_SHAPES = [(2, 1, s, s, 64) for s in (2049, 4499, 8192)] + [(2, 1, 2049, 2049, 50)]
+SEAM_SHAPES = {FWD: (2, 2, 4096, 4096, 64), BWD: (2, 2, 2048, 2048, 64)}  # K1 | K3 and K2 | K4 on the same inputs
+LONG_DROPOUT = 0.1  # Wav2Vec2Config.attention_dropout
+# the long-clip wav2vec2 phase: one clip of 45-90 s a dialogue, 8 train / 4 dev / 4 test, the 60 and 90 s buckets
+LONG_SECONDS, LONG_BUCKETS, LONG_BATCH, LONG_STEPS = (45.0, 90.0), (60.0, 90.0), 2, 4
+LONG_SPLITS = {"train_sent_emo.csv": 8, "dev_sent_emo.csv": 4, "test_sent_emo.csv": 4}
 # K7 (clips, samples) and, through T0 = (samples - 10) // 5 + 1, K6 (clips, T0): the export batch at every
 # wave bucket, and a ragged length with an odd last tile
 W2V_BUCKETS = (32000, 64000, 96000, 128000, 160000)
 W2V_SHAPES = [(32, n) for n in W2V_BUCKETS] + [(2, 40005)]
-W2V_EXPORT_BATCH, W2V_LAYERS, W2V_HEADS = 32, 12, 12
+W2V_EXPORT_BATCH, W2V_LAYERS, W2V_HEADS, W2V_HIDDEN = 32, 12, 12, 768
 # K8 (clips, rows, valid rows): the profile entry's batch, a short batch, a ragged one with few valid rows
 GN_SHAPES = [(32, 31999, 31999), (2, 12799, 12799), (3, 301, 7)]
 PROFILE_REPEATS = 5
@@ -240,10 +282,14 @@ def excess(got, want, key) -> float:
     return ((got - want).abs() - atol - rtol * want.abs()).max().item()
 
 
-def attention_inputs(shape, dtype, seed: int):
+def attention_inputs(shape, dtype, seed: int, fully_masked: bool = False, clips: bool = False):
     """q, k, v and a cotangent g at the main path's scale, and a
     dialogue-style key mask: row b keeps its first L_b keys, row 0 is all
-    padding with key 0 attendable.
+    padding with key 0 attendable, or with ``fully_masked`` every key of row
+    0 ignored. With ``clips`` (K3 and K4) every row keeps its first L_b >=
+    Sk / 2 keys less a scattered 10%, key 0 always, and only
+    ``fully_masked`` empties row 0: no row is left with one key, whose
+    gradients would be zero.
 
     On the main path q, k, v are LayerNorm'd activations (unit variance)
     through the in-projection, whose seeded weights are U(+-1/sqrt(D)): the
@@ -252,11 +298,30 @@ def attention_inputs(shape, dtype, seed: int):
     gen = torch.Generator().manual_seed(seed)
     q, k, v, g = ((torch.randn(b, h, s, dh, generator=gen) / 3 ** 0.5).to("cuda", dtype)
                   for s in (sq, sk, sk, sq))
-    lengths = torch.randint(1, sk + 1, (b,), generator=gen)
+    lengths = torch.randint(sk // 2 if clips else 1, sk + 1, (b,), generator=gen)
     mask = torch.arange(sk)[None, :] >= lengths[:, None]
-    mask[0] = True
-    mask[0, 0] = False
+    if clips:
+        mask |= torch.rand(b, sk, generator=gen) < 0.1
+        mask[:, 0] = False
+        mask[0] |= fully_masked
+    else:
+        mask[0] = True
+        mask[0, 0] = fully_masked
     return q, k, v, g, mask.cuda()
+
+
+def attention_errors(kernel: str, names, got, want, dtype: str) -> dict:
+    """Excess over the limit (<= 0 passes) of each output of an attention
+    kernel: TOL, or for K3 and K4 in bf16 (and their seams) ``LONG_BF16_REL``
+    of the plain version's largest |value| on out, dq, dk and dv."""
+    errs = {}
+    for name, a, b in zip(names, got, want):
+        if kernel in (STREAM, TILED) and dtype == "bfloat16" and name != "lse":
+            a, b = a.float(), b.float()
+            errs[name] = ((a - b).abs().max() - LONG_BF16_REL * b.abs().max()).item()
+        else:
+            errs[name] = excess(a, b, ({"out": "fwd", "lse": "lse"}.get(name, "bwd"), dtype))
+    return errs
 
 
 def dropout_seed(i: int, rate: float):
@@ -266,15 +331,16 @@ def dropout_seed(i: int, rate: float):
 def attention_bound(kernel: str, shape, dtype) -> tuple[float, float]:
     """Least time (us) of one call from bytes at the HBM rate (each input
     read once, each output written once) and from the products' FLOPs at
-    the dense peak of the dtype; the bound is the larger. The forward reads
-    q, k, v, mask and writes out, lse (2 products); the backward reads q, k,
-    v, out, g, lse, mask and writes dq, dk, dv (5 products). Dropout's
-    Philox integer work is not counted."""
+    the dense peak of the dtype; the bound is the larger. A forward (K1, K3)
+    reads q, k, v, mask and writes out, lse (2 products); a backward (K2, K4)
+    reads q, k, v, out, g, lse, mask and writes dq, dk, dv (5 products).
+    Dropout's Philox integer work is not counted."""
     b, h, sq, sk, dh = shape
     esize = torch.tensor([], dtype=dtype).element_size()
-    rows_q, rows_k = (2, 2) if kernel == FWD else (4, 4)  # q, out (+ g, dq); k, v (+ dk, dv)
+    forward = kernel in ATTENTION_FWD
+    rows_q, rows_k = (2, 2) if forward else (4, 4)  # q, out (+ g, dq); k, v (+ dk, dv)
     nbytes = (rows_q * b * h * sq * dh + rows_k * b * h * sk * dh) * esize + b * h * sq * 4 + b * sk
-    flops = (4 if kernel == FWD else 10) * b * h * sq * sk * dh
+    flops = (4 if forward else 10) * b * h * sq * sk * dh
     return nbytes / HBM_BYTES_PER_S * 1e6, flops / PEAK_FLOPS[dtype] * 1e6
 
 
@@ -300,63 +366,97 @@ def library_backward_ms(q, k, v, mask, g, rate) -> float:
     return device_ms(forward_backward) - device_ms(forward)
 
 
-def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int) -> dict:
-    """One kernel against its plain version at one case, with times; raises
-    on a disagreement."""
-    q, k, v, g, mask = attention_inputs(shape, DTYPES[dtype], seed=i)
+def attention_calls(fa, kernel: str):
+    """(kernel wrapper, its plain version) of attention kernel ``kernel``."""
+    return {FWD: (fa.flash_attention_forward, fa.flash_attention_reference),
+            STREAM: (fa.flash_attention_stream, fa.flash_attention_stream_reference),
+            BWD: (fa.flash_attention_backward, fa.flash_attention_backward_reference),
+            TILED: (fa.flash_attention_tiled_backward, fa.flash_attention_tiled_backward_reference)}[kernel]
+
+
+def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: bool = True,
+               fully_masked: bool = False) -> dict:
+    """One attention kernel (K1-K4) against its plain version at one case,
+    with times unless ``timed`` is off; raises on a disagreement. K1's plain
+    version runs on the f32 values of the inputs, K3's on the inputs
+    themselves (it rounds P to their dtype, as the kernel does)."""
+    q, k, v, g, mask = attention_inputs(shape, DTYPES[dtype], seed=i, fully_masked=fully_masked,
+                                        clips=kernel in (STREAM, TILED))
     seed = dropout_seed(i, rate)
-    out, lse = fa.flash_attention_forward(q, k, v, mask, seed, rate)
-    # the dialogue shapes take microseconds a call; the wav2vec2 and RoBERTa encoders' take milliseconds
-    big = shape[0] * shape[1] * shape[2] * shape[3] > 1 << 22
-    time_device = functools.partial(device_ms, reps=4, replays=3) if big else device_ms
-    time_eager = functools.partial(eager_ms, iters=10, warmup=2) if big else eager_ms
-    if kernel == FWD:
+    call_fn, plain_fn = attention_calls(fa, kernel)
+    forward_of = fa.flash_attention_forward if kernel in (FWD, BWD) else fa.flash_attention_stream
+    out, lse = forward_of(q, k, v, mask, seed, rate)
+    # the dialogue shapes take microseconds a call; the wav2vec2 and RoBERTa encoders' take milliseconds, and
+    # 45-90 s clips up to half a second for the plain versions with dropout
+    scores = shape[0] * shape[1] * shape[2] * shape[3]
+    time_device, time_eager = device_ms, eager_ms
+    if scores > 1 << 28:
+        time_device, time_eager = (functools.partial(device_ms, reps=1, replays=2),
+                                   functools.partial(eager_ms, iters=3, warmup=1))
+    elif scores > 1 << 22:
+        time_device, time_eager = (functools.partial(device_ms, reps=4, replays=3),
+                                   functools.partial(eager_ms, iters=10, warmup=2))
+    if kernel in ATTENTION_FWD:
         torch.cuda.synchronize()
-        ref_out, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), mask, seed, rate)
-        errs = {"out": excess(out, ref_out, ("fwd", dtype)), "lse": excess(lse, ref_lse, ("lse", dtype))}
-        max_abs_err = (out.float() - ref_out).abs().max().item()
+        plain_in = (q.float(), k.float(), v.float()) if kernel == FWD else (q, k, v)
+        ref_out, ref_lse = plain_fn(*plain_in, mask, seed, rate)
+        errs = attention_errors(kernel, ("out", "lse"), (out, lse), (ref_out, ref_lse), dtype)
+        max_abs_err = (out.float() - ref_out.float()).abs().max().item()
+        rel_err = {"out": max_abs_err / ref_out.float().abs().max().item()}
         del ref_out, ref_lse
-        call = lambda: fa.flash_attention_forward(q, k, v, mask, seed, rate)
-        plain = lambda: fa.flash_attention_reference(q, k, v, mask, seed, rate)
-        library = time_device(lambda: sdpa_forward(q, k, v, mask, rate))
+        call = lambda: call_fn(q, k, v, mask, seed, rate)
+        plain = lambda: plain_fn(q, k, v, mask, seed, rate)
+        library = (lambda: time_device(lambda: sdpa_forward(q, k, v, mask, rate)))
     else:
-        grads = fa.flash_attention_backward(q, k, v, mask, out, lse, g, seed, rate)
+        grads = call_fn(q, k, v, mask, out, lse, g, seed, rate)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_backward_reference(q, k, v, mask, out, lse, g, seed, rate)
-        errs = {name: excess(a, b, ("bwd", dtype)) for name, a, b in zip(("dq", "dk", "dv"), grads, ref)}
+        ref = plain_fn(q, k, v, mask, out, lse, g, seed, rate)
+        errs = attention_errors(kernel, ("dq", "dk", "dv"), grads, ref, dtype)
         max_abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref))
-        call = lambda: fa.flash_attention_backward(q, k, v, mask, out, lse, g, seed, rate)
-        plain = lambda: fa.flash_attention_backward_reference(q, k, v, mask, out, lse, g, seed, rate)
-        library = library_backward_ms(q, k, v, mask, g, rate)
-    row = {"kernel": kernel, "shape": shape, "dtype": dtype, "rate": rate, "max_abs_err": max_abs_err,
-           "excess": errs, "kernel_ms": time_device(call), "kernel_eager_ms": time_eager(call),
-           "plain_ms": time_device(plain), "library_ms": library}
+        rel_err = {name: (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+                   for name, a, b in zip(("dq", "dk", "dv"), grads, ref)}
+        del grads, ref
+        call = lambda: call_fn(q, k, v, mask, out, lse, g, seed, rate)
+        plain = lambda: plain_fn(q, k, v, mask, out, lse, g, seed, rate)
+        library = (lambda: library_backward_ms(q, k, v, mask, g, rate))
+    row = {"kernel": kernel, "shape": shape, "dtype": dtype, "rate": rate, "fully_masked": fully_masked,
+           "max_abs_err": max_abs_err, "err_over_largest": rel_err, "excess": errs}
+    if timed:
+        row.update(kernel_ms=time_device(call), kernel_eager_ms=time_eager(call), plain_ms=time_device(plain),
+                   library_ms=library())
     bytes_us, ops_us = attention_bound(kernel, shape, DTYPES[dtype])
     row.update(bound_bytes_us=bytes_us, bound_ops_us=ops_us, bound_us=max(bytes_us, ops_us),
                bound_by="bytes" if bytes_us >= ops_us else "operations")
     log("kernel " + json.dumps(row))
     if not all(e <= 0 for e in errs.values()):
-        raise AssertionError(f"{kernel} disagrees with its plain version at {shape} {dtype} dropout {rate}: "
-                             f"excess over tolerance {errs}")
+        raise AssertionError(f"{kernel} disagrees with its plain version at {shape} {dtype} dropout {rate}"
+                             f"{' (a fully masked batch element)' if fully_masked else ''}: excess over tolerance "
+                             f"{errs}")
     return row
 
 
-def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROPOUT) -> None:
+def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROPOUT, long: bool = False,
+                        dtype=torch.float32) -> None:
     """Read the kernels' dropout masks off exactly: with v = I the forward's
-    out[i, j] is P_ij D_ij, with g = I the backward's dv[j, i] is too."""
+    out[i, j] is P_ij D_ij, with g = I the backward's dv[j, i] is too. K1 and
+    K2, or with ``long`` K3 and K4 (their wrappers, at this key count)."""
     seed = (0xC0FFEE, sq * 100 + sk)
     want = fa.dropout_factor(seed, (b, h, sq, sk), rate, "cuda") > 0
-    eye = lambda n: torch.eye(n, device="cuda").expand(b, h, n, n).contiguous()
+    eye = lambda n: torch.eye(n, device="cuda", dtype=dtype).expand(b, h, n, n).contiguous()
     gen = torch.Generator(device="cuda").manual_seed(sk)
-    q, k = torch.randn(b, h, sq, sk, device="cuda", generator=gen), torch.randn(b, h, sk, sk, device="cuda", generator=gen)
-    fwd_mask = fa.flash_attention_forward(q, k, eye(sk), None, seed, rate)[0] > 0
-    q = torch.randn(b, h, sq, sq, device="cuda", generator=gen)
-    k, v = (torch.randn(b, h, sk, sq, device="cuda", generator=gen) for _ in range(2))
-    out, lse = fa.flash_attention_forward(q, k, v, None, seed, rate)
-    bwd_mask = fa.flash_attention_backward(q, k, v, None, out, lse, eye(sq), seed, rate)[2].transpose(2, 3) > 0
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    q, k = randn(b, h, sq, sk), randn(b, h, sk, sk)
+    forward = fa.flash_attention_stream if long else fa.flash_attention_forward
+    backward = fa.flash_attention_tiled_backward if long else fa.flash_attention_backward
+    fwd_mask = forward(q, k, eye(sk), None, seed, rate)[0] > 0
+    q = randn(b, h, sq, sq)
+    k, v = randn(b, h, sk, sq), randn(b, h, sk, sq)
+    out, lse = forward(q, k, v, None, seed, rate)
+    bwd_mask = backward(q, k, v, None, out, lse, eye(sq), seed, rate)[2].transpose(2, 3) > 0
     bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum())
-    log(f"dropout masks at B={b} H={h} Sq={sq} Sk={sk} rate {rate}: {want.numel()} probabilities, keep rate "
-        f"{want.float().mean().item()}, mismatches forward {bad[0]}, backward {bad[1]}")
+    log(f"dropout masks of {'K3, K4' if long else 'K1, K2'} {DTYPE_LABELS[dtype]} at B={b} H={h} Sq={sq} Sk={sk} "
+        f"rate {rate}: {want.numel()} probabilities, keep rate {want.float().mean().item()}, mismatches forward "
+        f"{bad[0]}, backward {bad[1]}")
     if bad != (0, 0):
         raise AssertionError(f"kernel dropout masks differ from the plain Philox mask: {bad}")
 
@@ -459,9 +559,11 @@ def kernel_wrappers() -> dict:
     from mer_tpu_torch.ops import flash_attention as fa
     from mer_tpu_torch.ops import logmel_kernel as lk
     from mer_tpu_torch.ops import w2v_conv as wc
+    from mer_tpu_torch.scripts import probe_strided
 
     return {FWD: fa.flash_attention_forward, BWD: fa.flash_attention_backward, MEL: lk.logmel_frames,
-            W2V0: wc.layer0_gn, W2V_TAIL: wc.conv_stack_fused, GN: wc.gn_gelu}
+            W2V0: wc.layer0_gn, W2V_TAIL: wc.conv_stack_fused, GN: wc.gn_gelu, STREAM: fa.flash_attention_stream,
+            TILED: fa.flash_attention_tiled_backward, PROBE: probe_strided.run_probe}
 
 
 @contextlib.contextmanager
@@ -469,14 +571,16 @@ def main_path_run():
     """One counted run of a main path: the launch counts start at 0 and are
     read at the end into ``run``; every launch's shape, dtype and dropout
     rate (K5: clips, frames and layout; K7: clips and samples; K6: clips and
-    layer-0 frames; K8: clips, rows and valid rows) is tallied in ``PATH_SHAPES`` from the arguments the
-    wrappers hand the kernels (the tally launches nothing)."""
+    layer-0 frames; K8: clips, rows and valid rows; P: rows, columns and probe) is tallied in
+    ``PATH_SHAPES`` from the arguments the wrappers hand the kernels (the tally launches nothing)."""
     from mer_tpu_torch.ops import flash_attention as fa
     from mer_tpu_torch.ops import logmel_kernel as lk
     from mer_tpu_torch.ops import w2v_conv as wc
+    from mer_tpu_torch.scripts import probe_strided
 
     kernel_fn, mel_kernel_fn, l0_kernel_fn, tail_kernel_fn, gn_kernel_fn = fa._kernel_fn, lk._kernel_fn, \
         wc._l0_kernel_fn, wc._tail_kernel_fn, wc._gn_kernel_fn
+    probe_kernel_fn = probe_strided._kernel_fn
 
     def tallying_by(name, get_fn, case):
         """``get_fn`` with every launch tallied under ``case(args)`` = (shape, dtype name)."""
@@ -499,6 +603,9 @@ def main_path_run():
     l0_tallying = tallying_by(W2V0, l0_kernel_fn, lambda a: ((a[8], a[9]), DTYPE_NAMES[a[0]]))
     tail_tallying = tallying_by(W2V_TAIL, tail_kernel_fn, lambda a: ((a[7], a[8]), DTYPE_NAMES[a[0]]))
     gn_tallying = tallying_by(GN, gn_kernel_fn, lambda a: ((a[7], a[8], a[9]), DTYPE_NAMES[a[0]]))
+    # P (probe, x, w, out, T, C, stream)
+    probe_tallying = tallying_by(PROBE, probe_kernel_fn, lambda a: ((a[4], a[5], probe_strided.PROBES[a[0]]),
+                                                                    "float32"))
 
     def tallying(name, n_pointers):
         fn = kernel_fn(name, n_pointers)
@@ -519,16 +626,18 @@ def main_path_run():
     with mock.patch.object(fa, "_kernel_fn", tallying), mock.patch.object(lk, "_kernel_fn", mel_tallying), \
             mock.patch.object(wc, "_l0_kernel_fn", l0_tallying), \
             mock.patch.object(wc, "_tail_kernel_fn", tail_tallying), \
-            mock.patch.object(wc, "_gn_kernel_fn", gn_tallying):
+            mock.patch.object(wc, "_gn_kernel_fn", gn_tallying), \
+            mock.patch.object(probe_strided, "_kernel_fn", probe_tallying):
         yield run
     run.update({name: wrapper.launches for name, wrapper in wrappers.items()})
 
 
 @contextlib.contextmanager
 def plain_attention(fa):
-    """Every attention call through the plain versions instead of the kernels."""
-    with mock.patch.object(fa, "flash_attention_forward", fa.flash_attention_reference), \
-            mock.patch.object(fa, "flash_attention_backward", fa.flash_attention_backward_reference):
+    """Every attention call through the plain versions instead of the kernels,
+    dispatched by key count as the kernels are: the wrappers take their CUDA
+    tensors as they take CPU ones."""
+    with mock.patch.object(fa, "_device_or_raise", lambda q: False):
         yield
 
 
@@ -658,7 +767,8 @@ def log_profile(kernels: dict[str, float], count: int) -> None:
     share = lambda fragment: sum(t for n, t in kernels.items() if fragment in n) / busy
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {share('flash_attention_fwd')}, "
-        f"K2 share {share('flash_attention_bwd')}, K5 share {share('logmel_fwd')}, "
+        f"K2 share {share('flash_attention_bwd')}, K3 share {share('flash_attention_stream')}, "
+        f"K4 share {share('tiled_bwd_')}, K5 share {share('logmel_fwd')}, "
         f"K6 share {share('w2v_conv_s2_gelu')}, K7 share {share('w2v_layer0')}, K8 share {share('w2v_gn_')}; top: "
         + "; ".join(f"{n[:60]} {t} us" for n, t in top))
 
@@ -1536,6 +1646,246 @@ def plain_kernels(fa, wc):
         yield
 
 
+# -- long-sequence attention: K3, K4, the long-clip wav2vec2 path, the bench entry, P ----------
+
+
+def check_seam(fa, kernel: str, shape, dtype: str, i: int) -> None:
+    """K1 against K3 or K2 against K4 at the dispatch's threshold, on the
+    same inputs (every batch element attending to most of its keys), within
+    the kernel-vs-plain limits of K3 and K4."""
+    q, k, v, g, mask = attention_inputs(shape, DTYPES[dtype], seed=i, clips=True)
+    out, lse = fa.flash_attention_forward(q, k, v, mask)
+    if kernel == FWD:
+        names, got, want = ("out", "lse"), fa.flash_attention_stream(q, k, v, mask), (out, lse)
+        what, limits_of = "K1 | K3", STREAM
+    else:
+        names, want = ("dq", "dk", "dv"), fa.flash_attention_backward(q, k, v, mask, out, lse, g)
+        got, what, limits_of = fa.flash_attention_tiled_backward(q, k, v, mask, out, lse, g), "K2 | K4", TILED
+    torch.cuda.synchronize()
+    errs = attention_errors(limits_of, names, got, want, dtype)
+    diffs = {name: (a.float() - b.float()).abs().max().item() for name, a, b in zip(names, got, want)}
+    largest = {name: b.float().abs().max().item() for name, b in zip(names, want)}
+    log(f"seam {what} at {shape} {dtype}: max abs diff {json.dumps(diffs)}, largest |value| {json.dumps(largest)}, "
+        f"excess over the limit {json.dumps(errs)}")
+    if not all(e <= 0 for e in errs.values()):
+        raise AssertionError(f"{what} disagree at {shape} {dtype}: {errs}")
+
+
+def check_limit_fails_wrong_tiles(fa, i: int) -> None:
+    """The bf16 limit has teeth: K3 handed V, and K4 handed K, whose keys past
+    the first 64 are rolled by 64 (as a kernel that reads the wrong tile
+    after its first) exceed ``LONG_BF16_REL`` against the plain versions on
+    the true inputs, by a wide margin."""
+    shape = (2, 1, 8192, 8192, 64)
+    q, k, v, g, mask = attention_inputs(shape, torch.bfloat16, seed=i, clips=True)
+    wrong = lambda t: torch.cat([t[:, :, :64], t[:, :, 64:].roll(64, 2)], 2).contiguous()
+    ref_out, ref_lse = fa.flash_attention_stream_reference(q, k, v, mask)
+    pairs = {"K3 out": (fa.flash_attention_stream(q, k, wrong(v), mask)[0], ref_out)}
+    ref = fa.flash_attention_tiled_backward_reference(q, k, v, mask, ref_out, ref_lse, g)
+    bad = fa.flash_attention_tiled_backward(q, wrong(k), v, mask, ref_out, ref_lse, g)
+    pairs.update({f"K4 {name}": (a, b) for name, a, b in zip(("dq", "dk", "dv"), bad, ref)})
+    ratios = {name: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+              for name, (a, b) in pairs.items()}
+    log(f"bf16 limit {LONG_BF16_REL} of the largest |value|, against K3 and K4 fed rolled key tiles at {shape}: "
+        f"error over the largest |value| {json.dumps(ratios)}")
+    if not all(r > 4 * LONG_BF16_REL for r in ratios.values()):
+        raise AssertionError(f"the bf16 limit of K3 and K4 would pass a kernel reading the wrong tiles: {ratios}")
+
+
+def long_kernel_checks(fa, first_case: int) -> list[dict]:
+    """Phase 3b: K3 and K4 against their plain versions in f32 and bf16, with
+    a key mask, with a fully masked batch element and with dropout 0.1; the
+    K1 | K3 and K2 | K4 seams; the bf16 limit against wrong tiles; K3's and
+    K4's dropout masks read off exactly."""
+    rows, i = [], first_case
+    for kernel, shapes in ((STREAM, STREAM_SHAPES), (TILED, TILED_SHAPES)):
+        for shape in shapes:
+            for dtype in DTYPES:
+                for fully_masked, rate in ((False, 0.0), (True, 0.0), (False, LONG_DROPOUT)):
+                    rows.append(check_case(fa, kernel, shape, dtype, rate, i, timed=False, fully_masked=fully_masked))
+                    i += 1
+    for kernel, shape in SEAM_SHAPES.items():
+        for dtype in DTYPES:
+            check_seam(fa, kernel, shape, dtype, i)
+            i += 1
+    check_limit_fails_wrong_tiles(fa, i)
+    for dtype in DTYPES.values():
+        check_dropout_masks(fa, 2, 2, 70, 100, LONG_DROPOUT, long=True, dtype=dtype)
+    return rows
+
+
+def long_clip_phase(fa, wc, card: str, tmp: str) -> dict:
+    """Phase 6i: the wav2vec2 extractor on clips of 45-90 s at full width;
+    returns the launches of its export and fine-tune runs."""
+    from mer_tpu_torch.core import load_config
+    from mer_tpu_torch.data import write_synthetic_meld
+    from mer_tpu_torch.data.wav2vec2_fe import Wav2Vec2Batcher, Wav2Vec2FeatureDataset, w2v_batch_to_inputs
+    from mer_tpu_torch.feature_extractors.audio_wav2vec2 import W2V_CONFIG_PATH
+    from mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings import export_split
+    from mer_tpu_torch.models.wav2vec2 import Wav2Vec2Config, audio_erc_from_seed
+    from mer_tpu_torch.train.fe_solver import FESolver
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "meld_90s")
+    counts = write_synthetic_meld(root, split_dialogues=LONG_SPLITS, clip_seconds=LONG_SECONDS, max_utterances=1)
+    data = {mode: Wav2Vec2FeatureDataset(mode, data_root=root, max_seconds=LONG_BUCKETS[-1])
+            for mode in ("train", "test")}
+    log(f"long-clip root {counts}, clips of {LONG_SECONDS} s, buckets {LONG_BUCKETS} s, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    frames = Wav2Vec2Config.base().feat_extract_output_lengths
+    forward_kernel = lambda width: STREAM if frames(width) > fa.STREAM_THRESHOLD else FWD
+    launches = dict(ZERO)
+
+    # export of the test clips, bf16 (the config's), batches of 2: K7, K6 and 12 attention forwards a batch
+    model = audio_erc_from_seed(0, dtype=torch.bfloat16).cuda().eval()
+    widths = [b["audio"].shape[1] for b in Wav2Vec2Batcher(data["test"], LONG_BATCH, seconds_buckets=LONG_BUCKETS)]
+    want = {**ZERO, W2V0: len(widths), W2V_TAIL: len(widths)}
+    for width in widths:
+        want[forward_kernel(width)] += W2V_LAYERS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with main_path_run() as run:
+        table = export_split(model, data["test"], LONG_BATCH, LONG_BUCKETS)
+    seconds = time.perf_counter() - t0
+    log(f"long-clip export: {len(data['test'])} test clips in batches of {LONG_BATCH} at widths {widths} "
+        f"({[frames(w) for w in widths]} frames) in {seconds} s = {len(data['test']) / seconds} clips/s (first "
+        f"batches at these shapes); launches {run} (want {want}) ({card})")
+    if run != want:
+        raise AssertionError(f"long-clip export launches {run}, want {want}")
+    if table.shape != (len(data["test"]), W2V_HIDDEN) or not np.isfinite(table).all() or \
+            not (np.abs(table).sum(1) > 0).all():
+        raise AssertionError(f"long-clip export table {table.shape}: not finite or rows missing")
+    for name, n in run.items():
+        launches[name] += n
+    del model
+    torch.cuda.empty_cache()
+
+    # fine-tuning at batch 2, bf16, attention dropout 0.1: the stock convolutions, 12 attention forwards and
+    # 12 K4 a step
+    config = load_config(fe_config(tmp, W2V_CONFIG_PATH, "w2v_long"))
+    model = audio_erc_from_seed(0, dtype=torch.bfloat16).cuda()
+    solver = FESolver(model, config, backbone_key="wav2vec2", batch_to_inputs=w2v_batch_to_inputs)
+    state = solver.init_state(LONG_STEPS)
+    batches = list(Wav2Vec2Batcher(data["train"], LONG_BATCH, shuffle=True, seconds_buckets=LONG_BUCKETS))
+    want = {**ZERO, TILED: W2V_LAYERS * len(batches)}
+    for b in batches:
+        want[forward_kernel(b["audio"].shape[1])] += W2V_LAYERS
+    torch.cuda.reset_peak_memory_stats()
+    with main_path_run() as run:
+        state, loss = solver.train_epoch(state, batches, epoch=FE_FROZEN)
+    log(f"long-clip fine-tune: {len(batches)} steps of {LONG_BATCH} at widths {[b['audio'].shape[1] for b in batches]}, "
+        f"loss {loss}; launches {run} (want {want}: per step 12 K1 (60 s) or K3 (90 s) and 12 K4; no K2, K7, K6)")
+    if run != want or len(batches) != LONG_STEPS or not math.isfinite(loss):
+        raise AssertionError(f"long-clip fine-tune launches {run}, want {want}; loss {loss}")
+    for name, n in run.items():
+        launches[name] += n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.train_epoch(state, batches, epoch=FE_FROZEN)  # ends in a device-to-host fetch
+    seconds = time.perf_counter() - t0
+    log(f"long-clip fine-tune bf16 epoch: {len(batches)} steps, {len(batches) * LONG_BATCH} clips of 45-90 s in "
+        f"{seconds * 1e3} ms = {len(batches) * LONG_BATCH / seconds} clips/s ({card})")
+    widest = max(batches, key=lambda b: b["audio"].shape[1])
+    profile_training_step(f"long-clip fine-tune step bf16 {tuple(widest['audio'].shape)}",
+                          lambda: solver.train_epoch(state, [widest], epoch=FE_FROZEN), card)
+    log(f"long-clip fine-tune bf16: peak device memory {torch.cuda.max_memory_allocated()} bytes ({card})")
+    del solver, state, model
+    torch.cuda.empty_cache()
+    long_clip_parity(fa, wc, config, widest)
+    return launches
+
+
+def long_clip_parity(fa, wc, config, batch) -> None:
+    """One f32 fine-tune step at the 90 s bucket (dropout on, the same seeds):
+    loss and gradients through K3 and K4 against the plain versions."""
+    from mer_tpu_torch.data.wav2vec2_fe import w2v_batch_to_inputs
+    from mer_tpu_torch.models import set_attention_generator
+    from mer_tpu_torch.models.wav2vec2 import audio_erc_from_seed
+    from mer_tpu_torch.objectives.classification import cross_entropy
+    from mer_tpu_torch.utils import seed_dropout, seed_step
+
+    seed = int(config.get_path("tpu.seed", 0))
+    labels = torch.from_numpy(batch["emotion"]).cuda()
+    results = []
+    for through in ("kernels", "plain"):
+        model = audio_erc_from_seed(0, dtype=torch.float32).cuda().train()
+        generator = seed_dropout(seed)
+        set_attention_generator(model, generator)
+        seed_step(seed, 0, generator)
+        before = fa.flash_attention_stream.launches, fa.flash_attention_tiled_backward.launches
+        with contextlib.nullcontext() if through == "kernels" else plain_kernels(fa, wc):
+            loss = cross_entropy(model(*w2v_batch_to_inputs(batch, "cuda")), labels, ignore_index=-1)
+            loss.backward()
+        ran = fa.flash_attention_stream.launches - before[0], fa.flash_attention_tiled_backward.launches - before[1]
+        if ran != ((W2V_LAYERS, W2V_LAYERS) if through == "kernels" else (0, 0)):
+            raise AssertionError(f"f32 long-clip step through the {through}: K3, K4 launches {ran}")
+        results.append((loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}))
+        del model, loss
+        torch.cuda.empty_cache()
+    (k_loss, k_grads), (p_loss, p_grads) = results
+    worst, worst_name = 0.0, None
+    for name, want in p_grads.items():
+        if softmax_blind(name):
+            continue
+        rel = (k_grads[name] - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"long-clip f32 fine-tune step {tuple(batch['audio'].shape)}, K3 + K4 against the plain versions: loss "
+        f"{k_loss} vs {p_loss} (diff {abs(k_loss - p_loss)}, tol 1e-4); gradients: largest difference over the "
+        f"tensor's largest entry {worst} at {worst_name} (tol 1e-3; key biases, whose gradient is rounding noise, "
+        f"left out)")
+    if not (abs(k_loss - p_loss) <= 1e-4 and worst <= 1e-3):
+        raise AssertionError("the f32 long-clip step through K3 and K4 departs from the plain versions")
+
+
+def attention_bench_phase(card: str) -> None:
+    """Phase 6j: the attention bench entry point at all its shapes, f32 and bf16."""
+    from mer_tpu_torch.scripts import bench_attention
+
+    t0 = time.perf_counter()
+    rows = bench_attention.main([])
+    for r in rows:
+        times = [r[k] for k in ("kernel_fwd_ms", "kernel_fwdbwd_ms")]
+        if not all(math.isfinite(t) and t > 0 for t in times):
+            raise AssertionError(f"bench_attention row without times: {r}")
+        log(f"bench {r['shape']} {r['dtype']} ({r['kernels']}): fwd {r['kernel_fwd_ms']} ms (SDPA {r['sdpa_fwd_ms']}, "
+            f"bound {r['bound_fwd_ms']}), fwd+bwd {r['kernel_fwdbwd_ms']} ms (SDPA {r['sdpa_fwdbwd_ms']}, bound "
+            f"{r['bound_fwdbwd_ms']}) ({card})")
+    log(f"bench_attention: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
+
+
+def probe_phase(card: str) -> tuple[dict, int]:
+    """Phase 6k: the probes P, each exact against torch; returns their results
+    and launches."""
+    from mer_tpu_torch.scripts import probe_strided
+
+    with main_path_run() as run:
+        results = probe_strided.main([])
+    log(f"probes P: {json.dumps(results)}; launches {run} ({card})")
+    if not all(r["ok"] for r in results.values()) or run[PROBE] == 0 or run != {**ZERO, PROBE: run[PROBE]}:
+        raise AssertionError(f"probes P: {results}, launches {run}")
+    return results, run[PROBE]
+
+
+def probe_kernel_line(results: dict, n: int, card: str) -> dict:
+    """P's entry of the kernels line: per launch, averaged over the six
+    probes; the bound is each probe's bytes (x read once, out written once)
+    at the HBM rate."""
+    from mer_tpu_torch.scripts import probe_strided
+
+    t, c = probe_strided.T, probe_strided.C
+    out_elems = {"even_rows": t * c // 2, "odd_rows": t * c // 2, "fold_pairs": t * c, "unfold_halves": t * c,
+                 "skinny_bf16_gemm": t * c, "grid_reduce": c}
+    bound = [(4 * (t * c + out_elems[name]) + (2 * 16 * c if name == "skinny_bf16_gemm" else 0)) / HBM_BYTES_PER_S * 1e3
+             for name in results]
+    mean = lambda key: sum(r[key] for r in results.values()) / len(results)
+    return {"name": PROBE, "route": "cuda", "source": f"mer_tpu_torch/csrc/{PROBE}.cu", "replaces": REPLACES[PROBE],
+            "launches": n, "max_abs_err": max(r["max_abs_err"] for r in results.values()), "ms": mean("ms"),
+            "plain_ms": mean("plain_ms"), "bound_ms": sum(bound) / len(bound), "bound_by": "bytes",
+            "library_ms": mean("library_ms"),
+            "probes": results, "card": card}
+
+
 def main() -> None:
     if os.environ.get("PYTHONHASHSEED") != "0":  # the hash tokenizer's ids: the same tokens in every run
         os.execve(sys.executable, [sys.executable, *sys.argv], {**os.environ, "PYTHONHASHSEED": "0"})
@@ -1588,6 +1938,10 @@ def main() -> None:
             rows.append(check_w2v_case(wc, frontend, GN, shape, dtype, len(rows)))
     rows += [check_case(fa, FWD, shape, dtype, 0.0, len(rows) + i)
              for i, (shape, dtype) in enumerate((shape, dtype) for shape in W2V_ATTENTION_SHAPES for dtype in DTYPES)]
+    # 3b. K3 and K4 at 2,049-16,384 keys, the seams with K1 and K2, their dropout masks
+    t0 = time.perf_counter()
+    rows += long_kernel_checks(fa, len(rows))
+    log(f"phase 3b (K3, K4 against their plain versions) in {time.perf_counter() - t0:.1f} s")
 
     # 4. offline evaluation, 5. online serving, 6. training: counts start at 0 for each path
     launches = {**ZERO, FWD: offline_phase(fa, card)}
@@ -1625,6 +1979,13 @@ def main() -> None:
                       w2v_training_phase(fa, wc, card, long_root, tmp)):
             for name, n in phase.items():
                 launches[name] += n
+        # 6i. wav2vec2 on 45-90 s clips (K3, K4), 6j. the attention bench entry, 6k. the probes P
+        t0 = time.perf_counter()
+        for name, n in long_clip_phase(fa, wc, card, tmp).items():
+            launches[name] += n
+        log(f"phase 6i (long clips) in {time.perf_counter() - t0:.1f} s")
+    attention_bench_phase(card)
+    probe_results, launches[PROBE] = probe_phase(card)
     del w2v_model  # its conv frontend serves phase 7
     torch.cuda.empty_cache()
     for name in KERNELS:
@@ -1633,9 +1994,9 @@ def main() -> None:
             raise AssertionError(f"{name}: {tallied} launches tallied, {launches[name]} counted")
 
     # 7. kernels against their plain versions at every case the paths gave them
-    checked = {(r["kernel"], r["shape"], r["dtype"], r["rate"]) for r in rows}
-    more = {(kernel, shape, dtype, rate) for kernel, shape, _, rate in PATH_SHAPES if kernel != MEL
-            for dtype in DTYPES}  # K1, K2, K6, K7, K8: both dtypes at every shape
+    checked = {(r["kernel"], r["shape"], r["dtype"], r["rate"]) for r in rows if "kernel_ms" in r}
+    more = {(kernel, shape, dtype, rate) for kernel, shape, _, rate in PATH_SHAPES if kernel not in (MEL, PROBE)
+            for dtype in DTYPES}  # K1-K4, K6, K7, K8: both dtypes at every shape (P checks itself, phase 6k)
     more |= {(MEL, (*shape[:2], layout), "float32", 0.0) for kernel, shape, _, _ in PATH_SHAPES if kernel == MEL
              for layout in MEL_LAYOUTS}
     for i, (kernel, shape, dtype, rate) in enumerate(sorted(more - checked), len(rows)):
@@ -1649,12 +2010,15 @@ def main() -> None:
     for b, h, sq, sk, rate in sorted({(*shape[:4], rate) for (kernel, shape, _, rate) in PATH_SHAPES if rate
                                       and max(shape[2:4]) <= fa.MAX_HEAD_DIM}):
         check_dropout_masks(fa, b, h, sq, sk, rate)
-    by_case = {(r["kernel"], r["shape"], r["dtype"], r["rate"]): r for r in rows}
+    by_case = {(r["kernel"], r["shape"], r["dtype"], r["rate"]): r for r in rows if "kernel_ms" in r}
 
     # 8. kernel line (times per launch, averaged over the main paths' launches
     # at their own shapes), then the device line last
     kernels = []
     for name in KERNELS:
+        if name == PROBE:
+            kernels.append(probe_kernel_line(probe_results, launches[PROBE], card))
+            continue
         path = {case: n for case, n in PATH_SHAPES.items() if case[0] == name}
         for case, n in sorted(path.items()):
             r = by_case[case]
@@ -1677,7 +2041,8 @@ def main() -> None:
             "bound_by": "bytes" if total["bound_bytes_us"] >= total["bound_ops_us"] else "operations",
             "library_ms": total["library_ms"] / n,
             **({"dense_floor_ms": total["dense_floor_us"] / 1e3 / n} if name == MEL else {}),
-            "shapes": {f"{dtype} {'x'.join(map(str, shape))}" + (f" dropout {rate}" if name in (FWD, BWD) else ""): c
+            "shapes": {f"{dtype} {'x'.join(map(str, shape))}" + (f" dropout {rate}" if name in (FWD, BWD, STREAM, TILED)
+                                                                 else ""): c
                        for (_, shape, dtype, rate), c in sorted(path.items())},
             "cases_checked": sum(r["kernel"] == name for r in rows),
             "card": card,

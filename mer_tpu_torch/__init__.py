@@ -1,36 +1,48 @@
 """mer_tpu_torch: ``mer_tpu`` in PyTorch, with hand-written CUDA kernels for
-Hopper (sm_90a): the fusion path (serving and training), the stage-1 mel
-feature extractor (training and embedding export) and the stage-1 wav2vec2
-feature extractor's serving side (embedding export and evaluation).
+Hopper (sm_90a): the fusion path (serving and training) and the three stage-1
+feature extractors: mel (training and embedding export), wav2vec2 (fine-tuning,
+embedding export and evaluation, clips of any length the batcher's ladder
+takes) and text (RoBERTa: fine-tuning, evaluation and export).
 
 Layout (module names follow ``mer_tpu``'s):
 
-- ``core``       config, MELD tables, embedding artifacts
+- ``core``       config, MELD tables (with the text extractor's context), embedding artifacts
 - ``data``       dialogue datasets, collate, length-bucketed batching and
                  batching from tables kept on the device; WAV I/O; the mel
                  utterance dataset with its uint8 spectrogram cache on the
                  device; the wav2vec2 utterance dataset and its bucketed
-                 batcher; synthetic dialogues and a synthetic MELD root
+                 batcher (``max_seconds``, ``seconds_buckets``); the text
+                 utterance dataset (``text_fe``: context windows, the token
+                 ladder); synthetic dialogues and a synthetic MELD root
                  (``python -m mer_tpu_torch.data.synthetic``)
-- ``ops``        attention and its CUDA kernels (forward K1 and backward K2
-                 with in-kernel Philox dropout), the log-mel frontend and its
-                 frames -> log-mel kernel K5, the wav2vec2 conv frontend's
-                 kernels K7 (layer 0 + GroupNorm + GELU) and K6 (layers 1-6);
-                 kernels build from ``csrc/`` at first use into ``_build/``;
-                 each has its plain version
+- ``ops``        attention and its CUDA kernels (forward K1 and the streaming
+                 forward K3 above 4,096 keys, backward K2 and the key-tiled
+                 backward K4 above 2,048, all with in-kernel Philox dropout;
+                 K3 and K4 on the tensor cores in bf16), the log-mel frontend
+                 and its frames -> log-mel kernel K5, the wav2vec2 conv
+                 frontend's kernels K7 (layer 0 + GroupNorm + GELU), K6
+                 (layers 1-6) and K8 (GroupNorm + GELU); kernels build from
+                 ``csrc/`` at first use into ``_build/``; each has its plain
+                 version
 - ``models``     M2FNet and its layers in the reference ``state_dict`` layout,
-                 the ResNet18 mel extractor in torchvision's, wav2vec2 with
-                 its classifier head in Hugging Face's, weight and Adam-state
-                 conversion from ``mer_tpu``
+                 the ResNet18 mel extractor in torchvision's, wav2vec2 and
+                 RoBERTa (``models/roberta.py``) with their classifier heads in
+                 Hugging Face's, weight and Adam-state conversion from
+                 ``mer_tpu``
 - ``mining``     online triplet mining (class-uniform pools, hard / semi-hard)
 - ``objectives`` cross-entropy, class weights, batch-averaged metrics, the
                  mel extractor's triplet / variance / covariance losses
 - ``serving``    offline batched prediction and the online server
-- ``train``      the fusion solver, the mel solver, the evaluation half of the
-                 text / wav2vec2 solver, checkpoints,
+- ``train``      the fusion solver, the mel solver, the text / wav2vec2
+                 solver (``fe_solver``: freeze, then fine-tune), checkpoints,
                  ``python -m mer_tpu_torch.train``
 - ``feature_extractors.audio_mel``  ``.train`` and ``.embeddings`` entry points
-- ``feature_extractors.audio_wav2vec2``  ``.embeddings`` and ``.test`` entry points
+- ``feature_extractors.audio_wav2vec2``  ``.train``, ``.test`` and ``.embeddings``
+- ``feature_extractors.text``  ``.train``, ``.test`` and ``.embeddings``
+- ``scripts``    profile and probe entry points on the card:
+                 ``profile_w2v_conv`` (the conv frontend's variants),
+                 ``bench_attention`` (K1-K4 against SDPA at the workload's
+                 shapes), ``probe_strided`` (the lowering probes P)
 - ``utils``      dropout generators, console logging
 - ``test``, ``serve``  entry points (``python -m mer_tpu_torch.test`` /
                  ``.serve``); every entry point runs on CUDA unless

@@ -125,15 +125,16 @@ def _write_csv(root: str, csv_name: str, rows: list[dict]):
 
 
 def write_split(root: str, csv_name: str, n_dialogues: int, rng, words: tuple[int, int] | None = None,
-                clip_seconds: tuple[float, float] = (0.5, 2.0)) -> int:
-    """One small split: 1-7 utterances a dialogue, clips of ``clip_seconds``
-    (0.5-2 s), the corrupted rows appended; returns the usable utterance count."""
+                clip_seconds: tuple[float, float] = (0.5, 2.0), max_utterances: int = 7) -> int:
+    """One small split: 1-``max_utterances`` (7) utterances a dialogue, clips
+    of ``clip_seconds`` (0.5-2 s), the corrupted rows appended; returns the
+    usable utterance count."""
     from mer_tpu_torch.data.audio_io import save_wav
 
     wav_dir, corrupted = MELD_SPLITS[csv_name]
     rows = []
     for dia in range(n_dialogues):
-        for utt in range(int(rng.integers(1, 8))):
+        for utt in range(int(rng.integers(1, max_utterances + 1))):
             rows.append(_row(len(rows) + 1, dia, utt, EMOTIONS[int(rng.integers(0, 7))], words))
     for dia, utt in corrupted:
         rows.append({**rows[-1], "Dialogue_ID": dia, "Utterance_ID": utt, "Utterance": "corrupted"})
@@ -180,13 +181,14 @@ def write_meld_shaped_test(root: str, rng, words: tuple[int, int] | None = None)
 def write_synthetic_meld(root: str, n_dialogues: int = 20, meld_shape: bool = False,
                          split_dialogues: dict[str, int] | None = None,
                          words: tuple[int, int] | None = None,
-                         clip_seconds: tuple[float, float] = (0.5, 2.0)) -> dict[str, int]:
+                         clip_seconds: tuple[float, float] = (0.5, 2.0), max_utterances: int = 7) -> dict[str, int]:
     """Write a synthetic MELD root from seed 0; returns usable utterances
     per CSV. ``split_dialogues`` overrides the dialogue count of a small
     split (``{"train_sent_emo.csv": 100}``); ``words`` = (lo, hi) gives every
     utterance that many seeded words instead of the fixed three (labels and
     wavs are the same either way); ``clip_seconds`` is the range of the small
-    splits' clip lengths."""
+    splits' clip lengths and ``max_utterances`` their most utterances a
+    dialogue (1: one clip a dialogue)."""
     rng = np.random.default_rng(0)
     scale = {"train_sent_emo.csv": 1.0, "dev_sent_emo.csv": 0.4, "test_sent_emo.csv": 0.6}
     counts = {}
@@ -196,7 +198,7 @@ def write_synthetic_meld(root: str, n_dialogues: int = 20, meld_shape: bool = Fa
             continue
         n_dia = 2 if meld_shape else max(int(n_dialogues * scale[csv_name]), 2)
         n_dia = (split_dialogues or {}).get(csv_name, n_dia)
-        counts[csv_name] = write_split(root, csv_name, n_dia, rng, words, clip_seconds)
+        counts[csv_name] = write_split(root, csv_name, n_dia, rng, words, clip_seconds, max_utterances)
     return counts
 
 

@@ -6,7 +6,10 @@ Reference behaviour (audio_wav2vec2/dataset.py): per-utterance waveforms from
 batch's longest clip and carries a ``lengths`` tensor. As in ``mer_tpu``,
 widths pad to a fixed ladder (2 / 4 / 6 / 8 / 10 s), so the conv frontend and
 the attention see a handful of shapes, and the lengths drive the frame
-masking inside the model. Batches are host numpy, int16 on the wire (PCM's
+masking inside the model. Both take ``mer_tpu``'s arguments: the dataset's
+``sample_rate``, ``max_seconds`` and ``waveform_store``, the batcher's
+``seconds_buckets``; longer clips (a 90 s bucket is 4,499 frames) reach the
+long-sequence attention kernels K3 and K4. Batches are host numpy, int16 on the wire (PCM's
 own width); :func:`w2v_batch_to_inputs` makes the model's float inputs on the
 device.
 
@@ -31,16 +34,20 @@ SECONDS_BUCKETS = (2.0, 4.0, 6.0, 8.0, 10.0)
 
 
 class Wav2Vec2FeatureDataset:
-    def __init__(self, mode: str, data_root: str | None = None):
+    """Utterance waveforms of one split, cut to ``max_seconds``; ``waveform_store``
+    replaces the store built from ``data_root`` (``WaveformStore``'s interface)."""
+
+    def __init__(self, mode: str, data_root: str | None = None, sample_rate: int = SAMPLE_RATE,
+                 max_seconds: float = MAX_SECONDS, waveform_store: WaveformStore | None = None):
         self.mode = mode
-        self.sample_rate = SAMPLE_RATE
-        self.max_seconds = MAX_SECONDS
+        self.sample_rate = sample_rate
+        self.max_seconds = max_seconds
         df = map_emotions(get_text(mode, data_root=data_root))
         self.df = df
         self.labels = df["Emotion"].to_numpy(dtype=np.int64)
         self.dia_utt = df[["Dialogue_ID", "Utterance_ID"]].to_numpy(dtype=np.int64)
-        self.store = WaveformStore(wav_dir_for(mode, data_root or "data"), sample_rate=SAMPLE_RATE,
-                                   max_seconds=MAX_SECONDS)
+        self.store = waveform_store or WaveformStore(wav_dir_for(mode, data_root or "data"),
+                                                     sample_rate=sample_rate, max_seconds=max_seconds)
         self._lengths: np.ndarray | None = None
 
     def __len__(self) -> int:
@@ -83,13 +90,15 @@ class Wav2Vec2Batcher:
     int16, ``lengths`` [B] int32, ``emotion`` [B] int32. The width is the
     smallest bucket that holds the batch's longest clip; the last batch is
     filled by repeating its last clip with ``emotion`` -1. With ``shuffle``, clips of similar length share a
-    batch and the batch order is shuffled; without, the table's order is kept."""
+    batch and the batch order is shuffled; without, the table's order is kept. ``seconds_buckets`` is the
+    width ladder in seconds (a clip longer than its last rung is cut to it)."""
 
-    def __init__(self, dataset: Wav2Vec2FeatureDataset, batch_size: int, shuffle: bool = False, seed: int = 0):
+    def __init__(self, dataset: Wav2Vec2FeatureDataset, batch_size: int, shuffle: bool = False, seed: int = 0,
+                 seconds_buckets: tuple[float, ...] = SECONDS_BUCKETS):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
-        self.buckets = tuple(int(s * dataset.sample_rate) for s in SECONDS_BUCKETS)
+        self.buckets = tuple(int(s * dataset.sample_rate) for s in seconds_buckets)
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:

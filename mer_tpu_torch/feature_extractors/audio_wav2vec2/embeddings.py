@@ -21,7 +21,7 @@ import os
 import torch
 
 from mer_tpu_torch.core import save_embeddings
-from mer_tpu_torch.data.wav2vec2_fe import Wav2Vec2Batcher, Wav2Vec2FeatureDataset, w2v_batch_to_inputs
+from mer_tpu_torch.data.wav2vec2_fe import SECONDS_BUCKETS, Wav2Vec2Batcher, Wav2Vec2FeatureDataset, w2v_batch_to_inputs
 from mer_tpu_torch.feature_extractors.audio_wav2vec2 import build_model
 from mer_tpu_torch.feature_extractors.fe_common import export_embedding_table
 
@@ -30,11 +30,12 @@ EXPORT_BATCH = 32
 
 
 @torch.no_grad()
-def export_split(model, dataset, batch_size: int = EXPORT_BATCH):
-    """[N, H] float32 table of ``dataset`` in table order."""
+def export_split(model, dataset, batch_size: int = EXPORT_BATCH, seconds_buckets=SECONDS_BUCKETS):
+    """[N, H] float32 table of ``dataset`` in table order, batches padded to
+    the ``seconds_buckets`` ladder."""
     device = next(model.parameters()).device
     rows, embeddings = [], []
-    for batch in Wav2Vec2Batcher(dataset, batch_size):
+    for batch in Wav2Vec2Batcher(dataset, batch_size, seconds_buckets=seconds_buckets):
         embeddings.append(model.embed(*w2v_batch_to_inputs(batch, device)))
         rows.append(batch["idx"][batch["emotion"] != -1])
     if not rows:

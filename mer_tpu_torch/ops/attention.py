@@ -6,7 +6,10 @@ attention-probability dropout live here once. Every call goes through
 the hand-written kernels (forward and backward), on a CPU tensor their plain
 versions, which restate ``_attention_reference``: an additive -1e30 bias on
 ignored keys, the scale applied to q before the product, softmax in float32.
-There is no size threshold: on the card every call runs the kernels.
+No size sends a call to XLA-style plain code on the card: the key count only
+picks the kernel, as ``mer_tpu``'s dispatch does. The forward runs K1 up to
+4,096 keys and the streaming K3 above; the backward K2 up to 2,048 keys and
+the key-tiled K4 above.
 """
 
 from __future__ import annotations

@@ -1,23 +1,43 @@
 """Masked attention, forward and backward: the hand-written CUDA kernels,
-their plain versions, and the autograd Function that joins them.
+their plain versions, the dispatch by key count between them, and the
+autograd Function that joins them.
 
-Replaces the TPU kernels ``mer_tpu/ops/flash_attention.py:72`` (``_kernel``,
-single-pass forward launched from ``_flash_impl``, with its dropout branch
-``:86-115``) and ``:270`` (``_bwd_kernel``, the fused backward launched from
-``_flash_bwd_fused`` ``:355``). The CUDA sources are
-``mer_tpu_torch/csrc/flash_attention_fwd.cu`` and ``flash_attention_bwd.cu``
-with the shared Philox generator ``csrc/philox.cuh``; their headers state the
-design and the bound. :func:`flash_attention_forward` and
-:func:`flash_attention_backward` launch the kernels for CUDA tensors and take
-the plain versions only for CPU tensors; :class:`FlashAttention` makes one
-differentiable op of the two, on either device.
+Replaces the TPU kernels of ``mer_tpu/ops/flash_attention.py``: ``:72``
+(``_kernel``, single-pass forward launched from ``_flash_impl``, with its
+dropout branch ``:86-115``) -> K1, ``csrc/flash_attention_fwd.cu``; ``:270``
+(``_bwd_kernel``, the fused backward launched from ``_flash_bwd_fused``
+``:355``) -> K2, ``csrc/flash_attention_bwd.cu``; ``:424`` (``_stream_kernel``,
+the online-softmax forward over key tiles, ``_flash_stream`` ``:465``) -> K3,
+``csrc/flash_attention_stream.cu``; ``:579`` + ``:624`` (``_bwd_dkv_kernel``
+and ``_bwd_dq_kernel``, the key-tiled backward, ``_flash_bwd_tiled`` ``:659``)
+-> K4, ``csrc/flash_attention_tiled_bwd.cu``. All four share the Philox
+generator ``csrc/philox.cuh``; K3 and K4 the tensor-core tile products of
+``csrc/flash_attention_tiles.cuh``. Their headers state the design and the
+bound.
+
+Dispatch, as ``mer_tpu``'s: :func:`flash_attention_forward` runs K1 up to
+``STREAM_THRESHOLD`` keys and K3 above (``_flash_impl`` ``:510``);
+:func:`flash_attention_backward` runs K2 up to ``BWD_FUSED_MAX`` keys and K4
+above (``_flash_bwd_impl`` ``:197-200``); :func:`flash_attention_stream`
+and :func:`flash_attention_tiled_backward` run K3 and K4 at any key count.
+Each kernel's wrapper launches it for CUDA tensors and takes its plain
+version only for CPU tensors, so the CPU runs the algebra the card runs;
+:class:`FlashAttention` makes one differentiable op of the two directions, on
+either device. Each wrapper counts its kernel's launches in ``.launches``:
+:func:`flash_attention_forward` K1's, :func:`flash_attention_stream` K3's,
+:func:`flash_attention_backward` K2's, :func:`flash_attention_tiled_backward`
+K4's.
 
 Semantics (every version): q [B, H, Sq, Dh], k/v [B, H, Sk, Dh] in float32 or
 bfloat16 (the plain versions also take float64); ``key_padding_mask`` [B, Sk]
 bool, True = ignore that key, adds -1e30 to its scores; scale 1/sqrt(Dh)
 applied to q; softmax and logsumexp in float32 (float64 for float64 inputs).
 The forward returns ``out`` [B, H, Sq, Dh] in q's dtype and ``lse``
-[B, H, Sq] (the per-row logsumexp of the undropped scores).
+[B, H, Sq] (the per-row logsumexp of the undropped scores). The streaming
+forward and the key-tiled backward round the probabilities (and the
+backward's dS) to the input dtype before their products with v (and k, q,
+g), as the TPU's streaming kernel does with ``p.astype(v.dtype)``; in f32
+that is no rounding.
 
 Dropout (training, torch MHA semantics): the *normalised* probabilities are
 multiplied by D = keep / (1 - rate). The keep bit of probability (row, col)
@@ -40,7 +60,9 @@ from mer_tpu_torch.ops import _build
 
 NEG_INF = -1e30  # additive bias on ignored keys (finite, as the TPU kernel's)
 MAX_HEAD_DIM = 128
-MAX_BWD_KEYS = 2048  # the single-pass backward's range (BWD_FUSED_MAX); beyond is K4's
+STREAM_THRESHOLD = 4096  # above this many keys the forward streams key tiles (K3), as mer_tpu's
+BWD_FUSED_MAX = 2048  # the single-pass backward's range (K2); beyond, the key-tiled backward (K4)
+BLOCK_K = 512  # the plain streaming and tiled versions' key tile (the TPU kernels')
 FULLY_MASKED_LSE = -1e29  # a row's lse below this: every key of the row is ignored
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -162,6 +184,71 @@ def flash_attention_backward_reference(q, k, v, key_padding_mask, out, lse, g, s
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _key_tiles(k, key_padding_mask):
+    """(start, end, mask tile) of each ``BLOCK_K``-key tile of the key axis."""
+    for k0 in range(0, k.shape[2], BLOCK_K):
+        k1 = min(k0 + BLOCK_K, k.shape[2])
+        yield k0, k1, None if key_padding_mask is None else key_padding_mask[:, k0:k1]
+
+
+def flash_attention_stream_reference(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
+    """Plain PyTorch version of the streaming forward K3: ``(out, lse)`` by an
+    online softmax over ``BLOCK_K``-key tiles (``_stream_kernel``'s
+    algebra, ``mer_tpu/ops/flash_attention.py:436-462``), P o D rounded to the
+    input dtype before the product with v. Memory O(Sq x BLOCK_K)."""
+    acc = _acc_dtype(q.dtype)
+    drop = _dropout_args(seed, dropout_rate)[0]
+    b, h, sq, dh = q.shape
+    m = torch.full((b, h, sq, 1), float("-inf"), dtype=acc, device=q.device)
+    l = torch.zeros((b, h, sq, 1), dtype=acc, device=q.device)
+    o = torch.zeros((b, h, sq, dh), dtype=acc, device=q.device)
+    for k0, k1, mask in _key_tiles(k, key_padding_mask):
+        s = _scores(q, k[:, :, k0:k1], mask, acc)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))  # finite from the first tile on (it holds key 0)
+        p, alpha = torch.exp(s - m_new), torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if drop:
+            p = p * dropout_factor(seed, p.shape, dropout_rate, q.device, col0=k0).to(acc)
+        o = o * alpha + torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), v[:, :, k0:k1].to(acc))
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return (o / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_tiled_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed=None,
+                                             dropout_rate: float = 0.0, g_lse=None):
+    """Plain PyTorch version of the key-tiled backward K4: ``(dq, dk, dv)``
+    per ``BLOCK_K``-key tile from the saved lse (``_flash_bwd_tiled``'s
+    algebra), P o D and dS rounded to the input dtype before their products.
+    A fully masked row takes P = 1/Sk, as K2 does (``mer_tpu``'s tiled
+    backward takes 1 there). Memory O(Sq x BLOCK_K)."""
+    acc = _acc_dtype(q.dtype)
+    drop = _dropout_args(seed, dropout_rate)[0]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    sk = k.shape[2]
+    qf, gf = q.to(acc), g.to(acc)
+    lse = lse.to(acc)[..., None]
+    delta = (gf * out.to(acc)).sum(-1, keepdim=True)
+    if g_lse is not None:
+        delta = delta - g_lse.to(acc)[..., None]
+    dq = torch.zeros_like(qf)
+    dk, dv = [], []
+    for k0, k1, mask in _key_tiles(k, key_padding_mask):
+        kt, vt = k[:, :, k0:k1].to(acc), v[:, :, k0:k1].to(acc)
+        s = _scores(q, k[:, :, k0:k1], mask, acc)
+        p = torch.where(lse < FULLY_MASKED_LSE, 1.0 / sk, torch.exp(s - lse))
+        dp = torch.einsum("bhqd,bhkd->bhqk", gf, vt)
+        p_dropped = p
+        if drop:
+            factor = dropout_factor(seed, p.shape, dropout_rate, q.device, col0=k0).to(acc)
+            dp, p_dropped = dp * factor, p * factor
+        ds = (p * (dp - delta)).to(q.dtype).to(acc)
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kt)
+        dk.append(torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale)
+        dv.append(torch.einsum("bhqk,bhqd->bhkd", p_dropped.to(q.dtype).to(acc), gf))
+    return (dq * scale).to(q.dtype), torch.cat(dk, 2).to(k.dtype), torch.cat(dv, 2).to(v.dtype)
+
+
 # -- kernels -------------------------------------------------------------------
 
 
@@ -217,25 +304,36 @@ def _device_or_raise(q) -> bool:
     return True
 
 
+def _launch(name: str, q, pointers, sk: int, drop) -> None:
+    """Launch kernel ``name`` on q's device and current stream; raises on a
+    refused launch."""
+    b, h, sq, dh = q.shape
+    fn = _kernel_fn(name, len(pointers))
+    with torch.cuda.device(q.device):
+        rc = fn(_DTYPE_CODE[q.dtype], *pointers, b, h, sq, sk, dh, 1.0 / math.sqrt(dh), *drop,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def _forward_outputs(q):
+    return torch.empty_like(q), torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+
+
 def flash_attention_forward(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
-    """``(out, lse)`` of masked attention; the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. ``flash_attention_forward.launches``
-    counts kernel launches."""
+    """``(out, lse)`` of masked attention. Above ``STREAM_THRESHOLD`` keys
+    through :func:`flash_attention_stream` (K3); else K1 for CUDA tensors,
+    its plain version for CPU tensors. ``flash_attention_forward.launches``
+    counts K1's launches."""
+    if k.shape[2] > STREAM_THRESHOLD:
+        return flash_attention_stream(q, k, v, key_padding_mask, seed, dropout_rate)
     if not _device_or_raise(q):
         return flash_attention_reference(q, k, v, key_padding_mask, seed, dropout_rate)
     _check(q, k, v, key_padding_mask)
     drop = _dropout_args(seed, dropout_rate)
-    b, h, sq, dh = q.shape
-    sk = k.shape[2]
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _kernel_fn("flash_attention_fwd", 6)
-    with torch.cuda.device(q.device):
-        rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
-                out.data_ptr(), lse.data_ptr(), b, h, sq, sk, dh, 1.0 / math.sqrt(dh), *drop,
-                torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {rc}")
+    out, lse = _forward_outputs(q)
+    _launch("flash_attention_fwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+                                       out.data_ptr(), lse.data_ptr()], k.shape[2], drop)
     flash_attention_forward.launches += 1
     return out, lse
 
@@ -243,35 +341,52 @@ def flash_attention_forward(q, k, v, key_padding_mask=None, seed=None, dropout_r
 flash_attention_forward.launches = 0
 
 
+def flash_attention_stream(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
+    """``(out, lse)`` through the streaming forward K3 for CUDA tensors, its
+    plain version for CPU tensors. ``flash_attention_stream.launches`` counts
+    K3's launches."""
+    if not _device_or_raise(q):
+        return flash_attention_stream_reference(q, k, v, key_padding_mask, seed, dropout_rate)
+    _check(q, k, v, key_padding_mask)
+    drop = _dropout_args(seed, dropout_rate)
+    out, lse = _forward_outputs(q)
+    _launch("flash_attention_stream", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+                                          out.data_ptr(), lse.data_ptr()], k.shape[2], drop)
+    flash_attention_stream.launches += 1
+    return out, lse
+
+
+flash_attention_stream.launches = 0
+
+
+def _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse):
+    """Checks a backward call; returns (dq, dk, dv, delta scratch, dropout args)."""
+    _check(q, k, v, key_padding_mask)
+    _check_like("out", out, q.shape, q.dtype, q.device)
+    _check_like("g", g, q.shape, q.dtype, q.device)
+    _check_like("lse", lse, q.shape[:3], torch.float32, q.device)
+    if g_lse is not None:
+        _check_like("g_lse", g_lse, q.shape[:3], torch.float32, q.device)
+    drop = _dropout_args(seed, dropout_rate)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)  # scratch between the two grids
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), delta, drop
+
+
 def flash_attention_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, dropout_rate: float = 0.0,
                              g_lse=None):
-    """``(dq, dk, dv)``; the CUDA kernel for CUDA tensors (Sk <= 2048), the
+    """``(dq, dk, dv)``. Above ``BWD_FUSED_MAX`` keys through
+    :func:`flash_attention_tiled_backward` (K4); else K2 for CUDA tensors, its
     plain version for CPU tensors. ``flash_attention_backward.launches``
-    counts kernel launches (one per call: the dq and the dk/dv grids)."""
+    counts K2's launches (one per call: the dq and the dk/dv grids)."""
+    if k.shape[2] > BWD_FUSED_MAX:
+        return flash_attention_tiled_backward(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
     if not _device_or_raise(q):
         return flash_attention_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate,
                                                   g_lse)
-    _check(q, k, v, key_padding_mask)
-    b, h, sq, dh = q.shape
-    sk = k.shape[2]
-    if sk > MAX_BWD_KEYS:
-        raise ValueError(f"the fused backward takes Sk <= {MAX_BWD_KEYS} keys, got {sk}")
-    _check_like("out", out, q.shape, q.dtype, q.device)
-    _check_like("g", g, q.shape, q.dtype, q.device)
-    _check_like("lse", lse, (b, h, sq), torch.float32, q.device)
-    if g_lse is not None:
-        _check_like("g_lse", g_lse, (b, h, sq), torch.float32, q.device)
-    drop = _dropout_args(seed, dropout_rate)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)  # scratch between the two grids
-    fn = _kernel_fn("flash_attention_bwd", 12)
-    with torch.cuda.device(q.device):
-        rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
-                out.data_ptr(), lse.data_ptr(), g.data_ptr(), _ptr(g_lse), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), delta.data_ptr(), b, h, sq, sk, dh, 1.0 / math.sqrt(dh), *drop,
-                torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {rc}")
+    dq, dk, dv, delta, drop = _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
+    _launch("flash_attention_bwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+                                       out.data_ptr(), lse.data_ptr(), g.data_ptr(), _ptr(g_lse), dq.data_ptr(),
+                                       dk.data_ptr(), dv.data_ptr(), delta.data_ptr()], k.shape[2], drop)
     flash_attention_backward.launches += 1
     return dq, dk, dv
 
@@ -279,11 +394,32 @@ def flash_attention_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, 
 flash_attention_backward.launches = 0
 
 
+def flash_attention_tiled_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, dropout_rate: float = 0.0,
+                                   g_lse=None):
+    """``(dq, dk, dv)`` through the key-tiled backward K4 for CUDA tensors, its
+    plain version for CPU tensors. ``flash_attention_tiled_backward.launches``
+    counts K4's launches (one per call: the dq and the dk/dv grids)."""
+    if not _device_or_raise(q):
+        return flash_attention_tiled_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed,
+                                                        dropout_rate, g_lse)
+    dq, dk, dv, delta, drop = _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
+    _launch("flash_attention_tiled_bwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+                                             out.data_ptr(), lse.data_ptr(), g.data_ptr(), _ptr(g_lse),
+                                             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr()],
+              k.shape[2], drop)
+    flash_attention_tiled_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_tiled_backward.launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
     """``out, lse = FlashAttention.apply(q, k, v, key_padding_mask, seed,
     dropout_rate)``: forward through :func:`flash_attention_forward`,
-    backward through :func:`flash_attention_backward`, so the kernels on the
-    card and the plain versions on the CPU. Both directions run with autocast
+    backward through :func:`flash_attention_backward`, each dispatching by
+    key count, so the kernels on the card and the plain versions on the CPU.
+    The lse cotangent reaches K2 and K4 alike. Both directions run with autocast
     off: q, k, v arrive in the compute dtype and the kernels keep f32
     arithmetic inside."""
 

@@ -1,0 +1,193 @@
+"""Time the port's attention kernels against PyTorch's SDPA at the workload's
+shapes (counterpart of ``scripts/bench_attention.py``).
+
+    python -m mer_tpu_torch.scripts.bench_attention [--shapes NAME,...] [--dtypes float32,bfloat16]
+        [--device cuda|cpu]
+
+The shapes are ``mer_tpu``'s list (RoBERTa windows of 64-512 tokens, wav2vec2
+at 499 and 512 frames, the long-audio axis 1,024-8,192 frames) plus one clip of
+16,384 frames, each with a 10% key mask drawn from seed 0. For each shape and
+dtype: the forward and the forward + backward through the port (whichever
+kernels the dispatch by key count picks, named: K1 or K3 forward, K2 or K4
+backward), the same two through ``F.scaled_dot_product_attention`` with the
+same mask (a yardstick: the port never calls it), and the least time of each
+from bytes at 3.35 TB/s and products at 989 (bf16) or 67 (f32) TFLOP/s, the
+H100 SXM data sheet's. On the card times are device time per call: calls
+captured in a CUDA graph and replayed between CUDA events, or, above 100
+GFLOP a forward, eager calls between CUDA events; on the CPU the host clock,
+labelled so. One JSON line per shape and dtype.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from mer_tpu_torch.ops import flash_attention as fa
+from mer_tpu_torch.serving.engine import resolve_device
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# (name, B, H, S, Dh): scripts/bench_attention.py:67-80, then 16,384 frames
+SHAPES = [
+    ("roberta_b32_s64", 32, 12, 64, 64),
+    ("roberta_b32_s128", 32, 12, 128, 64),
+    ("roberta_b32_s256", 32, 12, 256, 64),
+    ("wav2vec2_b8_s499", 8, 12, 499, 64),
+    ("roberta_512", 8, 12, 512, 64),
+    ("wav2vec2_512", 8, 12, 512, 64),
+    ("long_1024", 8, 12, 1024, 64),
+    ("long_2048", 8, 12, 2048, 64),
+    ("long_4096", 4, 12, 4096, 64),
+    ("long_8192", 2, 12, 8192, 64),
+    ("long_16384", 1, 12, 16384, 64),
+]
+KEY_MASK_FRACTION = 0.1  # scripts/bench_attention.py:85
+
+
+def kernel_names(s: int) -> tuple[str, str]:
+    """(forward, backward) kernels the dispatch picks at ``s`` keys."""
+    return ("K3" if s > fa.STREAM_THRESHOLD else "K1"), ("K4" if s > fa.BWD_FUSED_MAX else "K2")
+
+
+def bound_ms(b: int, h: int, s: int, dh: int, dtype: torch.dtype, backward: bool) -> tuple[float, str]:
+    """Least time (ms) of the forward, or of forward + backward, and what sets
+    it: each input read once and each output written once at the HBM rate
+    (forward: q, k, v, mask -> out, lse; backward: q, k, v, out, g, lse, mask
+    -> dq, dk, dv), against the products at the dtype's dense peak (2 in the
+    forward, 5 in the backward)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    tensor, stats, mask = b * h * s * dh * esize, b * h * s * 4, b * s
+    nbytes = 4 * tensor + stats + mask
+    flops = 4 * b * h * s * s * dh
+    if backward:
+        nbytes += 8 * tensor + stats + mask
+        flops += 10 * b * h * s * s * dh
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def device_ms(fn, reps: int, replays: int) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def events_ms(fn, reps: int) -> float:
+    """Time per call of ``reps`` eager calls between CUDA events, after one
+    warm-up call: at the long shapes a call takes milliseconds and the host's
+    launch cost is noise."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def bench_shape(name: str, b: int, h: int, s: int, dh: int, dtype: torch.dtype, device: torch.device) -> dict:
+    rng = np.random.default_rng(0)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, h, s, dh)).astype(np.float32)).to(device, dtype)
+                  for _ in range(4))
+    mask = torch.from_numpy(rng.random((b, s)) < KEY_MASK_FRACTION).to(device)
+    attend = ~mask[:, None, None, :]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def grads_of(forward):
+        def step():
+            for t in leaves:
+                t.grad = None
+            forward().backward(g)
+        return step
+
+    port_forward = lambda: fa.FlashAttention.apply(*leaves, mask, None, 0.0)[0]
+    sdpa_forward = lambda: torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=attend)
+    flops = 4 * b * h * s * s * dh
+    if device.type != "cuda":
+        timer = lambda fn: host_ms(fn, 1)
+    elif flops > 1e11:
+        timer = lambda fn: events_ms(fn, 2)
+    else:
+        timer = lambda fn: device_ms(fn, 5, 4)
+    row = {"shape": name, "B": b, "H": h, "S": s, "Dh": dh, "dtype": str(dtype).removeprefix("torch."),
+           "clock": "device" if device.type == "cuda" else "host (cpu)"}
+    fwd_name, bwd_name = kernel_names(s)
+    row["kernels"] = f"{fwd_name} + {bwd_name}"
+    with torch.no_grad():
+        row["kernel_fwd_ms"] = timer(port_forward)
+    row["kernel_fwdbwd_ms"] = timer(grads_of(port_forward))
+    try:
+        with torch.no_grad():
+            row["sdpa_fwd_ms"] = timer(sdpa_forward)
+        row["sdpa_fwdbwd_ms"] = timer(grads_of(sdpa_forward))
+    except torch.OutOfMemoryError:  # the yardstick only; the port's numbers stand without it
+        row.setdefault("sdpa_fwd_ms", None)
+        row["sdpa_fwdbwd_ms"] = None
+        torch.cuda.empty_cache()
+    row["bound_fwd_ms"], row["bound_fwd_by"] = bound_ms(b, h, s, dh, dtype, backward=False)
+    row["bound_fwdbwd_ms"], row["bound_fwdbwd_by"] = bound_ms(b, h, s, dh, dtype, backward=True)
+    return row
+
+
+def main(argv=None) -> list[dict]:
+    p = argparse.ArgumentParser(prog="python -m mer_tpu_torch.scripts.bench_attention")
+    p.add_argument("--shapes", default=",".join(n for n, *_ in SHAPES), help="comma-separated shape names")
+    p.add_argument("--dtypes", default="float32,bfloat16")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    wanted = args.shapes.split(",")
+    unknown = set(wanted) - {n for n, *_ in SHAPES}
+    if unknown:
+        raise SystemExit(f"unknown shapes {sorted(unknown)}")
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu (host clock, no device time)"
+    print(f"attention bench on {where}")
+    rows = []
+    for name, b, h, s, dh in SHAPES:
+        if name not in wanted:
+            continue
+        for dtype_name in args.dtypes.split(","):
+            rows.append(bench_shape(name, b, h, s, dh, DTYPES[dtype_name], device))
+            print(json.dumps(rows[-1]), flush=True)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return rows
+
+
+if __name__ == "__main__":
+    main()

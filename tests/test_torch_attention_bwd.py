@@ -309,11 +309,21 @@ def test_kernel_backward_reproduces_bitwise(cuda):
 
 @pytest.mark.cuda
 def test_kernel_backward_raises_beyond_its_range(cuda):
+    """K2's kernel refuses more than BWD_FUSED_MAX keys; the backward hands
+    such calls to K4 and never launches K2 there."""
     q = torch.zeros(1, 1, 4, 8, device=cuda)
-    k = torch.zeros(1, 1, fa.MAX_BWD_KEYS + 1, 8, device=cuda)
+    k = torch.zeros(1, 1, fa.BWD_FUSED_MAX + 1, 8, device=cuda)
     out, lse = fa.flash_attention_forward(q, k, k)
-    with pytest.raises(ValueError, match="Sk <="):
-        fa.flash_attention_backward(q, k, k, None, out, lse, torch.zeros_like(q))
+    g = torch.zeros_like(q)
+    dq, dk, dv, delta, drop = fa._backward_args(q, k, k, None, out, lse, g, None, 0.0, None)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd launch failed"):
+        fa._launch("flash_attention_bwd", q, [q.data_ptr(), k.data_ptr(), k.data_ptr(), None, out.data_ptr(),
+                                              lse.data_ptr(), g.data_ptr(), None, dq.data_ptr(), dk.data_ptr(),
+                                              dv.data_ptr(), delta.data_ptr()], k.shape[2], drop)
+    launches = fa.flash_attention_backward.launches, fa.flash_attention_tiled_backward.launches
+    fa.flash_attention_backward(q, k, k, None, out, lse, g)
+    assert (fa.flash_attention_backward.launches, fa.flash_attention_tiled_backward.launches) == (
+        launches[0], launches[1] + 1)
     with pytest.raises(ValueError, match="seed"):
         fa.flash_attention_forward(q, q, q, None, None, 0.4)
 
