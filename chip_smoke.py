@@ -34,14 +34,16 @@ that two runs see the same tokens:
    F.gelu); K8 on the stock layer-0 conv output at [32, 31999, 512], [2,
    12799, 512] and [3, 301, 512] with 7 valid rows (library: F.group_norm +
    F.gelu); K1 at the wav2vec2 encoder's shapes [32 or 2, 12, S, S, 64],
-   S = 99 .. 499, with padded keys;
+   S = 99 .. 499, with padded keys (clip masks: each row keeps L >= S / 2
+   keys);
 3b. K3 at Sk = 4,097, 8,192, 16,384 and K4 at 2,049, 4,499, 8,192 ([2, 1, S,
    S, 64] and [2, 1, S, S, 50]), f32 and bf16, with a key mask, with a fully
    masked batch element and with dropout 0.1, against their plain versions,
    every other batch element attending to most of its keys; the seams K1 |
-   K3 at 4,096 keys and K2 | K4 at 2,048 on the same inputs ([2, 2, S, S,
-   64]); the bf16 limit shown to fail a K3 and a K4 that read the wrong key
-   tiles; K3's and K4's dropout masks read off exactly in f32 and bf16;
+   K3 and K2 | K4 at the dispatch's thresholds (``STREAM_THRESHOLD``,
+   ``BWD_FUSED_MAX`` keys) on the same inputs ([2, 2, S, S, 64]); the bf16
+   limits shown to fail a K1, K2, K3 and K4 that read the wrong key tiles;
+   K3's and K4's dropout masks read off exactly in f32 and bf16;
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -112,7 +114,9 @@ that two runs see the same tokens:
    second, one profiled step (eager, device, idle share), peak memory; one
    f32 step's loss and gradients through K3 and K4 against the plain versions;
 6j. the attention bench entry (``mer_tpu_torch.scripts.bench_attention``,
-   every shape, f32 and bf16); 6k. the probes P
+   every shape, f32 and bf16, then ``--crossover``: K1 | K3 and K2 | K4 on
+   the same inputs at the fusion buckets and up to each threshold, bf16,
+   dropout 0 and 0.1); 6k. the probes P
    (``mer_tpu_torch.scripts.probe_strided``), each exact, counted on their own;
 7. hold each kernel against its plain version again at every shape that
    phases 4-6i gave it (recorded at each launch), in float32 and bfloat16
@@ -124,15 +128,14 @@ that two runs see the same tokens:
    ``dense_floor_ms``; P's averaged over its six probes); then the device line last.
 
 Tolerances (kernel against plain version, same inputs, |err| <= atol +
-rtol |want|): K1 out f32 (2e-5, 0), bf16 (1e-2, 2**-8: the plain version
-runs on the f32 values of the bf16 inputs and is not rounded); lse 2e-5 in
-f32, 1e-3 in bf16. K2 f32 (1e-4, 1e-5), bf16 (2e-2, 2**-7: both round an f32
-value to bf16, one ulp apart at most). K3 as K1 and K4 as K2 in f32, their
-plain versions on the inputs' own dtype (they round P, and K4 dS, to it as
-the kernels do, over other tiles); in bf16 out, dq, dk and dv within
-``LONG_BF16_REL`` of the plain version's largest |value| (at 2,049-16,384
-keys they are about 0.005, under TOL's bf16 atol), lse as K1's; the seams K1
-| K3 and K2 | K4 within the same. K5 f32 (1e-4, 1e-4) on the log
+rtol |want|; every plain attention version runs on the inputs' own dtype and
+rounds P, and the backwards dS, to it as the kernels do, over other tiles): K1
+and K3 out f32 (2e-5, 0), bf16 (1e-2, 2**-8); lse 2e-5 in f32, 1e-3 in bf16.
+K2 and K4 f32 (1e-4, 1e-5), bf16 (2e-2, 2**-7). In bf16 every one of out, dq,
+dk, dv also within ``ATTENTION_BF16_REL`` of the plain version's largest
+|value| of that tensor, the tighter limit from 64 keys on (values of
+0.005-0.5, under TOL's bf16 atol); the seams K1 | K3 and K2 | K4 within the
+same. K5 f32 (1e-4, 1e-4) on the log
 values (tests/test_logmel_pallas.py:29's). K7 f32 (1e-4, 1e-4: its variance is the
 one-pass E[y^2] - mean^2, tests/test_w2v_conv_pallas.py:71), K6 f32 (2e-5,
 2e-5, :35), both in bf16 within 2e-2 of the plain version's largest value
@@ -178,10 +181,11 @@ TOL = {
     ("w2v_gn_gelu", "float32"): (1e-4, 1e-4),
 }
 W2V_BF16_REL = 2e-2  # K6, K7 and K8 in bf16: |err| <= this x the plain version's largest value
-# K3 and K4 in bf16 (out, dq, dk, dv; the seams too): |err| <= this x the plain version's largest |value|.
-# Both sides round to bf16 last, so one ulp of the largest entry (2^-8 to 2^-7 of it) is the expected
-# worst case; a kernel reading the wrong key tiles is off by far more (phase 3b shows both)
-LONG_BF16_REL = 2e-2
+# K1-K4 in bf16 (out, dq, dk, dv; the seams too): within TOL and also |err| <= this x the plain version's largest
+# |value| of that tensor, the tighter limit from 64 keys on (values of 0.005-0.5 there, under TOL's bf16 atol). Both
+# sides round to bf16 last, so one or two ulps of the largest entry (2^-8 to 2^-7 of it) is the expected worst case
+# (measured 1.3e-3 to 6.8e-3); a kernel reading the wrong key tiles is off by 0.5-1.4 of it (phase 3b shows both)
+ATTENTION_BF16_REL = 2e-2
 PROFILE_BF16_REL = 5e-2  # a profile variant against the stock bf16 stack, of its largest value
 DROPOUT = 0.4  # the config's model.dropout
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"  # sources mer_tpu_torch/csrc/<name>.cu
@@ -200,7 +204,8 @@ REPLACES = {FWD: "mer_tpu/ops/flash_attention.py:72", BWD: "mer_tpu/ops/flash_at
 # K3 and K4 against their plain versions: (B, H, Sq, Sk, Dh), B = 2 for a fully masked batch element, Dh 64 and 50
 STREAM_SHAPES = [(2, 1, s, s, 64) for s in (4097, 8192, 16384)] + [(2, 1, 4097, 4097, 50)]
 TILED_SHAPES = [(2, 1, s, s, 64) for s in (2049, 4499, 8192)] + [(2, 1, 2049, 2049, 50)]
-SEAM_SHAPES = {FWD: (2, 2, 4096, 4096, 64), BWD: (2, 2, 2048, 2048, 64)}  # K1 | K3 and K2 | K4 on the same inputs
+# K1 | K3 and K2 | K4 on the same inputs, at the dispatch's thresholds (fa.STREAM_THRESHOLD, fa.BWD_FUSED_MAX keys)
+SEAM_BH = (2, 2)
 LONG_DROPOUT = 0.1  # Wav2Vec2Config.attention_dropout
 # the long-clip wav2vec2 phase: one clip of 45-90 s a dialogue, 8 train / 4 dev / 4 test, the 60 and 90 s buckets
 LONG_SECONDS, LONG_BUCKETS, LONG_BATCH, LONG_STEPS = (45.0, 90.0), (60.0, 90.0), 2, 4
@@ -310,17 +315,16 @@ def attention_inputs(shape, dtype, seed: int, fully_masked: bool = False, clips:
     return q, k, v, g, mask.cuda()
 
 
-def attention_errors(kernel: str, names, got, want, dtype: str) -> dict:
+def attention_errors(names, got, want, dtype: str) -> dict:
     """Excess over the limit (<= 0 passes) of each output of an attention
-    kernel: TOL, or for K3 and K4 in bf16 (and their seams) ``LONG_BF16_REL``
-    of the plain version's largest |value| on out, dq, dk and dv."""
+    kernel: TOL, and in bf16 also ``ATTENTION_BF16_REL`` of the plain
+    version's largest |value| on out, dq, dk and dv."""
     errs = {}
     for name, a, b in zip(names, got, want):
-        if kernel in (STREAM, TILED) and dtype == "bfloat16" and name != "lse":
-            a, b = a.float(), b.float()
-            errs[name] = ((a - b).abs().max() - LONG_BF16_REL * b.abs().max()).item()
-        else:
-            errs[name] = excess(a, b, ({"out": "fwd", "lse": "lse"}.get(name, "bwd"), dtype))
+        errs[name] = excess(a, b, ({"out": "fwd", "lse": "lse"}.get(name, "bwd"), dtype))
+        if dtype == "bfloat16" and name != "lse":
+            rel_excess = ((a.float() - b.float()).abs().max() - ATTENTION_BF16_REL * b.float().abs().max()).item()
+            errs[name] = max(errs[name], rel_excess)
     return errs
 
 
@@ -377,11 +381,11 @@ def attention_calls(fa, kernel: str):
 def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: bool = True,
                fully_masked: bool = False) -> dict:
     """One attention kernel (K1-K4) against its plain version at one case,
-    with times unless ``timed`` is off; raises on a disagreement. K1's plain
-    version runs on the f32 values of the inputs, K3's on the inputs
-    themselves (it rounds P to their dtype, as the kernel does)."""
+    with times unless ``timed`` is off; raises on a disagreement. The plain
+    versions run on the inputs themselves (they round P, and the backwards dS,
+    to their dtype, as the kernels do)."""
     q, k, v, g, mask = attention_inputs(shape, DTYPES[dtype], seed=i, fully_masked=fully_masked,
-                                        clips=kernel in (STREAM, TILED))
+                                        clips=kernel in (STREAM, TILED) or shape[3] >= 64)
     seed = dropout_seed(i, rate)
     call_fn, plain_fn = attention_calls(fa, kernel)
     forward_of = fa.flash_attention_forward if kernel in (FWD, BWD) else fa.flash_attention_stream
@@ -398,9 +402,8 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
                                    functools.partial(eager_ms, iters=10, warmup=2))
     if kernel in ATTENTION_FWD:
         torch.cuda.synchronize()
-        plain_in = (q.float(), k.float(), v.float()) if kernel == FWD else (q, k, v)
-        ref_out, ref_lse = plain_fn(*plain_in, mask, seed, rate)
-        errs = attention_errors(kernel, ("out", "lse"), (out, lse), (ref_out, ref_lse), dtype)
+        ref_out, ref_lse = plain_fn(q, k, v, mask, seed, rate)
+        errs = attention_errors(("out", "lse"), (out, lse), (ref_out, ref_lse), dtype)
         max_abs_err = (out.float() - ref_out.float()).abs().max().item()
         rel_err = {"out": max_abs_err / ref_out.float().abs().max().item()}
         del ref_out, ref_lse
@@ -411,7 +414,7 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
         grads = call_fn(q, k, v, mask, out, lse, g, seed, rate)
         torch.cuda.synchronize()
         ref = plain_fn(q, k, v, mask, out, lse, g, seed, rate)
-        errs = attention_errors(kernel, ("dq", "dk", "dv"), grads, ref, dtype)
+        errs = attention_errors(("dq", "dk", "dv"), grads, ref, dtype)
         max_abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref))
         rel_err = {name: (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
                    for name, a, b in zip(("dq", "dk", "dv"), grads, ref)}
@@ -768,7 +771,7 @@ def log_profile(kernels: dict[str, float], count: int) -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {share('flash_attention_fwd')}, "
         f"K2 share {share('flash_attention_bwd')}, K3 share {share('flash_attention_stream')}, "
-        f"K4 share {share('tiled_bwd_')}, K5 share {share('logmel_fwd')}, "
+        f"K4 share {share('flash_attention_tiled_bwd')}, K5 share {share('logmel_fwd')}, "
         f"K6 share {share('w2v_conv_s2_gelu')}, K7 share {share('w2v_layer0')}, K8 share {share('w2v_gn_')}; top: "
         + "; ".join(f"{n[:60]} {t} us" for n, t in top))
 
@@ -1652,17 +1655,17 @@ def plain_kernels(fa, wc):
 def check_seam(fa, kernel: str, shape, dtype: str, i: int) -> None:
     """K1 against K3 or K2 against K4 at the dispatch's threshold, on the
     same inputs (every batch element attending to most of its keys), within
-    the kernel-vs-plain limits of K3 and K4."""
+    the kernel-vs-plain limits."""
     q, k, v, g, mask = attention_inputs(shape, DTYPES[dtype], seed=i, clips=True)
     out, lse = fa.flash_attention_forward(q, k, v, mask)
     if kernel == FWD:
         names, got, want = ("out", "lse"), fa.flash_attention_stream(q, k, v, mask), (out, lse)
-        what, limits_of = "K1 | K3", STREAM
+        what = "K1 | K3"
     else:
         names, want = ("dq", "dk", "dv"), fa.flash_attention_backward(q, k, v, mask, out, lse, g)
-        got, what, limits_of = fa.flash_attention_tiled_backward(q, k, v, mask, out, lse, g), "K2 | K4", TILED
+        got, what = fa.flash_attention_tiled_backward(q, k, v, mask, out, lse, g), "K2 | K4"
     torch.cuda.synchronize()
-    errs = attention_errors(limits_of, names, got, want, dtype)
+    errs = attention_errors(names, got, want, dtype)
     diffs = {name: (a.float() - b.float()).abs().max().item() for name, a, b in zip(names, got, want)}
     largest = {name: b.float().abs().max().item() for name, b in zip(names, want)}
     log(f"seam {what} at {shape} {dtype}: max abs diff {json.dumps(diffs)}, largest |value| {json.dumps(largest)}, "
@@ -1672,24 +1675,30 @@ def check_seam(fa, kernel: str, shape, dtype: str, i: int) -> None:
 
 
 def check_limit_fails_wrong_tiles(fa, i: int) -> None:
-    """The bf16 limit has teeth: K3 handed V, and K4 handed K, whose keys past
-    the first 64 are rolled by 64 (as a kernel that reads the wrong tile
-    after its first) exceed ``LONG_BF16_REL`` against the plain versions on
-    the true inputs, by a wide margin."""
-    shape = (2, 1, 8192, 8192, 64)
-    q, k, v, g, mask = attention_inputs(shape, torch.bfloat16, seed=i, clips=True)
+    """The bf16 limit has teeth: K1 and K3 handed V, and K2 and K4 handed K,
+    whose keys past the first 64 are rolled by 64 (as a kernel that reads the
+    wrong tile after its first) exceed ``ATTENTION_BF16_REL`` against the
+    plain versions on the true inputs, by a wide margin: K1 and K2 at the
+    wav2vec2 shape, K3 and K4 at 8,192 keys."""
     wrong = lambda t: torch.cat([t[:, :, :64], t[:, :, 64:].roll(64, 2)], 2).contiguous()
-    ref_out, ref_lse = fa.flash_attention_stream_reference(q, k, v, mask)
-    pairs = {"K3 out": (fa.flash_attention_stream(q, k, wrong(v), mask)[0], ref_out)}
-    ref = fa.flash_attention_tiled_backward_reference(q, k, v, mask, ref_out, ref_lse, g)
-    bad = fa.flash_attention_tiled_backward(q, wrong(k), v, mask, ref_out, ref_lse, g)
-    pairs.update({f"K4 {name}": (a, b) for name, a, b in zip(("dq", "dk", "dv"), bad, ref)})
-    ratios = {name: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
-              for name, (a, b) in pairs.items()}
-    log(f"bf16 limit {LONG_BF16_REL} of the largest |value|, against K3 and K4 fed rolled key tiles at {shape}: "
-        f"error over the largest |value| {json.dumps(ratios)}")
-    if not all(r > 4 * LONG_BF16_REL for r in ratios.values()):
-        raise AssertionError(f"the bf16 limit of K3 and K4 would pass a kernel reading the wrong tiles: {ratios}")
+    ratios = {}
+    for names, shape, plain_fwd, plain_bwd, fwd, bwd in (
+            (("K1", "K2"), (2, 12, 499, 499, 64), fa.flash_attention_reference,
+             fa.flash_attention_backward_reference, fa.flash_attention_forward, fa.flash_attention_backward),
+            (("K3", "K4"), (2, 1, 8192, 8192, 64), fa.flash_attention_stream_reference,
+             fa.flash_attention_tiled_backward_reference, fa.flash_attention_stream, fa.flash_attention_tiled_backward)):
+        q, k, v, g, mask = attention_inputs(shape, torch.bfloat16, seed=i, clips=True)
+        ref_out, ref_lse = plain_fwd(q, k, v, mask)
+        pairs = {f"{names[0]} out": (fwd(q, k, wrong(v), mask)[0], ref_out)}
+        ref = plain_bwd(q, k, v, mask, ref_out, ref_lse, g)
+        bad = bwd(q, wrong(k), v, mask, ref_out, ref_lse, g)
+        pairs.update({f"{names[1]} {name}": (a, b) for name, a, b in zip(("dq", "dk", "dv"), bad, ref)})
+        for name, (a, b) in pairs.items():
+            ratios[name] = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+    log(f"bf16 limit {ATTENTION_BF16_REL} of the largest |value|, against K1-K4 fed rolled key tiles: error over "
+        f"the largest |value| {json.dumps(ratios)}")
+    if not all(r > 4 * ATTENTION_BF16_REL for r in ratios.values()):
+        raise AssertionError(f"the bf16 limit would pass a kernel reading the wrong tiles: {ratios}")
 
 
 def long_kernel_checks(fa, first_case: int) -> list[dict]:
@@ -1704,9 +1713,9 @@ def long_kernel_checks(fa, first_case: int) -> list[dict]:
                 for fully_masked, rate in ((False, 0.0), (True, 0.0), (False, LONG_DROPOUT)):
                     rows.append(check_case(fa, kernel, shape, dtype, rate, i, timed=False, fully_masked=fully_masked))
                     i += 1
-    for kernel, shape in SEAM_SHAPES.items():
+    for kernel, keys in ((FWD, fa.STREAM_THRESHOLD), (BWD, fa.BWD_FUSED_MAX)):
         for dtype in DTYPES:
-            check_seam(fa, kernel, shape, dtype, i)
+            check_seam(fa, kernel, (*SEAM_BH, keys, keys, 64), dtype, i)
             i += 1
     check_limit_fails_wrong_tiles(fa, i)
     for dtype in DTYPES.values():
@@ -1839,7 +1848,9 @@ def long_clip_parity(fa, wc, config, batch) -> None:
 
 
 def attention_bench_phase(card: str) -> None:
-    """Phase 6j: the attention bench entry point at all its shapes, f32 and bf16."""
+    """Phase 6j: the attention bench entry point at all its shapes, f32 and
+    bf16, and its crossover rows (K1 | K3, K2 | K4 on either side of the
+    dispatch thresholds)."""
     from mer_tpu_torch.scripts import bench_attention
 
     t0 = time.perf_counter()
@@ -1852,6 +1863,15 @@ def attention_bench_phase(card: str) -> None:
             f"bound {r['bound_fwd_ms']}), fwd+bwd {r['kernel_fwdbwd_ms']} ms (SDPA {r['sdpa_fwdbwd_ms']}, bound "
             f"{r['bound_fwdbwd_ms']}) ({card})")
     log(f"bench_attention: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for r in bench_attention.main(["--crossover"]):
+        a, b = r["kernels"].split(" | ")
+        times = (r[f"{a}_ms"], r[f"{b}_ms"])
+        if not all(math.isfinite(t) and t > 0 for t in times):
+            raise AssertionError(f"bench_attention crossover row without times: {r}")
+        log(f"crossover {r['direction']} [{r['B']}, {r['H']}, {r['S']}, {r['Dh']}] bf16 dropout {r['dropout']}: "
+            f"{a} {times[0]} ms, {b} {times[1]} ms, {b} / {a} {times[1] / times[0]} ({card})")
+    log(f"bench_attention --crossover in {time.perf_counter() - t0:.1f} s")
 
 
 def probe_phase(card: str) -> tuple[dict, int]:

@@ -17,8 +17,9 @@ Layout (module names follow ``mer_tpu``'s):
                  (``python -m mer_tpu_torch.data.synthetic``)
 - ``ops``        attention and its CUDA kernels (forward K1 and the streaming
                  forward K3 above 4,096 keys, backward K2 and the key-tiled
-                 backward K4 above 2,048, all with in-kernel Philox dropout;
-                 K3 and K4 on the tensor cores in bf16), the log-mel frontend
+                 backward K4 above 2,048, all with in-kernel Philox dropout
+                 and their bf16 products on the tensor cores; the thresholds
+                 from the card's crossover rows), the log-mel frontend
                  and its frames -> log-mel kernel K5, the wav2vec2 conv
                  frontend's kernels K7 (layer 0 + GroupNorm + GELU), K6
                  (layers 1-6) and K8 (GroupNorm + GELU); kernels build from

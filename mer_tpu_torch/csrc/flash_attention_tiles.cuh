@@ -9,9 +9,9 @@
 // same for both element types:
 //
 // - bf16: the tensor cores (mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32).
-//   Operands are read from shared memory, A and the "row-major B^T" operand
-//   of gemm_nt as 32-bit loads of two consecutive k, the "row-major B"
-//   operand of gemm_pv with ldmatrix.x4.trans (two n-tiles a load). A
+//   Operands are read from shared memory with ldmatrix.x4: A and the
+//   "row-major B^T" operand of gemm_nt as stored (B two n-tiles a load), the
+//   "row-major B" operand of gemm_pv with .trans (two n-tiles a load). A
 //   probability operand comes from the accumulator registers of the product
 //   before it, rounded to bf16 (the rounding the TPU kernel makes with
 //   p.astype(v.dtype)).
@@ -34,6 +34,12 @@ namespace mer_tiles {
 using bf16 = __nv_bfloat16;
 
 template <typename T> struct Pad { static constexpr int kElems = 16 / sizeof(T); };
+
+// e^x as exp2f(x log2 e): one ex2 instead of expf's range reduction, off by the
+// rounding of x log2 e (relative |x| 2^-24 or so). x is a difference of scores
+// (s - max, s - lse), so a fully masked row, whose scores all round to -1e30,
+// gets x = 0 exactly and e^x = 1.
+__device__ __forceinline__ float exp_of(float x) { return exp2f(x * 1.4426950408889634f); }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -103,11 +109,16 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
@@ -118,18 +129,25 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
 }
 
 // c[n][.] += A[16 x kdim] B[8 NT x kdim]^T: A rows a[0..15], B rows b[0..8 NT - 1],
-// both row-major with `stride`; kdim a multiple of 16 (dh_pad, zero columns past Dh).
+// both row-major with `stride`; kdim a multiple of 16 (dh_pad, zero columns past Dh); NT even.
 template <int NT>
 __device__ __forceinline__ void gemm_nt(float (&c)[NT][4], const bf16* a, const bf16* b, int stride, int kdim,
                                         int lane) {
-  const int g = lane >> 2, t = lane & 3;
+  static_assert(NT % 2 == 0, "B is loaded two n-tiles at a time");
+  const int r = lane & 7, m = lane >> 3;
+  // matrices of A: (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15);
+  // of B, per n pair: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+  const bf16* a_row = a + (r + 8 * (m & 1)) * stride + 8 * (m >> 1);
+  const bf16* b_row = b + (r + 8 * (m >> 1)) * stride + 8 * (m & 1);
   for (int k0 = 0; k0 < kdim; k0 += 16) {
-    const bf16* lo = a + g * stride + k0 + 2 * t;
-    const uint32_t af[4] = {ld32(lo), ld32(lo + 8 * stride), ld32(lo + 8), ld32(lo + 8 * stride + 8)};
+    uint32_t af[4];
+    ldsm_x4(af, a_row + k0);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* col = b + (8 * n + g) * stride + k0 + 2 * t;
-      mma16816(c[n], af, ld32(col), ld32(col + 8));
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b_row + 8 * n * stride + k0);
+      mma16816(c[n], af, bf[0], bf[1]);
+      mma16816(c[n + 1], af, bf[2], bf[3]);
     }
   }
 }

@@ -10,16 +10,23 @@ dropout branch ``:86-115``) -> K1, ``csrc/flash_attention_fwd.cu``; ``:270``
 the online-softmax forward over key tiles, ``_flash_stream`` ``:465``) -> K3,
 ``csrc/flash_attention_stream.cu``; ``:579`` + ``:624`` (``_bwd_dkv_kernel``
 and ``_bwd_dq_kernel``, the key-tiled backward, ``_flash_bwd_tiled`` ``:659``)
--> K4, ``csrc/flash_attention_tiled_bwd.cu``. All four share the Philox
-generator ``csrc/philox.cuh``; K3 and K4 the tensor-core tile products of
-``csrc/flash_attention_tiles.cuh``. Their headers state the design and the
-bound.
+-> K4, ``csrc/flash_attention_tiled_bwd.cu``. K1 and K3 are one kernel
+template (``csrc/flash_attention_forward.cuh``), K2 and K4 two
+(``csrc/flash_attention_backward.cuh``), all on the tensor-core tile products
+of ``csrc/flash_attention_tiles.cuh`` in bf16 (``mma.sync``; f32 by FMA on the
+CUDA cores) and the Philox generator ``csrc/philox.cuh``; K1 and K2 take
+several (b*h) slices a block for sequences up to 32 rows. Each source's header
+states its design and bound.
 
-Dispatch, as ``mer_tpu``'s: :func:`flash_attention_forward` runs K1 up to
-``STREAM_THRESHOLD`` keys and K3 above (``_flash_impl`` ``:510``);
-:func:`flash_attention_backward` runs K2 up to ``BWD_FUSED_MAX`` keys and K4
-above (``_flash_bwd_impl`` ``:197-200``); :func:`flash_attention_stream`
-and :func:`flash_attention_tiled_backward` run K3 and K4 at any key count.
+Dispatch by key count: :func:`flash_attention_forward` runs K1 up to
+``STREAM_THRESHOLD`` keys and K3 above; :func:`flash_attention_backward` runs
+K2 up to ``BWD_FUSED_MAX`` keys and K4 above; :func:`flash_attention_stream`
+and :func:`flash_attention_tiled_backward` run K3 and K4 at any key count. The
+two thresholds rest on the card's crossover rows
+(``python -m mer_tpu_torch.scripts.bench_attention --crossover``): where both
+kernels of a pair run one slice a block they are one template and time alike
+(PERF.md), so the thresholds keep ``mer_tpu``'s places (``_flash_impl``
+``:510``, ``_flash_bwd_impl`` ``:197-200``).
 Each kernel's wrapper launches it for CUDA tensors and takes its plain
 version only for CPU tensors, so the CPU runs the algebra the card runs;
 :class:`FlashAttention` makes one differentiable op of the two directions, on
@@ -33,11 +40,12 @@ bfloat16 (the plain versions also take float64); ``key_padding_mask`` [B, Sk]
 bool, True = ignore that key, adds -1e30 to its scores; scale 1/sqrt(Dh)
 applied to q; softmax and logsumexp in float32 (float64 for float64 inputs).
 The forward returns ``out`` [B, H, Sq, Dh] in q's dtype and ``lse``
-[B, H, Sq] (the per-row logsumexp of the undropped scores). The streaming
-forward and the key-tiled backward round the probabilities (and the
-backward's dS) to the input dtype before their products with v (and k, q,
-g), as the TPU's streaming kernel does with ``p.astype(v.dtype)``; in f32
-that is no rounding.
+[B, H, Sq] (the per-row logsumexp of the undropped scores). Every version
+rounds the probabilities after dropout (and the backwards' dS) to the input
+dtype before their products with v (and k, q, g), as the TPU's forward
+kernels do with ``p.astype(v.dtype)``; the TPU's fused backward keeps P o D
+and dS in f32, K2 and its plain version round them as K4 does. In f32 none of
+this rounds anything.
 
 Dropout (training, torch MHA semantics): the *normalised* probabilities are
 multiplied by D = keep / (1 - rate). The keep bit of probability (row, col)
@@ -60,8 +68,13 @@ from mer_tpu_torch.ops import _build
 
 NEG_INF = -1e30  # additive bias on ignored keys (finite, as the TPU kernel's)
 MAX_HEAD_DIM = 128
-STREAM_THRESHOLD = 4096  # above this many keys the forward streams key tiles (K3), as mer_tpu's
-BWD_FUSED_MAX = 2048  # the single-pass backward's range (K2); beyond, the key-tiled backward (K4)
+# Above this many keys the forward is K3, up to it K1; above BWD_FUSED_MAX keys the backward is K4, up to it K2
+# (and K2's kernel refuses more). The card's crossover rows (bench_attention --crossover, recorded in PERF.md) show K1
+# and K3 within 2% of each other at 256-4,096 keys and K2 and K4 at 512-2,048, with and without dropout: past 32 rows
+# each pair is one template at one slice a block. No crossover moves either threshold, so they stay at mer_tpu's
+# values, and K1 and K2 keep the range of the TPU kernels whose functions they compute.
+STREAM_THRESHOLD = 4096
+BWD_FUSED_MAX = 2048
 BLOCK_K = 512  # the plain streaming and tiled versions' key tile (the TPU kernels')
 FULLY_MASKED_LSE = -1e29  # a row's lse below this: every key of the row is ignored
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -146,48 +159,23 @@ def _scores(q, k, key_padding_mask, acc: torch.dtype) -> torch.Tensor:
 
 
 def flash_attention_reference(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
-    """Plain PyTorch version of the forward kernel: ``(out, lse)``."""
+    """Plain PyTorch version of the forward kernel K1: ``(out, lse)``. The
+    probabilities (after dropout) are rounded to v's dtype before the product
+    with v, as the TPU kernel's ``p.astype(v.dtype)`` (``:117``)."""
     acc = _acc_dtype(q.dtype)
     scores = _scores(q, k, key_padding_mask, acc)
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.softmax(scores, dim=-1)
     if _dropout_args(seed, dropout_rate)[0]:
         probs = probs * dropout_factor(seed, probs.shape, dropout_rate, q.device).to(acc)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(acc)).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).to(acc), v.to(acc)).to(q.dtype)
     return out, lse
 
 
-def flash_attention_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed=None,
-                                       dropout_rate: float = 0.0, g_lse=None):
-    """Plain PyTorch version of the backward kernel: ``(dq, dk, dv)`` from the
-    forward's inputs, its ``out`` and ``lse``, the cotangent ``g`` of out and
-    (optionally) ``g_lse`` of lse. P is recomputed from lse, a fully masked
-    row taking 1/Sk per key, as the kernel does."""
-    acc = _acc_dtype(q.dtype)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    qf, kf, vf, gf = (t.to(acc) for t in (q, k, v, g))
-    scores = _scores(q, k, key_padding_mask, acc)
-    lse = lse.to(acc)[..., None]
-    p = torch.where(lse < FULLY_MASKED_LSE, 1.0 / scores.shape[-1], torch.exp(scores - lse))
-    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
-    delta = (gf * out.to(acc)).sum(-1, keepdim=True)
-    if g_lse is not None:
-        delta = delta - g_lse.to(acc)[..., None]
-    p_dropped = p
-    if _dropout_args(seed, dropout_rate)[0]:
-        factor = dropout_factor(seed, p.shape, dropout_rate, q.device).to(acc)
-        dp, p_dropped = dp * factor, p * factor
-    ds = p * (dp - delta)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p_dropped, gf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
-def _key_tiles(k, key_padding_mask):
-    """(start, end, mask tile) of each ``BLOCK_K``-key tile of the key axis."""
-    for k0 in range(0, k.shape[2], BLOCK_K):
-        k1 = min(k0 + BLOCK_K, k.shape[2])
+def _key_tiles(k, key_padding_mask, block_k: int = BLOCK_K):
+    """(start, end, mask tile) of each ``block_k``-key tile of the key axis."""
+    for k0 in range(0, k.shape[2], block_k):
+        k1 = min(k0 + block_k, k.shape[2])
         yield k0, k1, None if key_padding_mask is None else key_padding_mask[:, k0:k1]
 
 
@@ -215,13 +203,11 @@ def flash_attention_stream_reference(q, k, v, key_padding_mask=None, seed=None, 
     return (o / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def flash_attention_tiled_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed=None,
-                                             dropout_rate: float = 0.0, g_lse=None):
-    """Plain PyTorch version of the key-tiled backward K4: ``(dq, dk, dv)``
-    per ``BLOCK_K``-key tile from the saved lse (``_flash_bwd_tiled``'s
-    algebra), P o D and dS rounded to the input dtype before their products.
-    A fully masked row takes P = 1/Sk, as K2 does (``mer_tpu``'s tiled
-    backward takes 1 there). Memory O(Sq x BLOCK_K)."""
+def _backward_reference(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse, block_k: int):
+    """``(dq, dk, dv)`` per ``block_k``-key tile from the saved lse: the one
+    rule of both backward kernels. P o D and dS are rounded to the input
+    dtype before their products (no rounding in f32); a fully masked row
+    takes P = 1/Sk."""
     acc = _acc_dtype(q.dtype)
     drop = _dropout_args(seed, dropout_rate)[0]
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -233,7 +219,7 @@ def flash_attention_tiled_backward_reference(q, k, v, key_padding_mask, out, lse
         delta = delta - g_lse.to(acc)[..., None]
     dq = torch.zeros_like(qf)
     dk, dv = [], []
-    for k0, k1, mask in _key_tiles(k, key_padding_mask):
+    for k0, k1, mask in _key_tiles(k, key_padding_mask, block_k):
         kt, vt = k[:, :, k0:k1].to(acc), v[:, :, k0:k1].to(acc)
         s = _scores(q, k[:, :, k0:k1], mask, acc)
         p = torch.where(lse < FULLY_MASKED_LSE, 1.0 / sk, torch.exp(s - lse))
@@ -247,6 +233,27 @@ def flash_attention_tiled_backward_reference(q, k, v, key_padding_mask, out, lse
         dk.append(torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale)
         dv.append(torch.einsum("bhqk,bhqd->bhkd", p_dropped.to(q.dtype).to(acc), gf))
     return (dq * scale).to(q.dtype), torch.cat(dk, 2).to(k.dtype), torch.cat(dv, 2).to(v.dtype)
+
+
+def flash_attention_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed=None,
+                                       dropout_rate: float = 0.0, g_lse=None):
+    """Plain PyTorch version of the fused backward K2: ``(dq, dk, dv)`` from
+    the forward's inputs, its ``out`` and ``lse``, the cotangent ``g`` of out
+    and (optionally) ``g_lse`` of lse, all keys as one tile (``_bwd_kernel``'s
+    algebra). P is recomputed from lse, a fully masked row taking 1/Sk per
+    key, as the kernel does; P o D and dS are rounded to the input dtype
+    before their products, as K2 and K4 do (the TPU kernel keeps them in f32)."""
+    return _backward_reference(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse, k.shape[2])
+
+
+def flash_attention_tiled_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed=None,
+                                             dropout_rate: float = 0.0, g_lse=None):
+    """Plain PyTorch version of the key-tiled backward K4: ``(dq, dk, dv)``
+    per ``BLOCK_K``-key tile from the saved lse (``_flash_bwd_tiled``'s
+    algebra), the rule of :func:`flash_attention_backward_reference`. A fully
+    masked row takes P = 1/Sk, as K2 does (``mer_tpu``'s tiled backward takes
+    1 there). Memory O(Sq x BLOCK_K)."""
+    return _backward_reference(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse, BLOCK_K)
 
 
 # -- kernels -------------------------------------------------------------------

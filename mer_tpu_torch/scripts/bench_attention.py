@@ -16,6 +16,18 @@ H100 SXM data sheet's. On the card times are device time per call: calls
 captured in a CUDA graph and replayed between CUDA events, or, above 100
 GFLOP a forward, eager calls between CUDA events; on the CPU the host clock,
 labelled so. One JSON line per shape and dtype.
+
+    python -m mer_tpu_torch.scripts.bench_attention --crossover [--device cuda|cpu]
+
+times, instead, the kernels on either side of the two dispatch thresholds on
+the same inputs, bf16, the same 10% key mask, dropout 0 and 0.1: the
+single-pass forward K1 against the streaming K3 at the fusion buckets (S 8-33,
+Dh 96) and at 256-4,096 keys (Dh 64; ``CROSSOVER_FORWARD``), the fused
+backward K2 against the key-tiled K4 at the fusion buckets and 512-2,048
+(``CROSSOVER_BACKWARD``), each wrapper called directly whatever the dispatch
+would pick. One JSON line per key count and rate, both kernels named.
+``STREAM_THRESHOLD`` and ``BWD_FUSED_MAX`` rest on these rows. K1 is timed
+only up to ``STREAM_THRESHOLD``: its wrapper hands longer calls to K3.
 """
 
 from __future__ import annotations
@@ -48,6 +60,14 @@ SHAPES = [
     ("long_16384", 1, 12, 16384, 64),
 ]
 KEY_MASK_FRACTION = 0.1  # scripts/bench_attention.py:85
+# (B, H, S, Dh): the fusion model's dialogue buckets (S 8-33, where K1 and K2 take several (b*h) slices a block
+# up to 32 rows), then B*H 96-24 at Dh 64 up to mer_tpu's STREAM_THRESHOLD (4,096 keys) and BWD_FUSED_MAX (2,048);
+# 2,999 is the 60 s bucket of wav2vec2 on long clips
+FUSION_ROWS = [(32, 8, s, 96) for s in (8, 16, 24, 33)]
+CROSSOVER_FORWARD = FUSION_ROWS + [(8, 12, 256, 64), (8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64),
+                                   (2, 12, 2999, 64), (2, 12, 3072, 64), (2, 12, 4096, 64)]
+CROSSOVER_BACKWARD = FUSION_ROWS + [(8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64)]
+CROSSOVER_RATES = (0.0, 0.1)
 
 
 def kernel_names(s: int) -> tuple[str, str]:
@@ -162,15 +182,61 @@ def bench_shape(name: str, b: int, h: int, s: int, dh: int, dtype: torch.dtype, 
     return row
 
 
+def crossover_row(direction: str, b: int, h: int, s: int, dh: int, rate: float, device: torch.device) -> dict:
+    """Both kernels of one side of a threshold at ``s`` keys on the same
+    inputs: K1 against K3 (``direction`` "forward") or K2 against K4
+    ("backward"), bf16, device ms per call (host ms on the CPU)."""
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(0)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, h, s, dh)).astype(np.float32)).to(device, dtype)
+                  for _ in range(4))
+    mask = torch.from_numpy(rng.random((b, s)) < KEY_MASK_FRACTION).to(device)
+    seed = (0x5EED, s) if rate else None
+    timer = (lambda fn: device_ms(fn, 5, 4)) if device.type == "cuda" else (lambda fn: host_ms(fn, 1))
+    row = {"direction": direction, "B": b, "H": h, "S": s, "Dh": dh, "dtype": "bfloat16", "dropout": rate,
+           "clock": "device" if device.type == "cuda" else "host (cpu)"}
+    if direction == "forward":
+        names, calls = ("K1", "K3"), (fa.flash_attention_forward, fa.flash_attention_stream)
+        if s > fa.STREAM_THRESHOLD:
+            raise ValueError(f"K1 takes at most STREAM_THRESHOLD = {fa.STREAM_THRESHOLD} keys, not {s}")
+        fns = [lambda c=c: c(q, k, v, mask, seed, rate) for c in calls]
+    else:
+        names, calls = ("K2", "K4"), (fa.flash_attention_backward, fa.flash_attention_tiled_backward)
+        out, lse = fa.flash_attention_stream(q, k, v, mask, seed, rate)
+        fns = [lambda c=c: c(q, k, v, mask, out, lse, g, seed, rate) for c in calls]
+    for name, fn in zip(names, fns):
+        row[f"{name}_ms"] = timer(fn)
+    row["kernels"] = f"{names[0]} | {names[1]}"
+    row["faster"] = names[0] if row[f"{names[0]}_ms"] <= row[f"{names[1]}_ms"] else names[1]
+    return row
+
+
+def crossover(device: torch.device) -> list[dict]:
+    """The rows of ``--crossover``: K1 | K3 at ``CROSSOVER_FORWARD`` key
+    counts up to the forward's threshold, K2 | K4 at ``CROSSOVER_BACKWARD``."""
+    rows = []
+    for direction, shapes in (("forward", CROSSOVER_FORWARD), ("backward", CROSSOVER_BACKWARD)):
+        for b, h, s, dh in shapes:
+            for rate in CROSSOVER_RATES:
+                rows.append(crossover_row(direction, b, h, s, dh, rate, device))
+                print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main(argv=None) -> list[dict]:
     p = argparse.ArgumentParser(prog="python -m mer_tpu_torch.scripts.bench_attention")
     p.add_argument("--shapes", default=",".join(n for n, *_ in SHAPES), help="comma-separated shape names")
     p.add_argument("--dtypes", default="float32,bfloat16")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--crossover", action="store_true",
+                   help="time K1 | K3 and K2 | K4 on either side of the dispatch thresholds instead")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+    if args.crossover:
+        print(f"attention crossover on {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+        return crossover(device)
     wanted = args.shapes.split(",")
     unknown = set(wanted) - {n for n, *_ in SHAPES}
     if unknown:

@@ -158,6 +158,10 @@ def cuda():
     return torch.device("cuda")
 
 
+# bf16: |err| <= 1e-2 and <= BF16_REL x the plain version's largest |out| (tests/test_torch_attention_tc.py)
+BF16_REL = 2e-2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES + [(32, 8, 33, 33, 96), (4, 2, 70, 70, 128), (1, 1, 1, 1, 1)])
 @pytest.mark.parametrize("dtype, tol_out, tol_lse", [(torch.float32, 2e-5, 2e-5), (torch.bfloat16, 1e-2, 1e-3)])
@@ -170,9 +174,12 @@ def test_kernel_matches_plain_version(case, dtype, tol_out, tol_lse, cuda):
     for m in (mask, None):
         out, lse = fa.flash_attention_forward(q, k, v, m)
         torch.cuda.synchronize()
-        ref_out, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), m)
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, m)  # rounds P to bf16 as the kernel does
         assert out.dtype == dtype and lse.dtype == torch.float32
-        assert (out.float() - ref_out).abs().max().item() <= tol_out
+        err = (out.float() - ref_out.float()).abs().max().item()
+        assert err <= tol_out
+        if dtype == torch.bfloat16:
+            assert err <= BF16_REL * ref_out.float().abs().max().item()
         assert (lse - ref_lse).abs().max().item() <= tol_lse
     assert fa.flash_attention_forward.launches == before + 2
 

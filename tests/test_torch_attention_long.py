@@ -212,6 +212,10 @@ def test_k3_k4_wrappers_run_at_any_key_count():
 
 
 def test_dispatch_thresholds_equal_mer_tpu(jax_side):
+    """The port's thresholds rest on the card's crossover rows
+    (``bench_attention --crossover``): K1 and K3, and K2 and K4, time alike
+    on either side, so both thresholds keep mer_tpu's 4,096 and 2,048 keys
+    (and the plain tiles its 512)."""
     from mer_tpu.ops import flash_attention as jax_fa
 
     assert (fa.STREAM_THRESHOLD, fa.BWD_FUSED_MAX, fa.BLOCK_K) == (
@@ -400,7 +404,7 @@ def cuda():
 
 
 # kernel against plain version, same inputs: f32 |got - want| <= atol + rtol |want| (chip_smoke.py's TOL);
-# bf16 |got - want| <= CARD_BF16_REL x the plain version's largest |value| (chip_smoke.py's LONG_BF16_REL:
+# bf16 |got - want| <= CARD_BF16_REL x the plain version's largest |value| (chip_smoke.py's ATTENTION_BF16_REL:
 # out is about 0.005 at these key counts, under an absolute bf16 tolerance of 1e-2)
 CARD_TOL = {"fwd": (2e-5, 0.0), "bwd": (1e-4, 1e-5)}
 CARD_BF16_REL = 2e-2
