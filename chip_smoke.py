@@ -38,12 +38,14 @@ that two runs see the same tokens:
    keys);
 3b. K3 at Sk = 4,097, 8,192, 16,384 and K4 at 2,049, 4,499, 8,192 ([2, 1, S,
    S, 64] and [2, 1, S, S, 50]), f32 and bf16, with a key mask, with a fully
-   masked batch element and with dropout 0.1, against their plain versions,
-   every other batch element attending to most of its keys; the seams K1 |
+   masked batch element and with dropout 0.1, against their plain versions
+   (K4 in bf16 at Dh 64 is its Hopper design, at Dh 50 and in f32 the older
+   one), every other batch element attending to most of its keys; the seams K1 |
    K3 and K2 | K4 at the dispatch's thresholds (``STREAM_THRESHOLD``,
    ``BWD_FUSED_MAX`` keys) on the same inputs ([2, 2, S, S, 64]); the bf16
    limits shown to fail a K1, K2, K3 and K4 that read the wrong key tiles;
-   K3's and K4's dropout masks read off exactly in f32 and bf16;
+   K3's and K4's dropout masks read off exactly in f32 and bf16 (K4's at Dh
+   64, over three 64-row windows of g);
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -90,8 +92,9 @@ that two runs see the same tokens:
    batch; per call K7 + K6 (fused), K7 (l0fused), K8 (gnfused);
 6g. text: ``...text.train --epochs 3`` (2 frozen + 1 fine-tune) on the same
    root, whose utterances are 2-100 words long (token buckets 64, 128, 256),
-   at the config's batch of 16 in bf16: K1 12 times per forward, K2 never in a
-   frozen epoch and 12 times per fine-tune step; the frozen epochs change the
+   at the config's batch of 16 in bf16: K1 12 times per forward, the backward
+   (K4: every bucket lies above ``BWD_FUSED_MAX``) never in a frozen epoch and
+   12 times per fine-tune step; the frozen epochs change the
    head alone, the first fine-tune update (lr 0) changes nothing, the second
    changes every tensor whose step exceeds its rounding; then ``...text.test``
    and ``...text.embeddings`` (three finite [N, 768] tables, every row written);
@@ -99,9 +102,9 @@ that two runs see the same tokens:
 6h. wav2vec2 fine-tuning: ``...audio_wav2vec2.train --epochs 3`` at the
    config's ``tpu.batch_size_override`` of 16, on a second synthetic root
    whose train and dev clips are 0.5-10 s long (all five wave buckets, so K1
-   and K2 at S = 99 .. 499): K7 and K6 once per frozen step
+   and K4 at S = 99 .. 499): K7 and K6 once per frozen step
    and per validation batch and never in a fine-tune step (the stock
-   differentiable convolutions run there), K1 12 per forward, K2 12 per
+   differentiable convolutions run there), K1 12 per forward, K4 12 per
    fine-tune step; an f32 leg of 2 frozen + 2 fine-tune steps through the
    kernels against the plain versions (losses within 1e-4); clips per second,
    one profiled fine-tune step, peak device memory;
@@ -378,6 +381,12 @@ def attention_calls(fa, kernel: str):
             TILED: (fa.flash_attention_tiled_backward, fa.flash_attention_tiled_backward_reference)}[kernel]
 
 
+def backward_kernel(fa, keys: int) -> str:
+    """The backward kernel the dispatch picks at ``keys`` keys: K2 up to
+    ``BWD_FUSED_MAX`` (the dialogue buckets), K4 above."""
+    return TILED if keys > fa.BWD_FUSED_MAX else BWD
+
+
 def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: bool = True,
                fully_masked: bool = False) -> dict:
     """One attention kernel (K1-K4) against its plain version at one case,
@@ -441,8 +450,11 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
 def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROPOUT, long: bool = False,
                         dtype=torch.float32) -> None:
     """Read the kernels' dropout masks off exactly: with v = I the forward's
-    out[i, j] is P_ij D_ij, with g = I the backward's dv[j, i] is too. K1 and
-    K2, or with ``long`` K3 and K4 (their wrappers, at this key count)."""
+    out[i, j] is P_ij D_ij; with g one-hot, g[i, i - i0] = 1 for the query
+    rows i0 .. i0 + Dh - 1 of a window, the backward's dv[j, i - i0] is too.
+    K1 and K2 (Dh = Sq: one window), or with ``long`` K3 and K4 (their
+    wrappers, at this key count; Dh 64, K4's Hopper design in bf16, so
+    ceil(Sq / 64) windows)."""
     seed = (0xC0FFEE, sq * 100 + sk)
     want = fa.dropout_factor(seed, (b, h, sq, sk), rate, "cuda") > 0
     eye = lambda n: torch.eye(n, device="cuda", dtype=dtype).expand(b, h, n, n).contiguous()
@@ -452,10 +464,16 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
     forward = fa.flash_attention_stream if long else fa.flash_attention_forward
     backward = fa.flash_attention_tiled_backward if long else fa.flash_attention_backward
     fwd_mask = forward(q, k, eye(sk), None, seed, rate)[0] > 0
-    q = randn(b, h, sq, sq)
-    k, v = randn(b, h, sk, sq), randn(b, h, sk, sq)
+    dh = 64 if long else sq
+    q = randn(b, h, sq, dh)
+    k, v = randn(b, h, sk, dh), randn(b, h, sk, dh)
     out, lse = forward(q, k, v, None, seed, rate)
-    bwd_mask = backward(q, k, v, None, out, lse, eye(sq), seed, rate)[2].transpose(2, 3) > 0
+    bwd_mask = torch.zeros_like(want)
+    for i0 in range(0, sq, dh):
+        n = min(dh, sq - i0)
+        g = torch.zeros(b, h, sq, dh, device="cuda", dtype=dtype)
+        g[:, :, i0:i0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
+        bwd_mask[:, :, i0:i0 + n] = backward(q, k, v, None, out, lse, g, seed, rate)[2][..., :n].transpose(2, 3) > 0
     bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum())
     log(f"dropout masks of {'K3, K4' if long else 'K1, K2'} {DTYPE_LABELS[dtype]} at B={b} H={h} Sq={sq} Sk={sk} "
         f"rate {rate}: {want.numel()} probabilities, keep rate {want.float().mean().item()}, mismatches forward "
@@ -1464,18 +1482,20 @@ def text_phase(fa, card: str, root: str, tmp: str) -> dict:
         state, history = text_train.main([*argv, "--epochs", str(FE_EPOCHS)])
     seconds = time.perf_counter() - t0
     n_params = sum(p.numel() for p in state.model.parameters())
-    want = {**ZERO, FWD: TEXT_LAYERS * FE_EPOCHS * (steps + val_batches), BWD: TEXT_LAYERS * (FE_EPOCHS - FE_FROZEN) * steps}
+    bwd = backward_kernel(fa, 64)  # every token bucket (64, 128, 256) on one side of the threshold
+    want = {**ZERO, FWD: TEXT_LAYERS * FE_EPOCHS * (steps + val_batches),
+            bwd: TEXT_LAYERS * (FE_EPOCHS - FE_FROZEN) * steps}
     log(f"text training: TextERC base config, {n_params} parameters; {sizes['train']} train / {sizes['val']} val "
         f"utterances, {FE_EPOCHS} epochs of {steps} steps of {batch} in {seconds} s (model build, validation, "
         f"checkpoints included) = {FE_EPOCHS * sizes['train'] / seconds} utterances/s; losses {json.dumps(history)}; "
-        f"launches {run} (want {want}: K1 {TEXT_LAYERS} per forward, K2 {TEXT_LAYERS} per fine-tune step) ({card})")
+        f"launches {run} (want {want}: K1 {TEXT_LAYERS} per forward, {bwd} {TEXT_LAYERS} per fine-tune step) ({card})")
     if run != want:
         raise AssertionError(f"text training launches {run}, want {want}")
     if len(history["loss_values"]) != FE_EPOCHS or not all(
             math.isfinite(x) for x in history["loss_values"] + history["val_loss_values"]):
         raise AssertionError(f"text training losses not finite or epochs missing: {history}")
     check_fe_phases("text training", probe, "roberta",
-                    {"frozen": {FWD: TEXT_LAYERS}, "finetune": {FWD: TEXT_LAYERS, BWD: TEXT_LAYERS}})
+                    {"frozen": {FWD: TEXT_LAYERS}, "finetune": {FWD: TEXT_LAYERS, bwd: TEXT_LAYERS}})
     if any(m.dtype != torch.float32 for st in state.finetune.optimizer.state.values() for m in st.values()):
         raise AssertionError("AdamW state is not float32 under bf16 compute")
     for name in KERNELS:
@@ -1576,20 +1596,21 @@ def w2v_training_phase(fa, wc, card: str, root: str, tmp: str) -> dict:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     served = FE_FROZEN * steps + FE_EPOCHS * val_batches  # forwards whose frontend runs K7 and K6
-    want = {**ZERO, FWD: W2V_LAYERS * FE_EPOCHS * (steps + val_batches), BWD: W2V_LAYERS * (FE_EPOCHS - FE_FROZEN) * steps,
-            W2V0: served, W2V_TAIL: served}
+    bwd = backward_kernel(fa, 99)  # every wave bucket (99-499 frames) on one side of the threshold
+    want = {**ZERO, FWD: W2V_LAYERS * FE_EPOCHS * (steps + val_batches),
+            bwd: W2V_LAYERS * (FE_EPOCHS - FE_FROZEN) * steps, W2V0: served, W2V_TAIL: served}
     log(f"wav2vec2 training: {sizes['train']} train / {sizes['val']} val clips, {FE_EPOCHS} epochs of {steps} steps "
         f"of {batch} in {seconds} s (model build, wav decode, validation, checkpoints included) = "
         f"{FE_EPOCHS * sizes['train'] / seconds} clips/s; peak device memory {peak} bytes; losses "
         f"{json.dumps(history)}; launches {run} (want {want}: K7 and K6 once per frozen step and validation batch, "
-        f"never in a fine-tune step; K1 {W2V_LAYERS} per forward, K2 {W2V_LAYERS} per fine-tune step) ({card})")
+        f"never in a fine-tune step; K1 {W2V_LAYERS} per forward, {bwd} {W2V_LAYERS} per fine-tune step) ({card})")
     if run != want:
         raise AssertionError(f"wav2vec2 training launches {run}, want {want}")
     if len(history["loss_values"]) != FE_EPOCHS or not all(
             math.isfinite(x) for x in history["loss_values"] + history["val_loss_values"]):
         raise AssertionError(f"wav2vec2 training losses not finite or epochs missing: {history}")
     check_fe_phases("wav2vec2 training", probe, "wav2vec2",
-                    {"frozen": {FWD: W2V_LAYERS, W2V0: 1, W2V_TAIL: 1}, "finetune": {FWD: W2V_LAYERS, BWD: W2V_LAYERS}})
+                    {"frozen": {FWD: W2V_LAYERS, W2V0: 1, W2V_TAIL: 1}, "finetune": {FWD: W2V_LAYERS, bwd: W2V_LAYERS}})
     saved = load_checkpoint(config.checkpoint.save_path)
     if set(saved) != {"epoch", "model_state_dict"} or saved["epoch"] != FE_EPOCHS - 1:
         raise AssertionError(f"wav2vec2 checkpoint holds {set(saved)} at epoch {saved.get('epoch')}")
@@ -1719,7 +1740,7 @@ def long_kernel_checks(fa, first_case: int) -> list[dict]:
             i += 1
     check_limit_fails_wrong_tiles(fa, i)
     for dtype in DTYPES.values():
-        check_dropout_masks(fa, 2, 2, 70, 100, LONG_DROPOUT, long=True, dtype=dtype)
+        check_dropout_masks(fa, 2, 2, 130, 100, LONG_DROPOUT, long=True, dtype=dtype)
     return rows
 
 

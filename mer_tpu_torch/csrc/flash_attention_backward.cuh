@@ -13,7 +13,8 @@
 // P o D and dS are rounded to the input dtype before their products (the
 // rounding the forward makes for P.V); arithmetic is f32 otherwise, and dq,
 // dk, dv come out in the input dtype. D is the Philox4x32-10 mask of (seed,
-// b*H + h, row, column) (philox.cuh) that the forwards draw.
+// b*H + h, row, column) (philox.cuh, one call per 2 x 2 scores) that the
+// forwards draw.
 //
 // Fully masked rows. Each score of such a row rounds to -1e30 in f32, and so
 // does -1e30 + log Sk, so exp(s - lse) gives 1 per key where the forward's
@@ -220,15 +221,18 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     gemm_nt<kKeyTiles>(s, q_w, k_t, L.stride, kdim, lane);
     gemm_nt<kKeyTiles>(dp, g_w, v_t, L.stride, kdim, lane);
 #pragma unroll
-    for (int n = 0; n < kKeyTiles; ++n)
+    for (int n = 0; n < kKeyTiles; ++n) {
+      float f[4];
+      if (drop.on) mer_philox::factors(drop, bh, row0, k0 + 8 * n + 2 * t, false, f);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = r_loc + 8 * (e >> 1), key = 8 * n + 2 * t + (e & 1);
         const float p = key < n_keys ? prob(fmaf(s[n][e], scale, bias[key]), lse_s[r], inv_sk) : 0.f;
         float dpe = dp[n][e];
-        if (drop.on) dpe *= mer_philox::factor(drop, bh, row0 + 8 * (e >> 1), k0 + key);
+        if (drop.on) dpe *= f[e];
         s[n][e] = p * (dpe - delta_s[r]);  // dS
       }
+    }
     gemm_pv<kKeys / 16, ND>(acc, s, k_t, L.stride, nd, lane, scratch);
     __syncthreads();  // every warp is done with this buffer before it is staged again
   }
@@ -351,16 +355,18 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       gemm_nt<2>(dpt, v_w, g_b + r0 * L.stride, L.stride, kdim, lane);
       float pd[2][4];
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int n = 0; n < 2; ++n) {
+        float f[4] = {1.f, 1.f, 1.f, 1.f};  // S^T: fragment rows are keys, columns query rows
+        if (drop.on) mer_philox::factors(drop, bh, k0 + j_in, i0 + r0 + 8 * n + 2 * t, true, f);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int j = j_loc + 8 * (e >> 1), r = r0 + 8 * n + 2 * t + (e & 1);
           const bool ok = j_in + 8 * (e >> 1) < n_keys && r < n_rows;
           const float p = ok ? prob(fmaf(st[n][e], scale, bias_s[j]), lse_b[r], inv_sk) : 0.f;
-          const float f = (drop.on && ok) ? mer_philox::factor(drop, bh, i0 + r, k0 + j_in + 8 * (e >> 1)) : 1.f;
-          pd[n][e] = p * f;
-          st[n][e] = p * (dpt[n][e] * f - delta_b[r]);  // dS^T
+          pd[n][e] = p * f[e];
+          st[n][e] = p * (dpt[n][e] * f[e] - delta_b[r]);  // dS^T
         }
+      }
       gemm_pv<1, ND>(dv_acc, pd, g_b + r0 * L.stride, L.stride, nd, lane, scratch);
       gemm_pv<1, ND>(dk_acc, st, q_b + r0 * L.stride, L.stride, nd, lane, scratch);
     }

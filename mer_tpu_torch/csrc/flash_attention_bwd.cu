@@ -39,7 +39,7 @@
 
 namespace {
 
-constexpr int kMaxSk = 2048;  // BWD_FUSED_MAX: beyond, the key-tiled K4 (flash_attention_tiled_bwd.cu)
+constexpr int kMaxSk = 2048;  // FUSED_KERNEL_MAX; the dispatch sends K2 at most BWD_FUSED_MAX = 33 keys (K4 beyond)
 struct flash_attention_bwd {};  // the kernels' tag: K2 in a profile
 
 }  // namespace

@@ -11,8 +11,8 @@
 // p.astype(v.dtype)); l sums the unrounded, undropped p, so the lse is that of
 // the undropped scores and dropout acts on the normalised probabilities. D = 1
 // without dropout; with it keep / (1 - rate), the keep bit Philox4x32-10 of
-// (seed, b*H + h, row, column) (philox.cuh), the mask every attention kernel
-// and plain version draws. A fully masked row (every key -1e30) gets the mean
+// (seed, b*H + h, row, column) (philox.cuh, one call per 2 x 2 scores), the
+// mask every attention kernel and plain version draws. A fully masked row (every key -1e30) gets the mean
 // of v, as softmax gives it.
 //
 // Layout: q [B, H, Sq, Dh], k/v [B, H, Sk, Dh], contiguous; mask [B, Sk] bytes,
@@ -176,14 +176,17 @@ forward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       m_run[h] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < kKeyTiles; ++n)
+    for (int n = 0; n < kKeyTiles; ++n) {
+      float f[4];
+      if (drop.on) mer_philox::factors(drop, bh, row0, k0 + 8 * n + 2 * t, false, f);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = exp_of(s[n][e] - m_run[e >> 1]);
         sum[e >> 1] += p;  // undropped and unrounded: l and lse as without dropout
-        if (drop.on) p *= mer_philox::factor(drop, bh, row0 + 8 * (e >> 1), k0 + 8 * n + 2 * t + (e & 1));
+        if (drop.on) p *= f[e];
         s[n][e] = p;
       }
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + quad_sum(sum[h]);
 #pragma unroll

@@ -17,7 +17,7 @@ start at ``pad_token_id + 1`` and advance on non-pad tokens only. Attention
 masks keys only (``attention_mask == 0``); a padded query's row is never read:
 the head takes token 0, always real. The attention goes through
 :func:`~mer_tpu_torch.ops.attention.dot_product_attention`, on the card kernels
-K1 and K2 at Sq = Sk in {64, 128, 256, 512} and head dim 64. One encoder
+K1 and K4 at Sq = Sk in {64, 128, 256, 512} and head dim 64. One encoder
 layout, unrolled.
 
 Dropout (train mode): ``hidden_dropout`` after the embeddings' LayerNorm, on

@@ -21,7 +21,8 @@ keys.
 
 On a CUDA tensor the conv frontend runs kernels K7 then K6
 (:mod:`mer_tpu_torch.ops.w2v_conv`) in [B, T, C] layout throughout, and the
-attention kernels K1 and K2; on a CPU tensor their plain versions. K7 and K6
+attention kernels (K1 and K4 up to 4,096 frames, K3 and K4 above); on a CPU
+tensor their plain versions. K7 and K6
 are forward-only, as the TPU kernels they replace: when the frontend trains
 (grad enabled and one of its parameters requires grad) it takes the stock
 differentiable convolutions instead, as ``mer_tpu``'s training differentiates
@@ -30,7 +31,7 @@ XLA's. One encoder layout, unrolled.
 Dropout (train mode, ``mer_tpu``'s ``deterministic=False``): ``hidden_dropout``
 after the feature projection, after the positional conv's LayerNorm, and in
 every layer on the attention output, on the feed-forward's GELU and on its
-output; ``attention_dropout`` on the attention probabilities inside K1 and K2,
+output; ``attention_dropout`` on the attention probabilities inside K1 (K3) and K4,
 seeded from the generator :func:`~mer_tpu_torch.models.layers.set_attention_generator`
 hands the attentions. Eval mode applies none.
 

@@ -8,6 +8,7 @@ from mer_tpu_torch.ops.flash_attention import (
     flash_attention_backward,
     flash_attention_backward_reference,
     flash_attention_forward,
+    flash_attention_fused_backward,
     flash_attention_reference,
     flash_attention_stream,
     flash_attention_stream_reference,
@@ -17,6 +18,6 @@ from mer_tpu_torch.ops.flash_attention import (
 
 __all__ = [
     "FlashAttention", "dot_product_attention", "flash_attention_backward", "flash_attention_backward_reference",
-    "flash_attention_forward", "flash_attention_reference", "flash_attention_stream",
+    "flash_attention_forward", "flash_attention_fused_backward", "flash_attention_reference", "flash_attention_stream",
     "flash_attention_stream_reference", "flash_attention_tiled_backward", "flash_attention_tiled_backward_reference",
 ]

@@ -8,8 +8,8 @@ versions, which restate ``_attention_reference``: an additive -1e30 bias on
 ignored keys, the scale applied to q before the product, softmax in float32.
 No size sends a call to XLA-style plain code on the card: the key count only
 picks the kernel, as ``mer_tpu``'s dispatch does. The forward runs K1 up to
-4,096 keys and the streaming K3 above; the backward K2 up to 2,048 keys and
-the key-tiled K4 above.
+4,096 keys and the streaming K3 above; the backward K2 up to 33 keys (the
+fusion model's dialogues) and the key-tiled K4 above.
 """
 
 from __future__ import annotations

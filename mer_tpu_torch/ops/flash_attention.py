@@ -11,22 +11,27 @@ the online-softmax forward over key tiles, ``_flash_stream`` ``:465``) -> K3,
 ``csrc/flash_attention_stream.cu``; ``:579`` + ``:624`` (``_bwd_dkv_kernel``
 and ``_bwd_dq_kernel``, the key-tiled backward, ``_flash_bwd_tiled`` ``:659``)
 -> K4, ``csrc/flash_attention_tiled_bwd.cu``. K1 and K3 are one kernel
-template (``csrc/flash_attention_forward.cuh``), K2 and K4 two
-(``csrc/flash_attention_backward.cuh``), all on the tensor-core tile products
-of ``csrc/flash_attention_tiles.cuh`` in bf16 (``mma.sync``; f32 by FMA on the
-CUDA cores) and the Philox generator ``csrc/philox.cuh``; K1 and K2 take
-several (b*h) slices a block for sequences up to 32 rows. Each source's header
-states its design and bound.
+template (``csrc/flash_attention_forward.cuh``), K2 and K4's f32 and odd head
+dims two (``csrc/flash_attention_backward.cuh``), all on the tensor-core tile
+products of ``csrc/flash_attention_tiles.cuh`` in bf16 (``mma.sync``; f32 by
+FMA on the CUDA cores); K4 in bf16 at head dim 64 is a Hopper design of its own
+(``wgmma``, TMA into an ``mbarrier`` ring filled by a producer warp;
+``csrc/sm90.cuh``). All draw dropout with the Philox generator
+``csrc/philox.cuh``; K1 and K2 take several (b*h) slices a block for
+sequences up to 32 rows. Each source's header states its design and bound.
 
 Dispatch by key count: :func:`flash_attention_forward` runs K1 up to
 ``STREAM_THRESHOLD`` keys and K3 above; :func:`flash_attention_backward` runs
 K2 up to ``BWD_FUSED_MAX`` keys and K4 above; :func:`flash_attention_stream`
-and :func:`flash_attention_tiled_backward` run K3 and K4 at any key count. The
+and :func:`flash_attention_tiled_backward` run K3 and K4 at any key count,
+:func:`flash_attention_fused_backward` K2 up to ``FUSED_KERNEL_MAX``. The
 two thresholds rest on the card's crossover rows
-(``python -m mer_tpu_torch.scripts.bench_attention --crossover``): where both
-kernels of a pair run one slice a block they are one template and time alike
-(PERF.md), so the thresholds keep ``mer_tpu``'s places (``_flash_impl``
-``:510``, ``_flash_bwd_impl`` ``:197-200``).
+(``python -m mer_tpu_torch.scripts.bench_attention --crossover``, PERF.md):
+K1 and K3 are one template and time alike, so the forward keeps
+``mer_tpu``'s place (``_flash_impl`` ``:510``); K4's Hopper design beats K2
+from 48 keys up, so the backward takes K2 for the fusion model's dialogue
+buckets alone (``mer_tpu``'s ``_flash_bwd_impl`` switches at 2,048 keys,
+``:197-200``).
 Each kernel's wrapper launches it for CUDA tensors and takes its plain
 version only for CPU tensors, so the CPU runs the algebra the card runs;
 :class:`FlashAttention` makes one differentiable op of the two directions, on
@@ -50,8 +55,9 @@ this rounds anything.
 Dropout (training, torch MHA semantics): the *normalised* probabilities are
 multiplied by D = keep / (1 - rate). The keep bit of probability (row, col)
 of head ``b * H + h`` is a pure function of the two seed words and those
-indices (Philox4x32-10, counter (col, row, b*H + h, 0), first output word;
-keep iff bits >= min(int(rate * 2**32), 2**32 - 1)), so the forward kernel,
+indices (Philox4x32-10 at counter (col >> 1, row >> 1, b*H + h, 0), output
+word 2 (row & 1) + (col & 1): one call per 2 x 2 block of scores; keep iff
+bits >= min(int(rate * 2**32), 2**32 - 1)), so the forward kernel,
 the backward kernel and the plain versions draw the same mask whatever their
 tiling. The stream differs from the TPU's hardware generator; only the
 Bernoulli distribution is contract (``mer_tpu/utils/rng.py``).
@@ -68,13 +74,15 @@ from mer_tpu_torch.ops import _build
 
 NEG_INF = -1e30  # additive bias on ignored keys (finite, as the TPU kernel's)
 MAX_HEAD_DIM = 128
-# Above this many keys the forward is K3, up to it K1; above BWD_FUSED_MAX keys the backward is K4, up to it K2
-# (and K2's kernel refuses more). The card's crossover rows (bench_attention --crossover, recorded in PERF.md) show K1
-# and K3 within 2% of each other at 256-4,096 keys and K2 and K4 at 512-2,048, with and without dropout: past 32 rows
-# each pair is one template at one slice a block. No crossover moves either threshold, so they stay at mer_tpu's
-# values, and K1 and K2 keep the range of the TPU kernels whose functions they compute.
+# Above this many keys the forward is K3, up to it K1; above BWD_FUSED_MAX keys the backward is K4, up to it K2. Both
+# rest on the card's crossover rows (bench_attention --crossover, recorded in PERF.md). K1 and K3 are one template and
+# time alike at 256-4,096 keys, so STREAM_THRESHOLD keeps mer_tpu's value. K4's Hopper design (bf16, Dh 64) is faster
+# than K2 at every row from 48 keys up (B x H = 192 at 48-499 keys, down to 24 at 2,048; dropout 0 and 0.1), so
+# BWD_FUSED_MAX is the fusion model's largest dialogue bucket, 33: K2 keeps the buckets, where it packs 2 or 4 slices
+# a block, and its kernel still takes up to FUSED_KERNEL_MAX keys for the crossover rows.
 STREAM_THRESHOLD = 4096
-BWD_FUSED_MAX = 2048
+BWD_FUSED_MAX = 33
+FUSED_KERNEL_MAX = 2048
 BLOCK_K = 512  # the plain streaming and tiled versions' key tile (the TPU kernels')
 FULLY_MASKED_LSE = -1e29  # a row's lse below this: every key of the row is ignored
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -110,10 +118,14 @@ def philox4x32(counter, key) -> list[torch.Tensor]:
 
 
 def philox_bits(seed, bh, row, col) -> torch.Tensor:
-    """The 32 random bits (int64) of probability (row, col) of head ``bh``;
-    the index tensors broadcast."""
-    row = torch.as_tensor(row, dtype=torch.int64)
-    return philox4x32((col, row, bh, torch.zeros_like(row)), seed)[0]
+    """The 32 random bits (int64) of probability (row, col) of head ``bh``:
+    word 2 (row & 1) + (col & 1) of Philox at counter (col >> 1, row >> 1, bh,
+    0), one call per 2 x 2 block of scores (``csrc/philox.cuh``). The index
+    tensors broadcast."""
+    row, col = (torch.as_tensor(x, dtype=torch.int64) for x in (row, col))
+    w = philox4x32((col >> 1, row >> 1, bh, 0), seed)
+    odd_col = (col & 1).bool()
+    return torch.where((row & 1).bool(), torch.where(odd_col, w[3], w[2]), torch.where(odd_col, w[1], w[0]))
 
 
 def dropout_threshold(rate: float) -> int:
@@ -123,11 +135,20 @@ def dropout_threshold(rate: float) -> int:
 
 def dropout_factor(seed, shape, rate: float, device=None, row0: int = 0, col0: int = 0) -> torch.Tensor:
     """D for a [B, H, Sq, Sk] block of probabilities starting at query row
-    ``row0`` and key ``col0``: 1 / (1 - rate) where kept, 0 where dropped (f32)."""
+    ``row0`` and key ``col0``: 1 / (1 - rate) where kept, 0 where dropped (f32).
+    :func:`philox_bits` with one Philox call per 2 x 2 block: the blocks that
+    the rows and columns touch, their four words laid out in place, then cut
+    to the rows and columns asked for (odd ``row0`` or ``col0`` included)."""
     b, h, sq, sk = shape
+    r_lo, c_lo = row0 >> 1, col0 >> 1
+    n_r, n_c = ((row0 + sq + 1) >> 1) - r_lo, ((col0 + sk + 1) >> 1) - c_lo
     idx = lambda n, start: torch.arange(start, start + n, dtype=torch.int64, device=device)
     bh = idx(b * h, 0).view(b, h, 1, 1)
-    bits = philox_bits(seed, bh, idx(sq, row0).view(1, 1, sq, 1), idx(sk, col0).view(1, 1, 1, sk))
+    w = [x.expand(b, h, n_r, n_c) for x in
+         philox4x32((idx(n_c, c_lo).view(1, 1, 1, n_c), idx(n_r, r_lo).view(1, 1, n_r, 1), bh, 0), seed)]
+    # [.., n_r, row parity, n_c, column parity] -> rows and columns from 2 r_lo and 2 c_lo
+    bits = torch.stack([torch.stack(w[:2], -1), torch.stack(w[2:], -1)], -3).reshape(b, h, 2 * n_r, 2 * n_c)
+    bits = bits[:, :, row0 & 1:(row0 & 1) + sq, col0 & 1:(col0 & 1) + sk]
     return torch.where(bits >= dropout_threshold(rate), 1.0 / (1.0 - rate), 0.0).to(torch.float32)
 
 
@@ -366,8 +387,10 @@ def flash_attention_stream(q, k, v, key_padding_mask=None, seed=None, dropout_ra
 flash_attention_stream.launches = 0
 
 
-def _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse):
-    """Checks a backward call; returns (dq, dk, dv, delta scratch, dropout args)."""
+def _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse, scratch_numel=None):
+    """Checks a backward call; returns (dq, dk, dv, f32 scratch, dropout args).
+    The scratch is delta [B, H, Sq] between the two grids, or ``scratch_numel``
+    floats."""
     _check(q, k, v, key_padding_mask)
     _check_like("out", out, q.shape, q.dtype, q.device)
     _check_like("g", g, q.shape, q.dtype, q.device)
@@ -375,18 +398,42 @@ def _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g
     if g_lse is not None:
         _check_like("g_lse", g_lse, q.shape[:3], torch.float32, q.device)
     drop = _dropout_args(seed, dropout_rate)
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)  # scratch between the two grids
-    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), delta, drop
+    shape = q.shape[:3] if scratch_numel is None else (scratch_numel,)
+    scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), scratch, drop
+
+
+def tiled_scratch_numel(b: int, h: int, sq: int, sk: int, dropout: bool) -> int:
+    """f32 scratch of one K4 call: per query row its lse, delta and
+    fully-masked probability, per key its bias, rows padded to 64, and with
+    dropout the keep bits the dq kernel hands the dk/dv kernel (the Hopper
+    design's; the older design takes delta [B, H, Sq] from its head)."""
+    pad = lambda n: -(-n // 64) * 64
+    return 3 * b * h * pad(sq) + b * pad(sk) + (b * h * pad(sq) * pad(sk) // 32 if dropout else 0)
 
 
 def flash_attention_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, dropout_rate: float = 0.0,
                              g_lse=None):
     """``(dq, dk, dv)``. Above ``BWD_FUSED_MAX`` keys through
-    :func:`flash_attention_tiled_backward` (K4); else K2 for CUDA tensors, its
-    plain version for CPU tensors. ``flash_attention_backward.launches``
-    counts K2's launches (one per call: the dq and the dk/dv grids)."""
+    :func:`flash_attention_tiled_backward` (K4), else through
+    :func:`flash_attention_fused_backward` (K2).
+    ``flash_attention_backward.launches`` counts K2's launches (one per call:
+    the dq and the dk/dv grids)."""
     if k.shape[2] > BWD_FUSED_MAX:
         return flash_attention_tiled_backward(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
+    return flash_attention_fused_backward(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
+
+
+flash_attention_backward.launches = 0
+
+
+def flash_attention_fused_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, dropout_rate: float = 0.0,
+                                   g_lse=None):
+    """``(dq, dk, dv)`` through the fused backward K2 for CUDA tensors (its
+    kernel takes up to ``FUSED_KERNEL_MAX`` keys, whatever the dispatch
+    picks: the crossover rows time it above ``BWD_FUSED_MAX``), its plain
+    version for CPU tensors. Its launches count in
+    ``flash_attention_backward.launches``."""
     if not _device_or_raise(q):
         return flash_attention_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate,
                                                   g_lse)
@@ -398,9 +445,6 @@ def flash_attention_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, 
     return dq, dk, dv
 
 
-flash_attention_backward.launches = 0
-
-
 def flash_attention_tiled_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, dropout_rate: float = 0.0,
                                    g_lse=None):
     """``(dq, dk, dv)`` through the key-tiled backward K4 for CUDA tensors, its
@@ -409,10 +453,11 @@ def flash_attention_tiled_backward(q, k, v, key_padding_mask, out, lse, g, seed=
     if not _device_or_raise(q):
         return flash_attention_tiled_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed,
                                                         dropout_rate, g_lse)
-    dq, dk, dv, delta, drop = _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
+    dq, dk, dv, scratch, drop = _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse,
+                                               tiled_scratch_numel(*q.shape[:3], k.shape[2], dropout_rate > 0))
     _launch("flash_attention_tiled_bwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                                              out.data_ptr(), lse.data_ptr(), g.data_ptr(), _ptr(g_lse),
-                                             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr()],
+                                             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr()],
               k.shape[2], drop)
     flash_attention_tiled_backward.launches += 1
     return dq, dk, dv

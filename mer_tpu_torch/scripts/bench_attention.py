@@ -23,11 +23,13 @@ times, instead, the kernels on either side of the two dispatch thresholds on
 the same inputs, bf16, the same 10% key mask, dropout 0 and 0.1: the
 single-pass forward K1 against the streaming K3 at the fusion buckets (S 8-33,
 Dh 96) and at 256-4,096 keys (Dh 64; ``CROSSOVER_FORWARD``), the fused
-backward K2 against the key-tiled K4 at the fusion buckets and 512-2,048
-(``CROSSOVER_BACKWARD``), each wrapper called directly whatever the dispatch
-would pick. One JSON line per key count and rate, both kernels named.
-``STREAM_THRESHOLD`` and ``BWD_FUSED_MAX`` rest on these rows. K1 is timed
-only up to ``STREAM_THRESHOLD``: its wrapper hands longer calls to K3.
+backward K2 against the key-tiled K4 at the fusion buckets, at 48-499 keys
+(B 16, the text and wav2vec2 fine-tune batches) and at 512-2,048
+(``CROSSOVER_BACKWARD``), each kernel's own wrapper called whatever the
+dispatch would pick (K2's: ``flash_attention_fused_backward``). One JSON line
+per key count and rate, both kernels named. ``STREAM_THRESHOLD`` and
+``BWD_FUSED_MAX`` rest on these rows. K1 is timed only up to
+``STREAM_THRESHOLD``: its wrapper hands longer calls to K3.
 """
 
 from __future__ import annotations
@@ -61,12 +63,14 @@ SHAPES = [
 ]
 KEY_MASK_FRACTION = 0.1  # scripts/bench_attention.py:85
 # (B, H, S, Dh): the fusion model's dialogue buckets (S 8-33, where K1 and K2 take several (b*h) slices a block
-# up to 32 rows), then B*H 96-24 at Dh 64 up to mer_tpu's STREAM_THRESHOLD (4,096 keys) and BWD_FUSED_MAX (2,048);
-# 2,999 is the 60 s bucket of wav2vec2 on long clips
+# up to 32 rows), then B*H 96-24 at Dh 64 up to STREAM_THRESHOLD (4,096 keys) and to K2's kernel range
+# (FUSED_KERNEL_MAX, 2,048); 2,999 is the 60 s bucket of wav2vec2 on long clips; the backward also at the text and
+# wav2vec2 fine-tune batch (16 x 12 heads) at 48-499 keys, 48 closing the gap above the dialogue buckets
 FUSION_ROWS = [(32, 8, s, 96) for s in (8, 16, 24, 33)]
 CROSSOVER_FORWARD = FUSION_ROWS + [(8, 12, 256, 64), (8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64),
                                    (2, 12, 2999, 64), (2, 12, 3072, 64), (2, 12, 4096, 64)]
-CROSSOVER_BACKWARD = FUSION_ROWS + [(8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64)]
+CROSSOVER_BACKWARD = FUSION_ROWS + [(16, 12, s, 64) for s in (48, 64, 128, 256, 499)] + [
+    (8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64)]
 CROSSOVER_RATES = (0.0, 0.1)
 
 
@@ -201,7 +205,7 @@ def crossover_row(direction: str, b: int, h: int, s: int, dh: int, rate: float, 
             raise ValueError(f"K1 takes at most STREAM_THRESHOLD = {fa.STREAM_THRESHOLD} keys, not {s}")
         fns = [lambda c=c: c(q, k, v, mask, seed, rate) for c in calls]
     else:
-        names, calls = ("K2", "K4"), (fa.flash_attention_backward, fa.flash_attention_tiled_backward)
+        names, calls = ("K2", "K4"), (fa.flash_attention_fused_backward, fa.flash_attention_tiled_backward)
         out, lse = fa.flash_attention_stream(q, k, v, mask, seed, rate)
         fns = [lambda c=c: c(q, k, v, mask, out, lse, g, seed, rate) for c in calls]
     for name, fn in zip(names, fns):

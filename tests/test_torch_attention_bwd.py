@@ -263,7 +263,8 @@ def test_kernels_match_plain_versions(case, dtype, mask_kind, rate, cuda):
     q, k, v, g, mask = _card_inputs(case, dtype, cuda, 7, mask_kind)
     seed = (0xDEADBEEF, 17) if rate else None
     g_lse = torch.randn(case[:3], device=cuda) if mask_kind == "none" else None
-    launches = fa.flash_attention_forward.launches, fa.flash_attention_backward.launches
+    launches = (fa.flash_attention_forward.launches, fa.flash_attention_backward.launches,
+                fa.flash_attention_tiled_backward.launches)
     out, lse = fa.flash_attention_forward(q, k, v, mask, seed, rate)
     grads = fa.flash_attention_backward(q, k, v, mask, out, lse, g, seed, rate, g_lse)
     torch.cuda.synchronize()
@@ -274,8 +275,10 @@ def test_kernels_match_plain_versions(case, dtype, mask_kind, rate, cuda):
     for got, want in zip(grads, ref):
         assert got.dtype == dtype
         assert _excess(got, want, dtype) <= 0
-    assert (fa.flash_attention_forward.launches, fa.flash_attention_backward.launches) == (
-        launches[0] + 1, launches[1] + 1)
+    fused = case[3] <= fa.BWD_FUSED_MAX  # above it the backward's dispatch takes K4
+    assert (fa.flash_attention_forward.launches, fa.flash_attention_backward.launches,
+            fa.flash_attention_tiled_backward.launches) == (launches[0] + 1, launches[1] + fused,
+                                                            launches[2] + 1 - fused)
 
 
 @pytest.mark.cuda
@@ -309,10 +312,11 @@ def test_kernel_backward_reproduces_bitwise(cuda):
 
 @pytest.mark.cuda
 def test_kernel_backward_raises_beyond_its_range(cuda):
-    """K2's kernel refuses more than BWD_FUSED_MAX keys; the backward hands
-    such calls to K4 and never launches K2 there."""
+    """K2's kernel refuses more than FUSED_KERNEL_MAX keys; the backward hands
+    such calls, as every call above BWD_FUSED_MAX keys, to K4 and never
+    launches K2 there."""
     q = torch.zeros(1, 1, 4, 8, device=cuda)
-    k = torch.zeros(1, 1, fa.BWD_FUSED_MAX + 1, 8, device=cuda)
+    k = torch.zeros(1, 1, fa.FUSED_KERNEL_MAX + 1, 8, device=cuda)
     out, lse = fa.flash_attention_forward(q, k, k)
     g = torch.zeros_like(q)
     dq, dk, dv, delta, drop = fa._backward_args(q, k, k, None, out, lse, g, None, 0.0, None)

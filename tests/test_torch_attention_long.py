@@ -196,8 +196,11 @@ def test_cpu_dispatch_and_gradients_through_out_and_lse(sk, forward_plain, backw
 
 def test_k3_k4_wrappers_run_at_any_key_count():
     """Below the thresholds the dispatch picks K1 and K2; K3's and K4's own
-    wrappers take any key count and agree with them."""
-    q, k, v, g, mask = _t(*_inputs(1, 2, 8, 40, 8, seed=7))
+    wrappers take any key count and agree with them. The thresholds: 4,096
+    keys for the forward (K1 | K3 time alike), 33 for the backward (K4's
+    Hopper design is faster than K2 at every crossover row from 48 keys,
+    bench_attention.CROSSOVER_BACKWARD, recorded in PERF.md)."""
+    q, k, v, g, mask = _t(*_inputs(1, 2, 8, 30, 8, seed=7))
     single = fa.flash_attention_forward(q, k, v, mask)
     streamed = fa.flash_attention_stream(q, k, v, mask)
     for a, b in zip(single, streamed):
@@ -208,18 +211,20 @@ def test_k3_k4_wrappers_run_at_any_key_count():
     for a, b in zip(fused, tiled):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
     assert fa.flash_attention_stream.launches == fa.flash_attention_tiled_backward.launches == 0
-    assert (fa.STREAM_THRESHOLD, fa.BWD_FUSED_MAX, fa.BLOCK_K) == (4096, 2048, 512)
+    assert (fa.STREAM_THRESHOLD, fa.BWD_FUSED_MAX, fa.BLOCK_K) == (4096, 33, 512)
 
 
 def test_dispatch_thresholds_equal_mer_tpu(jax_side):
     """The port's thresholds rest on the card's crossover rows
-    (``bench_attention --crossover``): K1 and K3, and K2 and K4, time alike
-    on either side, so both thresholds keep mer_tpu's 4,096 and 2,048 keys
-    (and the plain tiles its 512)."""
+    (``bench_attention --crossover``): K1 and K3 time alike on either side,
+    so the forward keeps mer_tpu's 4,096 keys (and the plain tiles its 512);
+    K4's Hopper design beats K2 at every row from 48 keys ([16, 12, S, 64] at
+    S = 48-499, [8-2, 12, 512-2,048, 64]; dropout 0 and 0.1), so the
+    backward switches at the fusion buckets' 33 keys, below mer_tpu's 2,048."""
     from mer_tpu.ops import flash_attention as jax_fa
 
-    assert (fa.STREAM_THRESHOLD, fa.BWD_FUSED_MAX, fa.BLOCK_K) == (
-        jax_fa.STREAM_THRESHOLD, jax_fa.BWD_FUSED_MAX, jax_fa.BLOCK_K)
+    assert (fa.STREAM_THRESHOLD, fa.BLOCK_K) == (jax_fa.STREAM_THRESHOLD, jax_fa.BLOCK_K)
+    assert fa.BWD_FUSED_MAX == 33 < jax_fa.BWD_FUSED_MAX == 2048
 
 
 # -- dropout -------------------------------------------------------------------------
@@ -360,15 +365,15 @@ def test_dataset_takes_a_waveform_store_and_max_seconds(long_clip_root):
 def test_bench_attention_names_the_dispatch_and_runs_on_cpu():
     from mer_tpu_torch.scripts import bench_attention
 
-    assert [bench_attention.kernel_names(s) for s in (512, 2048, 2049, 4096, 4097)] == [
-        ("K1", "K2"), ("K1", "K2"), ("K1", "K4"), ("K1", "K4"), ("K3", "K4")]
+    assert [bench_attention.kernel_names(s) for s in (33, 34, 2048, 2049, 4096, 4097)] == [
+        ("K1", "K2"), ("K1", "K4"), ("K1", "K4"), ("K1", "K4"), ("K1", "K4"), ("K3", "K4")]
     assert ("long_16384", 1, 12, 16384, 64) in bench_attention.SHAPES
     # [2, 12, 8192, 8192, 64] bf16: 412 GFLOP forward at 989 TFLOP/s; f32 at 67 TFLOP/s
     fwd, by = bench_attention.bound_ms(2, 12, 8192, 64, torch.bfloat16, backward=False)
     assert by == "operations" and fwd == pytest.approx(4 * 2 * 12 * 8192 ** 2 * 64 / 989e12 * 1e3)
     assert bench_attention.bound_ms(32, 12, 64, 64, torch.float32, backward=True)[1] == "bytes"
     (row,) = bench_attention.main(["--device", "cpu", "--shapes", "roberta_b32_s64", "--dtypes", "float32"])
-    assert row["clock"] == "host (cpu)" and row["kernels"] == "K1 + K2"
+    assert row["clock"] == "host (cpu)" and row["kernels"] == "K1 + K4"
     assert all(row[k] > 0 for k in ("kernel_fwd_ms", "kernel_fwdbwd_ms", "sdpa_fwd_ms", "sdpa_fwdbwd_ms"))
 
 

@@ -179,7 +179,8 @@ def test_k1_k2_match_plain_versions(case, dtype, mask_kind, rate, cuda):
     q, k, v, g, mask = _t(*_inputs(*case, seed=6, mask_kind=mask_kind), device=cuda, dtype=dtype)
     seed = (0xFACE, 21) if rate else None
     g_lse = torch.randn(case[:3], device=cuda)
-    launches = fa.flash_attention_forward.launches, fa.flash_attention_backward.launches
+    launches = (fa.flash_attention_forward.launches, fa.flash_attention_backward.launches,
+                fa.flash_attention_tiled_backward.launches)
     out, lse = fa.flash_attention_forward(q, k, v, mask, seed, rate)
     grads = fa.flash_attention_backward(q, k, v, mask, out, lse, g, seed, rate, g_lse)
     torch.cuda.synchronize()
@@ -189,8 +190,10 @@ def test_k1_k2_match_plain_versions(case, dtype, mask_kind, rate, cuda):
     assert (lse - ref_lse).abs().max().item() <= (2e-5 if dtype == torch.float32 else 1e-3)
     for got, want in zip(grads, ref):
         assert got.dtype == dtype and _excess(got, want, "bwd", dtype) <= 0
-    assert (fa.flash_attention_forward.launches, fa.flash_attention_backward.launches) == (
-        launches[0] + 1, launches[1] + 1)
+    fused = case[3] <= fa.BWD_FUSED_MAX  # above it the backward's dispatch takes K4
+    assert (fa.flash_attention_forward.launches, fa.flash_attention_backward.launches,
+            fa.flash_attention_tiled_backward.launches) == (launches[0] + 1, launches[1] + fused,
+                                                            launches[2] + 1 - fused)
 
 
 @pytest.mark.cuda
@@ -239,12 +242,15 @@ def test_bf16_limit_fails_on_rolled_key_tiles(cuda):
 
 def test_bench_crossover_rows_time_both_kernels_on_cpu():
     """The crossover rows name both kernels of a threshold and time each on
-    the same inputs (host clock on the CPU, the plain versions); the sweep
-    reaches each threshold and the fusion buckets below 33 rows."""
+    the same inputs (host clock on the CPU, the plain versions); the forward
+    sweep reaches its threshold, the backward one K2's kernel range on
+    either side of its threshold, and both the fusion buckets up to 33 rows."""
     from mer_tpu_torch.scripts import bench_attention
 
     assert max(s for _, _, s, _ in bench_attention.CROSSOVER_FORWARD) == fa.STREAM_THRESHOLD
-    assert max(s for _, _, s, _ in bench_attention.CROSSOVER_BACKWARD) == fa.BWD_FUSED_MAX
+    backward = {s for _, _, s, _ in bench_attention.CROSSOVER_BACKWARD}
+    assert max(backward) == fa.FUSED_KERNEL_MAX and fa.BWD_FUSED_MAX in backward
+    assert {48, 64, 128, 256, 499} <= backward
     assert {s for _, _, s, _ in bench_attention.FUSION_ROWS} == {8, 16, 24, 33}
     for direction, names in (("forward", ("K1", "K3")), ("backward", ("K2", "K4"))):
         row = bench_attention.crossover_row(direction, 1, 2, 40, 64, 0.1, torch.device("cpu"))
