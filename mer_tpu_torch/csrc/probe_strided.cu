@@ -2,24 +2,36 @@
 // scripts/probe_pallas_strided.py (:37, :88, :112) asks of Mosaic, asked of a
 // CUDA card. That script decided the design of the wav2vec2 conv frontend's
 // TPU kernels (strided row selection, the lane fold, the skinny tap GEMM, a
-// grid-accumulated reduce); here each is a small kernel whose result the
-// script mer_tpu_torch/scripts/probe_strided.py checks exactly against torch
-// (the bf16 product to rtol 1e-3, as :96 does).
+// grid-accumulated reduce); here each is a small kernel, one launch a probe,
+// whose result the script mer_tpu_torch/scripts/probe_strided.py checks
+// exactly against torch (the bf16 product to rtol 1e-3, as :96 does).
 //
 // x is [T, C] f32 row-major, out as each probe says:
-//   0 even rows    out [T/2, C]   = x[0::2]      (a thread a column, rows 2i)
+//   0 even rows    out [T/2, C]   = x[0::2]
 //   1 odd rows     out [T/2, C]   = x[1::2]
 //   2 fold         out [T/2, 2C]  = x.reshape(T/2, 2C): a row pair side by side
 //   3 unfold       out [2T, C/2]  = x.reshape(2T, C/2): a row split in halves
 //   4 skinny GEMM  out [T, C] f32 = bf16(x[:, :16]) @ w, w [16, C] bf16, on
-//                  mma.sync.m16n8k16 (a warp a 16 x 8 tile)
+//                  mma.sync.m16n8k16
 //   5 reduce       out [1, C]     = x.sum(0) over 4 chunks of T/4 rows taken
-//                  in order inside the block: blocks run in no order, so the
-//                  TPU's sequential grid axis becomes a loop (f32 sums of
-//                  integers below 2^24: exact)
+//                  in order: blocks run in no order, so the TPU's sequential
+//                  grid axis becomes runs of rows inside a block, added in
+//                  order (f32 sums of integers below 2^24: exact)
 //
-// Bound: every probe reads x (512 KB at [256, 512]) once and writes at most as
-// much: under 0.4 us at 3.35 TB/s; at this size launch latency is the time.
+// Bound: a probe reads what its out needs once (all of x, 512 KB at [256,
+// 512], for 2, 3 and 5; half of its rows for 0 and 1; x[:, :16] and w for
+// 4) and writes out once: under 0.4 us at 3.35 TB/s; at this size launch
+// latency is the time (mer_probe_launch_floor times an empty kernel beside
+// the probes). So each probe spreads its work over many threads with short
+// dependent chains:
+//   0-3: a thread per element of out, 128 a block (16-byte accesses and
+//        several rows a block measured no faster on an H100);
+//   4:   a warp per 16 x 8 tile of out, one mma (4-warp blocks with W staged
+//        in shared memory and read by ldmatrix.trans measured slower);
+//   5:   a block of 16 warps per 32 columns: warp r sums the r-th run of
+//        consecutive rows (independent loads, unrolled), the 16 partials
+//        added in run order in shared memory (a thread a column summing all
+//        T rows was 5 times slower).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,6 +41,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kReduceSteps = 4;  // the TPU probe's grid of 4
+constexpr int kRuns = 16;        // reduce: row runs (warps) a block
 
 __global__ void rows_kernel(const float* __restrict__ x, float* __restrict__ out, int T, int C, int odd) {
   const int i = blockIdx.y, c = blockIdx.x * kThreads + threadIdx.x;
@@ -79,16 +92,35 @@ __global__ void skinny_kernel(const float* __restrict__ x, const __nv_bfloat16* 
   o1[1] = c[3];
 }
 
-// T a multiple of kReduceSteps
+// a block of kRuns warps per 32 columns; run r covers rows [r T / kRuns, (r + 1) T / kRuns)
 __global__ void reduce_kernel(const float* __restrict__ x, float* __restrict__ out, int T, int C) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int chunk = T / kReduceSteps;
-  float acc = 0.f;  // the revisited output block of the TPU grid, kept in a register
-  for (int step = 0; step < kReduceSteps; ++step)
-    for (int t = step * chunk; t < (step + 1) * chunk; ++t) acc += x[(size_t)t * C + c];
-  out[c] = acc;
+  __shared__ float part[kRuns][32];
+  const int run = threadIdx.x >> 5, lane = threadIdx.x & 31, c = blockIdx.x * 32 + lane;
+  const int begin = (int)((long long)run * T / kRuns), end = (int)((long long)(run + 1) * T / kRuns);
+  float acc = 0.f;
+  if (c < C) {
+    int row = begin;
+    for (; row + 4 <= end; row += 4) {
+      const float v0 = __ldg(x + (size_t)row * C + c), v1 = __ldg(x + (size_t)(row + 1) * C + c);
+      const float v2 = __ldg(x + (size_t)(row + 2) * C + c), v3 = __ldg(x + (size_t)(row + 3) * C + c);
+      acc += v0;
+      acc += v1;
+      acc += v2;
+      acc += v3;
+    }
+    for (; row < end; ++row) acc += __ldg(x + (size_t)row * C + c);
+  }
+  part[run][lane] = acc;
+  __syncthreads();
+  if (run == 0 && c < C) {
+    float total = part[0][lane];
+#pragma unroll
+    for (int r = 1; r < kRuns; ++r) total += part[r][lane];  // the runs, and so the four chunks, in order
+    out[c] = total;
+  }
 }
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -121,10 +153,16 @@ extern "C" int mer_probe_strided(int probe, const void* x, const void* w, void* 
       break;
     case 5:
       if (T % kReduceSteps) return static_cast<int>(cudaErrorInvalidValue);
-      reduce_kernel<<<blocks(C), kThreads, 0, s>>>(x_, out_, T, C);
+      reduce_kernel<<<(C + 31) / 32, 32 * kRuns, 0, s>>>(x_, out_, T, C);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one launch of an empty kernel: the launch-latency floor the probes sit on
+extern "C" int mer_probe_launch_floor(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,17 +7,27 @@ f32 it computes
     log((|frames @ (w cos)| (+) |frames @ (w -sin)|) @ mel^T + eps)   [B, F, 128] f32
 
 where (+) is the magnitude sqrt(re^2 + im^2) over the 201 bins, w the
-periodic Hann window folded into the DFT matrices (built in float64, cast to
-float32, as ``dft_matrices``), mel the L1-normalised Slaney filterbank and
-eps the float32 value of the float64 epsilon (JAX's weakly typed add).
+periodic Hann window, mel the L1-normalised Slaney filterbank and eps the
+float64 epsilon 2^-52 (JAX's weakly typed add; exact in float32 too). The
+plain version states it densely in float32 (the window folded into the DFT
+matrices, built in float64 and cast to float32, as ``dft_matrices``).
 
 The CUDA source is ``mer_tpu_torch/csrc/logmel_fwd.cu``; its header states
-the design and the bound (the function is bound by bytes; the dense DFT
-the kernel runs is bound by operations on the f32 CUDA cores; the magnitude
-stays on chip). :func:`logmel_frames` launches it for CUDA tensors, with no
-switch and no fallback, and takes :func:`logmel_frames_reference` only for
-CPU tensors. The frames may be the ``unfold`` view of the padded waveforms:
-the kernel reads them through their clip and frame strides.
+the design and the bound. The kernel computes the real 400-point DFT as a
+complex 200-point FFT of the even and odd samples (Stockham, radices 8, 5,
+5, in shared memory), unpacks bins 0..200, and keeps the magnitudes on chip
+for the mel product; the function is bound by bytes, and a block reads
+each sample of its tile of overlapping frames once. It reads f32 samples and
+writes f32, with float64 arithmetic between: the mel caches quantise the
+log-mel to uint8, and there f32 rounding moves about 1 entry in 10,000 by a
+step, while the kernel's cache is the float64 chain's
+(:func:`mel_bands_float64`). Its tables (:func:`fft_tables`: the window, the
+twiddles W200^m and the unpack factors W400^k) are float64, built on the
+host; the filterbank goes in as each band's ``MEL_BAND_WIDTH`` float32
+weights (:func:`band_tables`). :func:`logmel_frames` launches it for CUDA tensors, with no switch and no
+fallback, and takes :func:`logmel_frames_reference` only for CPU tensors.
+The frames may be the ``unfold`` view of the padded waveforms: the kernel
+reads them through their clip and frame strides.
 
 Forward only: no path of the port differentiates through the spectrogram
 (``mer_tpu`` routes such gradients through its jnp restatement), so a CUDA
@@ -36,8 +46,13 @@ from mer_tpu_torch.ops import _build
 from mer_tpu_torch.ops.logmel import EPS_F64, MelConfig, dft_matrices, hann_window, mel_filterbank
 
 KERNEL = "logmel_fwd"
-_PASS_BINS = 128  # the kernel's bins per pass; two passes cover the 201 bins
-_PASSES = 2
+FFT_RADICES = (8, 5, 5)  # the kernel's Stockham stages over n_fft / 2 = 200 complex points
+MEL_BAND_WIDTH = 9  # bins the kernel reads a mel band over (the widest Slaney triangle at 400 taps spans 9)
+# How the kernel is held where its plain version cannot witness it: a band at or below MEL_NOTCH of its frame's
+# largest band (a spectral notch, where the dense f32 plain version is off a float64 chain beyond 1e-4 in the log) is
+# held to a float64 rfft chain instead, as is every band: within MEL_F64_SHARE of the frame's largest band in the
+# linear domain (the plain version reads up to 1.5e-6 there and would fail it)
+MEL_NOTCH, MEL_F64_SHARE = 1e-2, 1e-6
 
 
 @functools.lru_cache(maxsize=4)
@@ -62,34 +77,57 @@ def logmel_frames_reference(frames: torch.Tensor, cfg: MelConfig = MelConfig()) 
     return torch.log(mag @ mel_w.T + EPS_F64)
 
 
-@functools.lru_cache(maxsize=8)
-def _device_operands(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """The kernel's operands on ``device``: the DFT as [2 passes][n_fft][cos
-    128 | sin 128] (bin pass * 128 + j, zero past the last bin), the
-    filterbank [n_mels, bins], and each band's first and one-past-last
-    nonzero bin (0, 0 for a band with none)."""
-    cos_m, sin_m, mel_w = _host_operands(cfg)
-    bins = cos_m.shape[1]
-    operand = np.zeros((_PASSES, cfg.n_fft, 2 * _PASS_BINS), np.float32)
-    for p in range(_PASSES):
-        cols = slice(p * _PASS_BINS, min((p + 1) * _PASS_BINS, bins))
-        width = cols.stop - cols.start
-        operand[p, :, :width] = cos_m[:, cols]
-        operand[p, :, _PASS_BINS:_PASS_BINS + width] = sin_m[:, cols]
-    lo = np.zeros(cfg.n_mels, np.int32)
-    hi = np.zeros(cfg.n_mels, np.int32)
+def mel_bands_float64(frames: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
+    """The yardstick that ``MEL_NOTCH`` and ``MEL_F64_SHARE`` hold the kernel
+    to, on any device: the mel bands before eps and the log, [B, F, n_mels]
+    float64, through a float64 rfft. No path of the port calls it."""
+    window = torch.from_numpy(hann_window(cfg.win_length)).to(frames.device)
+    bank = torch.from_numpy(_host_operands(cfg)[2]).to(frames.device, torch.float64)
+    return torch.fft.rfft(frames.double() * window).abs() @ bank.T
+
+
+@functools.lru_cache(maxsize=4)
+def fft_tables(cfg: MelConfig) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's float64 tables: the window [n_fft], the twiddles W200^m =
+    exp(-2 pi i m / (n_fft / 2)) as [n_fft / 2, (re, im)] and the unpack
+    factors W400^k = exp(-2 pi i k / n_fft) as [bins, (re, im)]."""
+    half = cfg.n_fft // 2
+    powers = lambda count, n: 2 * np.pi * np.arange(count, dtype=np.float64) / n
+    as_pairs = lambda angle: np.stack([np.cos(angle), -np.sin(angle)], axis=-1)
+    window = hann_window(cfg.win_length).astype(np.float64)
+    return window, as_pairs(powers(half, half)), as_pairs(powers(half + 1, cfg.n_fft))
+
+
+def band_tables(cfg: MelConfig) -> tuple[np.ndarray, np.ndarray]:
+    """The filterbank as the kernel reads it: band m's ``MEL_BAND_WIDTH``
+    weights [n_mels, MEL_BAND_WIDTH] float32 from bin ``start[m]`` on, each
+    window covering the band's nonzeros and held inside the bins (zeros
+    around the triangle add exact zeros)."""
+    mel_w = _host_operands(cfg)[2]
+    bins = mel_w.shape[1]
+    start = np.zeros(cfg.n_mels, np.int32)
     for m in range(cfg.n_mels):
         nz = np.flatnonzero(mel_w[m])
         if len(nz):
-            lo[m], hi[m] = nz[0], nz[-1] + 1
-    return tuple(torch.from_numpy(a).to(device) for a in (operand, mel_w, lo, hi))
+            if nz[-1] - nz[0] >= MEL_BAND_WIDTH:
+                raise ValueError(f"mel band {m} spans {nz[-1] - nz[0] + 1} bins; the kernel reads {MEL_BAND_WIDTH}")
+            start[m] = min(nz[0], bins - MEL_BAND_WIDTH)
+    weights = np.stack([mel_w[m, s:s + MEL_BAND_WIDTH] for m, s in enumerate(start)])
+    return weights, start
+
+
+@functools.lru_cache(maxsize=8)
+def _device_operands(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The kernel's operands on ``device``: :func:`fft_tables` and
+    :func:`band_tables`."""
+    return tuple(torch.from_numpy(a).to(device) for a in (*fft_tables(cfg), *band_tables(cfg)))
 
 
 def _kernel_fn():
     fn = getattr(_build.load(KERNEL), f"mer_{KERNEL}")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 6)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 7)
         fn.restype = ctypes.c_int
     return fn
 
@@ -112,11 +150,11 @@ def logmel_frames(frames: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.T
     out = torch.empty((b, f, cfg.n_mels), dtype=torch.float32, device=frames.device)
     if b == 0 or f == 0:
         return out
-    operand, mel_w, lo, hi = _device_operands(cfg, frames.device)
+    operands = _device_operands(cfg, frames.device)
     with torch.cuda.device(frames.device):
-        rc = _kernel_fn()(frames.data_ptr(), frames.stride(0), frames.stride(1), b, f, n_fft, mel_w.shape[1],
-                          cfg.n_mels, operand.data_ptr(), mel_w.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                          out.data_ptr(), torch.cuda.current_stream(frames.device).cuda_stream)
+        rc = _kernel_fn()(frames.data_ptr(), frames.stride(0), frames.stride(1), b, f, n_fft, cfg.n_freqs,
+                          cfg.n_mels, MEL_BAND_WIDTH, *(t.data_ptr() for t in operands), out.data_ptr(),
+                          torch.cuda.current_stream(frames.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {rc} at frames {tuple(frames.shape)}, "
                            f"strides {frames.stride()}")

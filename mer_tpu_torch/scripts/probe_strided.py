@@ -12,8 +12,9 @@ The input is the TPU probe's: X = arange(256 x 512) mod 1003, f32. On the card
 each probe also reports its device time per call beside its plain version's
 and one torch call's that computes the same function (the library call):
 calls captured in a CUDA graph and replayed between CUDA events, so the
-host's launch cost is left out. On the CPU the plain versions run, so the
-script checks only itself there.
+host's launch cost is left out; beside them, the time of an empty kernel
+timed the same way, the launch-latency floor under every probe. On the CPU
+the plain versions run, so the script checks only itself there.
 """
 
 from __future__ import annotations
@@ -82,6 +83,20 @@ def _kernel_fn():
     return fn
 
 
+def launch_floor_ms() -> float:
+    """Device time per launch of an empty kernel (``mer_probe_launch_floor``),
+    timed as the probes are."""
+    fn = _build.load("probe_strided").mer_probe_launch_floor
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        rc = fn(torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")
+
+    return device_ms(launch, REPS, REPLAYS)
+
+
 def run_probe(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Probe ``name`` through its kernel for CUDA tensors, its plain version
     for CPU tensors. ``run_probe.launches`` counts kernel launches."""
@@ -115,6 +130,8 @@ def main(argv=None) -> dict:
     x, w = probe_input(device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu (plain versions only)"
     print(f"probes on [{T}, {C}] f32, {where}")
+    if device.type == "cuda":
+        print(f"launch floor (an empty kernel) {launch_floor_ms()} ms")
     results = {}
     for name in PROBES:
         got = run_probe(name, x, w)
