@@ -28,12 +28,14 @@ that two runs see the same tokens:
    exactly; K5 at [32, 64, 47 and 3 clips, 1001 or 37 frames, 400 taps],
    on the ``unfold`` view of reflect-padded clips and on materialised
    frames; time kernel, plain version and library call (K5's: the
-   torch.stft -> abs -> baddbmm -> log chain); K7 and K6 at [32 clips, every
-   wave bucket 32,000 .. 160,000 samples] and at a ragged [2, 40,005]
-   (library: the F.conv1d + F.group_norm + F.gelu chain, and six F.conv1d +
-   F.gelu); K8 on the stock layer-0 conv output at [32, 31999, 512], [2,
-   12799, 512] and [3, 301, 512] with 7 valid rows (library: F.group_norm +
-   F.gelu); K1 at the wav2vec2 encoder's shapes [32 or 2, 12, S, S, 64],
+   torch.stft -> abs -> baddbmm -> log chain); K7 and K6 at [32, 16 and 2
+   clips, every wave bucket 32,000 .. 160,000 samples] and at a ragged [2,
+   40,005] (library: the F.conv1d + F.group_norm + F.gelu chain, and six
+   F.conv1d + F.gelu), each also the same bits from two calls; K6's bf16
+   limit shown to fail its output against the plain version of its input
+   shifted by one frame; K8 on the stock layer-0 conv output at [32, 31999,
+   512], [2, 12799, 512] and [3, 301, 512] with 7 valid rows (library:
+   F.group_norm + F.gelu); K1 at the wav2vec2 encoder's shapes [32 or 2, 12, S, S, 64],
    S = 99 .. 499, with padded keys (clip masks: each row keeps L >= S / 2
    keys);
 3b. K3 at Sk = 4,097, 8,192, 16,384 and K4 at 2,049, 4,499, 8,192 ([2, 1, S,
@@ -129,11 +131,12 @@ that two runs see the same tokens:
    within 1e-5 of each frame's largest band in the linear domain, exactly
    log(eps) (rounded once from float64) on silence, the same bits from two
    calls;
-8. one ``{"kernels": [...]}`` line, whose times and bound are per launch,
-   averaged over the main paths' launches at their own shapes (K5's bound
-   from the function's least work, a real FFT and the mel product over the
-   filterbank's nonzeros; P's averaged over its six probes, each probe's row
-   beside it); then the device line last.
+8. per main-path shape of each kernel its launches, time, bound, plain and
+   library time, then one ``{"kernels": [...]}`` line, whose times and bound
+   are per launch, averaged over the main paths' launches at their own
+   shapes (K5's bound from the function's least work, a real FFT and the mel
+   product over the filterbank's nonzeros; P's averaged over its six probes,
+   each probe's row beside it); then the device line last.
 
 Tolerances (kernel against plain version, same inputs, |err| <= atol +
 rtol |want|; every plain attention version runs on the inputs' own dtype and
@@ -225,10 +228,13 @@ LONG_DROPOUT = 0.1  # Wav2Vec2Config.attention_dropout
 # the long-clip wav2vec2 phase: one clip of 45-90 s a dialogue, 8 train / 4 dev / 4 test, the 60 and 90 s buckets
 LONG_SECONDS, LONG_BUCKETS, LONG_BATCH, LONG_STEPS = (45.0, 90.0), (60.0, 90.0), 2, 4
 LONG_SPLITS = {"train_sent_emo.csv": 8, "dev_sent_emo.csv": 4, "test_sent_emo.csv": 4}
-# K7 (clips, samples) and, through T0 = (samples - 10) // 5 + 1, K6 (clips, T0): the export batch at every
-# wave bucket, and a ragged length with an odd last tile
+# K7 (clips, samples) and, through T0 = (samples - 10) // 5 + 1, K6 (clips, T0): the export batch (32), the
+# fine-tuning batch (16) and the evaluation batch (2) at every wave bucket (each its own tile plan, the batch-2
+# ones with split K), and a ragged length with an odd last tile
 W2V_BUCKETS = (32000, 64000, 96000, 128000, 160000)
-W2V_SHAPES = [(32, n) for n in W2V_BUCKETS] + [(2, 40005)]
+W2V_SHAPES = [(b, n) for b in (32, 16, 2) for n in W2V_BUCKETS] + [(2, 40005)]
+# the shifted-input control of K6's bf16 limit: (clips, samples)
+W2V_SHIFT_SHAPES = [(2, 64000), (32, 160000)]
 W2V_EXPORT_BATCH, W2V_LAYERS, W2V_HEADS, W2V_HIDDEN = 32, 12, 12, 768
 # K8 (clips, rows, valid rows): the profile entry's batch, a short batch, a ragged one with few valid rows
 GN_SHAPES = [(32, 31999, 31999), (2, 12799, 12799), (3, 301, 7)]
@@ -684,7 +690,7 @@ def main_path_run():
         return patched
 
     # K5 (frames, clip stride, frame stride, B, F, n_fft, ...); K7 (dtype, 7 pointers, B, L, ...);
-    # K6 (dtype, 6 pointers, B, T0, stream); K8 (dtype, 6 pointers, B, rows, valid rows, ...)
+    # K6 (dtype, 6 pointers, B, T0, plan, ...); K8 (dtype, 6 pointers, B, rows, valid rows, ...)
     mel_tallying = tallying_by(MEL, mel_kernel_fn, lambda a: (
         (a[3], a[4], "contiguous" if a[2] == a[5] else "unfold"), "float32"))
     l0_tallying = tallying_by(W2V0, l0_kernel_fn, lambda a: ((a[8], a[9]), DTYPE_NAMES[a[0]]))
@@ -1243,6 +1249,7 @@ def check_w2v_case(wc, frontend, kernel: str, shape, dtype_name: str, i: int) ->
         library_name = "6 x (F.conv1d -> F.gelu) in the compute dtype, [B, 512, T], a 12-call chain"
     got = call()
     torch.cuda.synchronize()
+    same = torch.equal(got, call())  # no float atomics: two calls give the same bits
     want = plain()
     diff = (got.float() - want.float()).abs()
     if dtype_name == "float32":
@@ -1252,7 +1259,7 @@ def check_w2v_case(wc, frontend, kernel: str, shape, dtype_name: str, i: int) ->
         errs = {"out": diff.max().item() - W2V_BF16_REL * want.float().abs().max().item()}
     row = {"kernel": kernel, "shape": shape, "dtype": dtype_name, "rate": 0.0, "max_abs_err": diff.max().item(),
            "largest_value": want.float().abs().max().item(), "excess": errs,
-           "finite": bool(torch.isfinite(got.float()).all())}
+           "finite": bool(torch.isfinite(got.float()).all()), "same_bits": same}
     del got, want, diff
     time_device = functools.partial(device_ms, reps=2, replays=3)
     row.update(kernel_ms=time_device(call), kernel_eager_ms=eager_ms(call, iters=3, warmup=1),
@@ -1262,10 +1269,32 @@ def check_w2v_case(wc, frontend, kernel: str, shape, dtype_name: str, i: int) ->
                bound_by="bytes" if bytes_us >= ops_us else "operations")
     log("kernel " + json.dumps(row))
     torch.cuda.empty_cache()  # the plain versions' f32 intermediates
-    if not (errs["out"] <= 0 and row["finite"]):
+    if not (errs["out"] <= 0 and row["finite"] and same):
         raise AssertionError(f"{kernel} disagrees with its plain version at {shape} {dtype_name}: "
-                             f"excess over tolerance {errs}")
+                             f"excess over tolerance {errs}, same bits from two calls {same}")
     return row
+
+
+def check_w2v_limit_fails_shifted(wc, frontend) -> None:
+    """K6's bf16 limit has teeth: its output against the plain version of
+    its input shifted by one frame (what a kernel that read tap j + 1 for tap
+    j, or the wrong pair row, would compute) exceeds ``W2V_BF16_REL``, while
+    against the true input it is within, at a split-K batch-2 plan and the
+    export batch's."""
+    first = frontend.conv_layers[0]
+    w0, gamma, beta = first.conv.weight.detach(), first.layer_norm.weight.detach(), first.layer_norm.bias.detach()
+    tail_w = [layer.conv.weight.detach() for layer in frontend.conv_layers[1:]]
+    ratios = {}
+    for b, n in W2V_SHIFT_SHAPES:
+        x0 = wc.layer0_gn(w2v_waveforms(b, n, seed=n), w0, gamma, beta, dtype=torch.bfloat16)
+        got = wc.conv_stack_fused(x0, tail_w)
+        for name, x in (("true", x0), ("shifted", torch.cat([x0[:, 1:], x0[:, -1:]], 1))):
+            want = wc.conv_tail_reference(x, tail_w).float()
+            ratios[f"[{b}, {n}] {name}"] = ((got.float() - want).abs().max() / want.abs().max()).item()
+    log(f"bf16 limit {W2V_BF16_REL} of the largest |value|, K6 against the plain version of its true and of its "
+        f"shifted input: error over the largest |value| {json.dumps(ratios)}")
+    if not all((r > W2V_BF16_REL) == ("shifted" in name) for name, r in ratios.items()):
+        raise AssertionError(f"K6's bf16 limit would pass a kernel reading the wrong frame: {ratios}")
 
 
 @contextlib.contextmanager
@@ -2069,6 +2098,7 @@ def main() -> None:
             rows.append(check_w2v_case(wc, frontend, W2V0, (b, n), dtype, len(rows)))
             t0 = wc.conv_out_length(n, wc.L0_TAPS, wc.L0_STRIDE)
             rows.append(check_w2v_case(wc, frontend, W2V_TAIL, (b, t0), dtype, len(rows)))
+    check_w2v_limit_fails_shifted(wc, frontend)
     for shape in GN_SHAPES:
         for dtype in DTYPES:
             rows.append(check_w2v_case(wc, frontend, GN, shape, dtype, len(rows)))
@@ -2159,7 +2189,8 @@ def main() -> None:
         path = {case: n for case, n in PATH_SHAPES.items() if case[0] == name}
         for case, n in sorted(path.items()):
             r = by_case[case]
-            log(f"main path {case}: {n} launches x kernel {r['kernel_ms']} ms (bound {r['bound_us'] / 1e3} ms)")
+            log(f"main path {case}: {n} launches x kernel {r['kernel_ms']} ms (bound {r['bound_us'] / 1e3} ms, "
+                f"plain {r['plain_ms']} ms, library {r['library_ms']} ms)")
         keys = ("kernel_ms", "plain_ms", "library_ms", "bound_bytes_us", "bound_ops_us")
         total = {key: sum(n * by_case[case][key] for case, n in path.items()) for key in keys}
         n = launches[name]

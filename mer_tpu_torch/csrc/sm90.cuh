@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA loads, the
-// wgmma shared-memory descriptor and the bf16 m64n64k16 wgmma products, and a
-// host helper that encodes TMA descriptors through the driver entry point
-// (so nothing links against libcuda).
+// Hopper (sm_90a) building blocks as inline PTX: mbarriers, named barriers,
+// programmatic dependent launch, TMA loads, the wgmma shared-memory
+// descriptor and the bf16 m64nNk16 wgmma products (N = 64, 128), and host
+// helpers that encode TMA descriptors through the driver entry point (so
+// nothing links against libcuda).
 //
 // Tiles are [64 rows][64 bf16] = 128-byte rows, written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B at a 1024-byte aligned address: 8-row atoms of
@@ -51,6 +52,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "r"(parity)
       : "memory");
 }
+// named barrier `id` (1-15; 0 is __syncthreads') over `count` threads, a multiple of 32
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// programmatic dependent launch: wait until the grid this one depends on has completed and its writes are
+// visible (a no-op when launched without the attribute); let the grid that depends on this one start launching
+// once every block of this one has said so
+__device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 
 // -- TMA --------------------------------------------------------------------------
 
@@ -86,9 +99,10 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving accumulator reads or writes across a wgmma fence or wait
-__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define MER_WGMMA_D32                                                                                            \
@@ -109,6 +123,27 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
       : MER_WGMMA_D32_OPERANDS(d)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
+
+// The m64n128k16 form of wgmma_ss (d[64]): the same operands and fragment layout, the column groups j running
+// to 15.
+#define MER_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define MER_F16(d, i) MER_F4(d, i), MER_F4(d, i + 4), MER_F4(d, i + 8), MER_F4(d, i + 12)
+#define MER_F64(d, i) MER_F16(d, i), MER_F16(d, i + 16), MER_F16(d, i + 32), MER_F16(d, i + 48)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : MER_F64(d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+#undef MER_F4
+#undef MER_F16
+#undef MER_F64
 
 // d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (a[0..3]: rows g, g + 8 at columns 2t, 2t + 1, then at
 // 2t + 8, 2t + 9, as bf16 pairs: the layout of d's columns 16 k .. 16 k + 15), B MN-major in shared memory.
@@ -146,18 +181,23 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor [n_slices][rows][64] as 64 x 64 boxes, 128-byte swizzled; rows past `rows` of a slice read as
-// zeros. false if the driver refuses it.
-inline bool encode_rows64(CUtensorMap* map, const void* base, int rows, int n_slices) {
+// A 3-D bf16 tensor (dims innermost first; strides in bytes of dims 1 and 2, multiples of 16) as boxes of
+// `box` values, 128-byte swizzled (box[0] = 64 values: one 128-byte row); a box's elements outside the dims read
+// as zeros, and nothing outside them is read. false if the driver refuses it.
+inline bool encode_bf16_3d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[3],
+                           const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(n_slices)};
-  const cuuint64_t strides[2] = {64 * 2, static_cast<cuuint64_t>(rows) * 64 * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor [n_slices][rows][64] as 64 x 64 boxes; rows past `rows` of a slice read as zeros.
+inline bool encode_rows64(CUtensorMap* map, const void* base, int rows, int n_slices) {
+  return encode_bf16_3d(map, base, {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(n_slices)},
+                        {64 * 2, static_cast<cuuint64_t>(rows) * 64 * 2}, {64, 64, 1});
 }
 
 }  // namespace sm90

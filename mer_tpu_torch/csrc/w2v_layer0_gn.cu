@@ -11,45 +11,54 @@
 //   out[b,t,c]  = gelu((y - mean) * rsqrt(var + eps) * gamma[c] + beta[c])
 //
 // which is conv1d(k = 10, stride 5, 1 -> 512 channels, no bias), GroupNorm(512
-// groups of one channel) over time, and the exact (erf) GELU. The products and
-// sums are f32 (the wave and the taps hold compute-dtype values), the
-// statistics f32 partials summed in f64, and the output is rounded once, after
-// the GELU.
+// groups of one channel) over time, and the exact (erf) GELU. The output is
+// rounded once, after the GELU.
 //
 // Layout: wave [B, L] T, contiguous; w [10, 512] T, tap-major; gamma, beta
-// [512] f32; out [B, T0, 512] T. Scratch: partial [B, n_tiles, 2, 512] f32
-// (per-tile sum and sum of squares), stats [B, 2, 512] f32 (mean, rstd).
+// [512] f32; out [B, T0, 512] T. Scratch: partial [B, n_tiles, 65] f64 (per
+// tile, the window moments below), stats [B, 2, 512] f32 (per channel the
+// scale rstd * gamma and the shift beta - mean * scale), counters [B] int,
+// zero on entry and left zero.
 //
 // Design. The function writes 512 values for every 5 samples it reads, so the
 // work is the one write of `out`; nothing else of that size may touch device
 // memory. GroupNorm needs all T0 frames of a clip before the first can be
-// normalised, so the conv is computed twice (10 multiply-adds an element,
-// cheaper than a round trip of y through memory):
+// normalised, so two passes read the wave, and y never goes through memory:
 //
-//   pass 1 (stats):    a block of 256 threads takes one (clip, tile of 256
-//                      frames); the tile's 1,285 samples sit in shared memory,
-//                      thread i keeps the taps of channels 2i, 2i + 1 in
-//                      registers and walks the frames (every lane reads the
-//                      same 10 samples: a broadcast), summing y and y^2, and
-//                      writes its 4 sums to `partial`. No atomics: blocks run
-//                      in no order, so each tile owns its slot.
-//   finalize:          one thread per (clip, channel) adds the tiles' partials
-//                      in tile order, in f64, and writes mean and rstd. The
-//                      sums are the same from run to run.
-//   pass 2 (apply):    the same walk, now normalising, GELU, and one store of
-//                      2 channels per thread: a warp writes 64 consecutive
-//                      channels of a frame (128 B in bf16, 256 B in f32).
+//   pass 1 (stats):  y is linear in the 10 samples of its window s_t, so
+//                    sum_t y = w . S and sum_t y^2 = w^T G w with S = sum_t
+//                    s_t and G = sum_t s_t s_t^T: 65 window moments (10 sums,
+//                    55 products) per clip, the same for all 512 channels. A
+//                    block of 260 threads takes one (clip, tile of frames),
+//                    its samples staged as f64, one thread per moment and
+//                    frame group of 4, each product exact in f64 (two f32
+//                    values), and writes the tile's 65
+//                    f64 partials (groups added in a fixed order). No float
+//                    atomics: each tile owns its slot. The last block of a
+//                    clip to finish (an int counter per clip) adds the tiles'
+//                    partials in f64, in tile order as four runs whose sums it
+//                    adds in order, and forms each channel's mean and E[y^2]
+//                    from them in f64: the scale and shift. The sums are the
+//                    same from run to run.
+//   pass 2 (apply):  a block of 256 threads per (clip, tile): 4 frame groups
+//                    of 64 threads, each thread owning 8 channels (their 80
+//                    taps, times the channels' scale, in registers); per frame
+//                    every lane of a warp reads the same 10 samples from
+//                    shared memory (a broadcast), accumulates from the shift
+//                    in f32, applies the GELU and stores 8 channels: 16 bytes
+//                    in bf16, a warp 512 contiguous bytes.
 //
-// Frames t >= T0 of the last tile are never computed, so they stay out of the
+// Tiles of 32-256 frames: the wrapper picks the length from the grid
+// (`ops/w2v_conv.py::conv_plan`) so that batch-2 calls fill the card. Frames
+// t >= T0 of the last tile are never computed, so they stay out of the
 // statistics; samples past L are never read.
 //
 // Bound. At the export batch [32, 160000] bf16 the function reads 10 MB and
 // writes 32 x 31,999 x 512 x 2 B = 1.05 GB: about 0.31 ms at 3.35 TB/s, against
-// 10.5 GFLOP of products (x 2 passes here), 0.3 ms at the 67 TFLOP/s of the f32
-// CUDA cores. Bound by bytes; the instruction stream of pass 2 (10 shared
-// loads, 20 FMA, two erff and the stores per frame and thread) is what this
-// version pays on top. Tensor cores have nothing to do here: the contraction is
-// 10 long.
+// 10.5 GFLOP of products, 0.16 ms at the 67 TFLOP/s of the f32 CUDA cores.
+// Bound by bytes; the instruction stream of pass 2 (10 broadcast loads, 80
+// FMA, 8 erff and a 16-byte store per frame and thread) is what it pays on
+// top. Tensor cores have nothing to do here: the contraction is 10 long.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,149 +70,218 @@ namespace {
 constexpr int kC = 512;                                 // channels
 constexpr int kTaps = 10;
 constexpr int kStride = 5;
-constexpr int kThreads = kC / 2;                        // 2 channels per thread
-constexpr int kTileT = 256;                             // frames per block
-constexpr int kWin = kStride * (kTileT - 1) + kTaps;    // samples a tile reads: 1,285
+constexpr int kMoments = kTaps + kTaps * (kTaps + 1) / 2;  // 65: sums s_j, then products s_j s_k (j <= k)
+constexpr int kStatGroups = 4;                           // frame groups of the stats pass
+constexpr int kStatThreads = kMoments * kStatGroups;     // 260
+constexpr int kVec = 8;                                  // channels a thread of the apply pass owns
+constexpr int kApplyGroups = 4;                          // frame groups of the apply pass
+constexpr int kApplyThreads = kApplyGroups * kC / kVec;  // 256
+constexpr int kMaxTile = 256;                            // frames per block, at most
+constexpr int kMaxWin = kStride * (kMaxTile - 1) + kTaps;  // samples a tile reads: 1,285
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752440f));
 }
 
-// The tile's samples into shared memory (zeros past L) and this thread's taps
-// into registers; returns the number of frames of the tile (<= kTileT).
-template <typename T>
-__device__ __forceinline__ int stage_tile(const T* __restrict__ wave, int L, int T0, const T* __restrict__ w,
-                                          float* win_s, float (&w0)[kTaps], float (&w1)[kTaps]) {
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kTileT;
-  const T* clip = wave + (size_t)blockIdx.y * L;
-  const int s0 = t0 * kStride;
-  for (int i = tid; i < kWin; i += kThreads) win_s[i] = s0 + i < L ? to_f32(clip[s0 + i]) : 0.f;
+// 8 channels' values from 16 (bf16) or 32 (f32) bytes
+__device__ __forceinline__ void load8(const float* p, float (&v)[kVec]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[kVec]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int j = 0; j < kTaps; ++j) {
-    w0[j] = to_f32(w[j * kC + 2 * tid]);
-    w1[j] = to_f32(w[j * kC + 2 * tid + 1]);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x, v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[kVec]) {
+  uint4 raw;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// The samples of tile blockIdx.x of clip blockIdx.y into win_s (f32, or f64 for the stats pass); returns the
+// tile's frame count (<= tile).
+template <typename T, typename S>
+__device__ __forceinline__ int stage_tile(const T* __restrict__ wave, int L, int T0, int tile, S* win_s) {
+  const int t0 = blockIdx.x * tile;
+  const int n_frames = min(tile, T0 - t0);
+  const int n_samples = kStride * (n_frames - 1) + kTaps;  // <= L - 5 t0: frame T0 - 1 ends inside the clip
+  const T* src = wave + (size_t)blockIdx.y * L + (size_t)t0 * kStride;
+  for (int i = threadIdx.x; i < n_samples; i += blockDim.x) win_s[i] = (S)to_f32(src[i]);
+  __syncthreads();
+  return n_frames;
+}
+
+// moment q: the sum of s_q (q < 10), else the sum of s_j s_k, (j, k) the (q - 10)-th pair j <= k in row order
+__device__ __forceinline__ void moment_taps(int q, int& j, int& k) {
+  j = q, k = -1;
+  if (q < kTaps) return;
+  int r = q - kTaps;
+  for (j = 0; r >= kTaps - j; ++j) r -= kTaps - j;
+  k = j + r;
+}
+
+// pass 1: grid (n_tiles, B), kStatThreads threads
+template <typename T>
+__global__ void __launch_bounds__(kStatThreads, 2)
+w2v_layer0_stats_kernel(const T* __restrict__ wave, int L, int T0, int tile, const T* __restrict__ w,
+                        const float* __restrict__ gamma, const float* __restrict__ beta, float eps,
+                        double* __restrict__ partial, float* __restrict__ stats, int* __restrict__ counters) {
+  __shared__ double win_s[kMaxWin];  // converted once: the products below take two f64 values each
+  __shared__ double red[kStatGroups][kMoments];
+  __shared__ double mom[kMoments];
+  __shared__ int last;
+  const int n_frames = stage_tile(wave, L, T0, tile, win_s);
+  const int grp = threadIdx.x / kMoments, q = threadIdx.x - grp * kMoments;
+  int j, k;
+  moment_taps(q, j, k);
+  double acc = 0.0;
+  if (k < 0) {
+    for (int i = grp; i < n_frames; i += kStatGroups) acc += win_s[kStride * i + j];
+  } else {
+    for (int i = grp; i < n_frames; i += kStatGroups) acc = fma(win_s[kStride * i + j], win_s[kStride * i + k], acc);
+  }
+  red[grp][q] = acc;
+  __syncthreads();
+  const int b = blockIdx.y;
+  if (threadIdx.x < kMoments)
+    partial[((size_t)b * gridDim.x + blockIdx.x) * kMoments + threadIdx.x] =
+        ((red[0][threadIdx.x] + red[1][threadIdx.x]) + red[2][threadIdx.x]) + red[3][threadIdx.x];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&counters[b], 1) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+
+  // the clip's last tile: its statistics, from every tile's partials in tile order
+  __threadfence();
+  {  // moment q over the tiles in tile order, as four runs of tiles (one a frame group), kBatch loads in flight
+    constexpr int kBatch = 16;
+    const int n = gridDim.x, lo = grp * n / kStatGroups, hi = (grp + 1) * n / kStatGroups;
+    const double* p = partial + ((size_t)b * n + lo) * kMoments + q;
+    double sum = 0.0;
+    int i = 0;
+    for (; i + kBatch <= hi - lo; i += kBatch) {
+      double v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) v[u] = __ldcg(p + (size_t)(i + u) * kMoments);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) sum += v[u];
+    }
+    for (; i < hi - lo; ++i) sum += __ldcg(p + (size_t)i * kMoments);
+    red[grp][q] = sum;
   }
   __syncthreads();
-  return min(kTileT, T0 - t0);
-}
-
-__device__ __forceinline__ void conv_frame(const float* win, const float (&w0)[kTaps], const float (&w1)[kTaps],
-                                           float& y0, float& y1) {
-  y0 = 0.f;
-  y1 = 0.f;
+  if (threadIdx.x < kMoments) mom[threadIdx.x] = (((red[0][q] + red[1][q]) + red[2][q]) + red[3][q]) / T0;
+  __syncthreads();
+  for (int c = threadIdx.x; c < kC; c += kStatThreads) {
+    double wc[kTaps];
 #pragma unroll
-  for (int j = 0; j < kTaps; ++j) {
-    const float s = win[j];
-    y0 = fmaf(s, w0[j], y0);
-    y1 = fmaf(s, w1[j], y1);
+    for (int t = 0; t < kTaps; ++t) wc[t] = (double)to_f32(w[t * kC + c]);
+    double mean = 0.0, sq = 0.0;
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) mean = fma(wc[t], mom[t], mean);
+    int m = kTaps;
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t)
+#pragma unroll
+      for (int u = t; u < kTaps; ++u, ++m) sq = fma((t == u ? 1.0 : 2.0) * wc[t] * wc[u], mom[m], sq);
+    const double var = fmax(sq - mean * mean, 0.0);
+    const double scale = (double)gamma[c] / sqrt(var + (double)eps);
+    stats[(size_t)b * 2 * kC + c] = (float)scale;
+    stats[(size_t)b * 2 * kC + kC + c] = (float)((double)beta[c] - mean * scale);
   }
+  if (threadIdx.x == 0) counters[b] = 0;
 }
 
+// pass 2: grid (n_tiles, B), kApplyThreads threads
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-w2v_layer0_stats_kernel(const T* __restrict__ wave, int L, int T0, const T* __restrict__ w,
-                        float* __restrict__ partial) {
-  __shared__ float win_s[kWin + 3];
-  float w0[kTaps], w1[kTaps];
-  const int n_frames = stage_tile(wave, L, T0, w, win_s, w0, w1);
-  float sum0 = 0.f, sum1 = 0.f, sq0 = 0.f, sq1 = 0.f;
-  for (int i = 0; i < n_frames; ++i) {
-    float y0, y1;
-    conv_frame(win_s + i * kStride, w0, w1, y0, y1);
-    sum0 += y0;
-    sum1 += y1;
-    sq0 = fmaf(y0, y0, sq0);
-    sq1 = fmaf(y1, y1, sq1);
-  }
-  float* slot = partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * kC + 2 * threadIdx.x;
-  store2(slot, sum0, sum1);
-  store2(slot + kC, sq0, sq1);
-}
-
-// grid B, block 512: thread c of clip b sums the tiles' partials in tile order.
-__global__ void __launch_bounds__(kC)
-w2v_layer0_finalize_kernel(const float* __restrict__ partial, int n_tiles, int T0, float eps,
-                           float* __restrict__ stats) {
-  const int c = threadIdx.x;
-  const float* p = partial + (size_t)blockIdx.x * n_tiles * 2 * kC + c;
-  double sum = 0.0, sq = 0.0;
-  for (int i = 0; i < n_tiles; ++i) {
-    sum += (double)p[(size_t)i * 2 * kC];
-    sq += (double)p[(size_t)i * 2 * kC + kC];
-  }
-  const double mean = sum / T0;
-  const double var = fmax(sq / T0 - mean * mean, 0.0);
-  stats[(size_t)blockIdx.x * 2 * kC + c] = (float)mean;
-  stats[(size_t)blockIdx.x * 2 * kC + kC + c] = (float)(1.0 / sqrt(var + (double)eps));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-w2v_layer0_apply_kernel(const T* __restrict__ wave, int L, int T0, const T* __restrict__ w,
-                        const float* __restrict__ stats, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, T* __restrict__ out) {
-  __shared__ float win_s[kWin + 3];
-  float w0[kTaps], w1[kTaps];
-  const int n_frames = stage_tile(wave, L, T0, w, win_s, w0, w1);
-  const int c = 2 * threadIdx.x;
+__global__ void __launch_bounds__(kApplyThreads)
+w2v_layer0_apply_kernel(const T* __restrict__ wave, int L, int T0, int tile, const T* __restrict__ w,
+                        const float* __restrict__ stats, T* __restrict__ out) {
+  __shared__ float win_s[kMaxWin + 3];
+  const int n_frames = stage_tile(wave, L, T0, tile, win_s);
+  const int grp = threadIdx.x / (kC / kVec), c0 = kVec * (threadIdx.x % (kC / kVec));
   const float* st = stats + (size_t)blockIdx.y * 2 * kC;
-  const float mean0 = st[c], mean1 = st[c + 1];
-  const float rstd0 = st[kC + c], rstd1 = st[kC + c + 1];
-  const float g0 = gamma[c], g1 = gamma[c + 1], b0 = beta[c], b1 = beta[c + 1];
-  T* dst = out + ((size_t)blockIdx.y * T0 + (size_t)blockIdx.x * kTileT) * kC + c;
-  for (int i = 0; i < n_frames; ++i) {
-    float y0, y1;
-    conv_frame(win_s + i * kStride, w0, w1, y0, y1);
-    y0 = fmaf((y0 - mean0) * rstd0, g0, b0);
-    y1 = fmaf((y1 - mean1) * rstd1, g1, b1);
-    store2(dst + (size_t)i * kC, gelu_exact(y0), gelu_exact(y1));
+  float scale[kVec], shift[kVec], wt[kTaps][kVec];
+  load8(st + c0, scale);
+  load8(st + kC + c0, shift);
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) {
+    load8(w + t * kC + c0, wt[t]);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) wt[t][e] *= scale[e];
+  }
+  T* dst = out + ((size_t)blockIdx.y * T0 + (size_t)blockIdx.x * tile) * kC + c0;
+  for (int i = grp; i < n_frames; i += kApplyGroups) {
+    const float* s = win_s + kStride * i;
+    float y[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) y[e] = shift[e];
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) {
+      const float v = s[t];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) y[e] = fmaf(v, wt[t][e], y[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) y[e] = gelu_exact(y[e]);
+    store8(dst + (size_t)i * kC, y);
   }
 }
 
 template <typename T>
-int launch(const void* wave, const void* w, const float* gamma, const float* beta, float* partial, float* stats,
-           void* out, int B, int L, int T0, int n_tiles, float eps, cudaStream_t stream) {
+int launch(const void* wave, const void* w, const float* gamma, const float* beta, double* partial, float* stats,
+           void* out, int B, int L, int T0, int tile, int n_tiles, float eps, int* counters, cudaStream_t stream) {
   const dim3 grid(n_tiles, B);
-  w2v_layer0_stats_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(wave), L, T0,
-                                                            static_cast<const T*>(w), partial);
-  cudaError_t err = cudaGetLastError();
+  w2v_layer0_stats_kernel<T><<<grid, kStatThreads, 0, stream>>>(static_cast<const T*>(wave), L, T0, tile,
+                                                                static_cast<const T*>(w), gamma, beta, eps, partial,
+                                                                stats, counters);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  w2v_layer0_finalize_kernel<<<B, kC, 0, stream>>>(partial, n_tiles, T0, eps, stats);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  w2v_layer0_apply_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(wave), L, T0,
-                                                            static_cast<const T*>(w), stats, gamma, beta,
-                                                            static_cast<T*>(out));
+  w2v_layer0_apply_kernel<T><<<grid, kApplyThreads, 0, stream>>>(static_cast<const T*>(wave), L, T0, tile,
+                                                                 static_cast<const T*>(w), stats,
+                                                                 static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype 0 = float32, 1 = bfloat16 (wave, w, out); gamma, beta, partial, stats f32.
-// n_tiles must be ceil(T0 / 256), the tiling `partial` was sized for. Returns the
-// cudaError_t of the first launch that failed, or 0.
+// dtype 0 = float32, 1 = bfloat16 (wave, w, out); gamma, beta, stats f32,
+// partial f64 [B, n_tiles, 65], counters [B] int (zero on entry, left zero).
+// tile (frames per block) is 1 .. 256 and n_tiles = ceil(T0 / tile), the
+// tiling partial was sized for; w, stats and out 16-byte aligned. Two
+// launches. Returns the cudaError_t of the first launch that failed, or 0.
 extern "C" int mer_w2v_layer0_gn(int dtype, const void* wave, const void* w, const void* gamma, const void* beta,
-                                 void* partial, void* stats, void* out, int B, int L, int T0, int n_tiles,
-                                 float eps, void* stream) {
-  if (B <= 0 || B > 65535 || L < kTaps || T0 != (L - kTaps) / kStride + 1 ||
-      n_tiles != (T0 + kTileT - 1) / kTileT || (dtype != 0 && dtype != 1))
+                                 void* partial, void* stats, void* out, int B, int L, int T0, int tile, int n_tiles,
+                                 float eps, void* counters, void* stream) {
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (B <= 0 || B > 65535 || L < kTaps || T0 != (L - kTaps) / kStride + 1 || tile < 1 || tile > kMaxTile ||
+      n_tiles != (T0 + tile - 1) / tile || (dtype != 0 && dtype != 1) || !aligned(w) || !aligned(stats) ||
+      !aligned(out) || counters == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
-  float* p = static_cast<float*>(partial);
+  double* p = static_cast<double*>(partial);
   float* st = static_cast<float*>(stats);
-  return dtype == 0 ? launch<float>(wave, w, g, b, p, st, out, B, L, T0, n_tiles, eps, s)
-                    : launch<__nv_bfloat16>(wave, w, g, b, p, st, out, B, L, T0, n_tiles, eps, s);
+  int* cnt = static_cast<int*>(counters);
+  return dtype == 0 ? launch<float>(wave, w, g, b, p, st, out, B, L, T0, tile, n_tiles, eps, cnt, s)
+                    : launch<__nv_bfloat16>(wave, w, g, b, p, st, out, B, L, T0, tile, n_tiles, eps, cnt, s);
 }

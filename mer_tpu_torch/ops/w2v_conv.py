@@ -9,7 +9,12 @@ Replaces the TPU kernels of ``mer_tpu/ops/w2v_conv_pallas.py``:
   (clip, channel) statistics over all T0 frames -> exact GELU -> [B, T0, 512].
 - K6, :func:`conv_stack_fused`: ``conv_stack_fused`` (``:467``; ``_kernel``
   ``:135``), conv layers 1..6 (k 3, 3, 3, 3, 2, 2, stride 2, 512 -> 512, no
-  bias) with the exact GELU after each: [B, T0, 512] -> [B, T6, 512].
+  bias) with the exact GELU after each: [B, T0, 512] -> [B, T6, 512]. Its
+  bf16 path is Hopper's: per layer an implicit GEMM on ``wgmma`` whose
+  operands TMA brings into an ``mbarrier`` ring under a producer warp, the
+  layer-0 frames read as pair rows and even frames (the TPU kernel's
+  ``_fold_pairs``), so that every load stays inside the tensor; the f32 path
+  runs on the CUDA cores.
 - K8, :func:`gn_gelu`: ``gn_gelu_pallas`` (``:345``; ``_gn_stats_kernel``
   ``:320`` and ``_gn_apply_kernel`` ``:335``), the GroupNorm(512, 512) and
   exact GELU alone, on a layer-0 conv output [B, T, 512] that something else
@@ -20,7 +25,12 @@ Replaces the TPU kernels of ``mer_tpu/ops/w2v_conv_pallas.py``:
 
 The CUDA sources are ``mer_tpu_torch/csrc/w2v_layer0_gn.cu``,
 ``w2v_conv_tail.cu`` and ``w2v_gn_gelu.cu``; their headers state the design
-and the bound. The wrappers launch them for CUDA tensors, with no switch and
+and the bound. :func:`conv_plan` sizes K7's and K6's tiles from the grid,
+so that batch-2 calls fill the card's 132 SMs: K7's tile length, and per K6
+layer a 128 x 128 or 64 x 128 tile and, where even the smaller leaves SMs
+idle, K split into parts that the kernel adds in a fixed order (no float
+atomics: two calls give the same bits). The wrappers launch them for CUDA
+tensors, with no switch and
 no fallback, and take the plain versions (:func:`layer0_gn_reference`,
 :func:`conv_tail_reference`, :func:`gn_gelu_reference`) only for CPU tensors. The kernels know the base geometry only; any other
 raises ``ValueError`` on the card, while the plain versions take any.
@@ -46,7 +56,9 @@ stock route, whenever the frontend trains.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import dataclasses
+import weakref
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -60,9 +72,17 @@ CHANNELS = 512
 L0_TAPS, L0_STRIDE = 10, 5
 TAIL_TAPS = (3, 3, 3, 3, 2, 2)
 TAIL_STRIDES = (2, 2, 2, 2, 2, 2)
-_L0_TILE = 256  # frames per block of K7's passes (kTileT in the source)
 _GN_TILE = 128  # rows per block of K8's passes (kTileT in the source)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132  # streaming multiprocessors of the H100 SXM: a grid of fewer blocks leaves some idle
+L0_TILES = (256, 128, 64, 32)  # K7's frames per block, by preference
+L0_BLOCKS_PER_SM = 2  # K7's apply blocks resident per SM (256 threads of 128 registers)
+L0_MOMENTS = 65  # K7's window moments per tile: 10 sums and 55 products (kMoments in the source)
+TAIL_TILES = (2, 1)  # K6's bf16 tiles by preference: consumer warpgroups of 64 frames (128 x 128, 64 x 128)
+TAIL_TILE_CHANNELS = 128  # output channels of every K6 bf16 tile (kBN in the source)
+TAIL_K_SLICE = 64  # k per stage of K6's ring (kBK in the source)
+_CACHE_SIZE = 4  # restacked weight sets kept (see _restacked)
+_restacked_cache: list = []
 
 
 def conv_out_length(length: int, taps: int, stride: int) -> int:
@@ -76,6 +96,53 @@ def tail_lengths(t0: int) -> list[int]:
         t0 = conv_out_length(t0, k, s)
         out.append(t0)
     return out
+
+
+def tail_blocks(clips: int, t_out: int, warpgroups: int, splits: int = 1) -> int:
+    """Blocks of one K6 layer's grid: (512 / 128, ceil(t_out / (64 warpgroups)), clips x splits)."""
+    return (CHANNELS // TAIL_TILE_CHANNELS) * -(-t_out // (64 * warpgroups)) * clips * splits
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How K7 and K6's bf16 path tile one call: ``l0_tile`` frames per K7
+    block (both passes), and per K6 layer (consumer warpgroups, K splits)
+    of its 128-channel tile."""
+
+    l0_tile: int
+    tail: tuple[tuple[int, int], ...]
+
+
+def conv_plan(clips: int, t0: int) -> ConvPlan:
+    """The tiles of a call on ``clips`` clips of ``t0`` layer-0 frames, chosen
+    from the grid so that it fills the card. K7: the longest tile of
+    ``L0_TILES`` whose grid gives every SM ``L0_BLOCKS_PER_SM`` blocks, else
+    the shortest. K6, per layer: the first tile of ``TAIL_TILES`` (128 x 128,
+    then 64 x 128) whose grid has a block for every SM; where even 64 x 128
+    does not, K splits into the fewest parts that reach one block per SM, at
+    most one per two K slices."""
+    l0 = next((t for t in L0_TILES if clips * -(-t0 // t) >= L0_BLOCKS_PER_SM * SMS), L0_TILES[-1])
+    tail = []
+    for taps, t_out in zip(TAIL_TAPS, tail_lengths(t0)):
+        if t_out <= 0:  # no frame left: the wrapper refuses such a call
+            break
+        wg = next((wg for wg in TAIL_TILES if tail_blocks(clips, t_out, wg) >= SMS), TAIL_TILES[-1])
+        blocks = tail_blocks(clips, t_out, wg)
+        most = taps * CHANNELS // TAIL_K_SLICE // 2  # two K slices a split at least
+        tail.append((wg, 1 if blocks >= SMS else min(-(-SMS // blocks), most)))
+    return ConvPlan(l0, tuple(tail))
+
+
+def tail_scratch(clips: int, t0: int, plan: ConvPlan) -> tuple[int, int]:
+    """(f32 values, int counters) of K6's split-K scratch for ``plan``: what
+    the split layer that needs most takes (0, 0 when no layer splits)."""
+    values = counters = 0
+    for (warpgroups, splits), t_out in zip(plan.tail, tail_lengths(t0)):
+        if splits > 1:
+            tiles = tail_blocks(clips, t_out, warpgroups)
+            counters = max(counters, tiles)
+            values = max(values, tiles * splits * 64 * warpgroups * TAIL_TILE_CHANNELS)
+    return values, counters
 
 
 # -- plain versions --------------------------------------------------------------
@@ -158,6 +225,30 @@ def _on_card(what: str, x: torch.Tensor, *params: torch.Tensor) -> bool:
     return True
 
 
+def _restacked(kind: str, weights: Sequence[torch.Tensor], dtype: torch.dtype,
+               make: Callable[[], object]):
+    """``make()``, the kernels' copy of ``weights`` in ``dtype``, kept for the
+    next call with the same tensors: the same objects (held by weak
+    reference, so a freed tensor never matches) on the same storage (an
+    assignment to ``.data``, as ``Module.to`` makes, moves it) at the same
+    versions (an in-place update, such as an optimizer step, bumps a
+    tensor's version). An in-place write through ``w.data`` bumps neither
+    and is not seen: write weights in place under ``torch.no_grad()``, as
+    optimizers and ``load_state_dict`` do. A forward would otherwise cast
+    and restack 8.4 MB of weights every call. Inference tensors keep no
+    version, so their copy is made anew."""
+    if any(w.is_inference() for w in weights):
+        return make()
+    key = (kind, dtype, tuple(w._version for w in weights), tuple(w.data_ptr() for w in weights))
+    for entry in _restacked_cache:
+        if entry[0] == key and all(r() is w for r, w in zip(entry[1], weights)):
+            return entry[2]
+    value = make()
+    _restacked_cache.append((key, tuple(weakref.ref(w) for w in weights), value))
+    del _restacked_cache[:-_CACHE_SIZE]
+    return value
+
+
 def check_layer0_geometry(weight: torch.Tensor, stride: int) -> None:
     """Raise unless (weight, stride) is the base layer 0, the only one K7 knows."""
     if tuple(weight.shape) != (CHANNELS, 1, L0_TAPS) or stride != L0_STRIDE:
@@ -176,7 +267,8 @@ def check_tail_geometry(weights: Sequence[torch.Tensor], strides: Sequence[int])
 def _l0_kernel_fn():
     fn = getattr(_build.load(L0_KERNEL), f"mer_{L0_KERNEL}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] + \
+            [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return fn
 
@@ -184,7 +276,8 @@ def _l0_kernel_fn():
 def _tail_kernel_fn():
     fn = getattr(_build.load(TAIL_KERNEL), f"mer_{TAIL_KERNEL}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + \
+            [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -194,7 +287,8 @@ def layer0_gn(wave: torch.Tensor, weight: torch.Tensor, gamma: torch.Tensor, bet
     """wave [B, L] -> [B, T0, C] in ``dtype``: kernel K7 for CUDA tensors (the
     base geometry only: k 10, stride 5, 512 channels), the plain version for
     CPU tensors. ``layer0_gn.launches`` counts kernel launches (one per call:
-    the stats, finalize and apply grids)."""
+    the stats grid, whose last block per clip finalizes, and the apply grid,
+    after a fill that zeroes the B per-clip counters)."""
     if not _on_card("layer-0", wave, weight, gamma, beta):
         return layer0_gn_reference(wave, weight, gamma, beta, stride=stride, eps=eps, dtype=dtype)
     check_layer0_geometry(weight, stride)
@@ -209,15 +303,18 @@ def layer0_gn(wave: torch.Tensor, weight: torch.Tensor, gamma: torch.Tensor, bet
     if b == 0:
         return out
     wave = wave.to(dtype).contiguous()
-    taps = weight.detach().to(dtype)[:, 0, :].t().contiguous()  # [10, 512], tap-major
+    taps = _restacked("l0", [weight], dtype,
+                      lambda: weight.detach().to(dtype)[:, 0, :].t().contiguous())  # [10, 512], tap-major
     gamma, beta = (p.detach().float().contiguous() for p in (gamma, beta))
-    n_tiles = -(-t0 // _L0_TILE)
-    partial = torch.empty((b, n_tiles, 2, CHANNELS), dtype=torch.float32, device=wave.device)
+    tile = conv_plan(b, t0).l0_tile
+    n_tiles = -(-t0 // tile)
+    partial = torch.empty((b, n_tiles, L0_MOMENTS), dtype=torch.float64, device=wave.device)
     stats = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=wave.device)
+    counters = torch.zeros(b, dtype=torch.int32, device=wave.device)
     with torch.cuda.device(wave.device):
         rc = _l0_kernel_fn()(_DTYPE_CODE[dtype], wave.data_ptr(), taps.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                             partial.data_ptr(), stats.data_ptr(), out.data_ptr(), b, length, t0, n_tiles, float(eps),
-                             torch.cuda.current_stream(wave.device).cuda_stream)
+                             partial.data_ptr(), stats.data_ptr(), out.data_ptr(), b, length, t0, tile, n_tiles,
+                             float(eps), counters.data_ptr(), torch.cuda.current_stream(wave.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{L0_KERNEL} launch failed: cudaError {rc} at wave {tuple(wave.shape)} {dtype}")
     layer0_gn.launches += 1
@@ -241,7 +338,8 @@ def conv_stack_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """x [B, T0, C] (the layer-0 output, in the compute dtype) -> [B, T6, C]:
     kernel K6 for CUDA tensors (the base geometry only), the plain version
     for CPU tensors. ``conv_stack_fused.launches`` counts kernel launches (one
-    per call: six grids, one per layer)."""
+    per call: six grids, one per layer, tiled by :func:`conv_plan`, after a
+    fill that zeroes the split tiles' counters where a layer splits K)."""
     if not _on_card("conv-tail", x, *weights):
         return conv_tail_reference(x, weights, strides)
     check_tail_geometry(weights, strides)
@@ -258,11 +356,20 @@ def conv_stack_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
     out = new(lengths[-1])
     if b == 0:
         return out
-    w3, w2 = stack_tail_weights(weights, x.dtype)
+    if x.data_ptr() % 16:
+        raise ValueError("the conv-tail kernel reads x through TMA, which needs a 16-byte aligned start")
+    w3, w2 = _restacked("tail", weights, x.dtype, lambda: stack_tail_weights(weights, x.dtype))
     buf_a, buf_b = new(lengths[0]), new(lengths[1])
+    plan = conv_plan(b, t0)
+    values, n_counters = tail_scratch(b, t0, plan) if x.dtype == torch.bfloat16 else (0, 0)
+    partial = torch.empty(values, dtype=torch.float32, device=x.device) if values else None
+    counters = torch.zeros(n_counters, dtype=torch.int32, device=x.device) if n_counters else None
+    plan_ints = (ctypes.c_int * (2 * len(plan.tail)))(*(v for layer in plan.tail for v in layer))
     with torch.cuda.device(x.device):
         rc = _tail_kernel_fn()(_DTYPE_CODE[x.dtype], x.data_ptr(), w3.data_ptr(), w2.data_ptr(), buf_a.data_ptr(),
-                               buf_b.data_ptr(), out.data_ptr(), b, t0,
+                               buf_b.data_ptr(), out.data_ptr(), b, t0, plan_ints,
+                               None if partial is None else partial.data_ptr(), values,
+                               None if counters is None else counters.data_ptr(), n_counters,
                                torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{TAIL_KERNEL} launch failed: cudaError {rc} at x {tuple(x.shape)} {x.dtype}")

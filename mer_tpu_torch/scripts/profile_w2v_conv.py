@@ -3,7 +3,7 @@ against the variants that put part of it into the port's kernels (counterpart
 of ``scripts/profile_w2v_conv.py``).
 
     python -m mer_tpu_torch.scripts.profile_w2v_conv [batch] [seconds]
-        [--fused] [--l0fused] [--gnfused] [--f32] [--device cuda|cpu] [--repeats N]
+        [--fused] [--l0fused] [--gnfused] [--f32] [--device cuda|cpu] [--repeats N] [--trace]
 
 The stock stack is ``conv_stack_stock`` (7 x ``F.conv1d``, ``F.group_norm`` with
 float32 statistics, exact GELU: cuDNN on the card). The variants, all of
@@ -19,13 +19,19 @@ two clips (largest difference over the stock stack's largest value), then the
 time per batch (CUDA events around ``--repeats`` calls on the card; a host
 clock on the CPU, labelled so) and the conv products' TFLOP/s with their share
 of the card's dense peak for the compute dtype (989 TFLOP/s bf16 on the tensor
-cores, 67 TFLOP/s float32 outside them: the H100 SXM data sheet). Default:
-batch 32, 10 s clips, bf16, seeded weights.
+cores, 67 TFLOP/s float32 outside them: the H100 SXM data sheet). ``--trace``
+(card only) adds, for each variant besides the stock stack, every launch of
+one call in order with its device time (torch.profiler's trace), and each of
+K6's six layer grids with its share of that peak. Default: batch 32, 10 s
+clips, bf16, seeded weights.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -39,14 +45,36 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 SAMPLE_RATE = 16000
 
 
-def conv_flops(cfg: Wav2Vec2Config, batch: int, length: int) -> float:
-    """Multiply-adds x 2 of the seven convs on ``batch`` clips of ``length`` samples."""
-    total, c_in = 0.0, 1
+def layer_flops(cfg: Wav2Vec2Config, batch: int, length: int) -> list[float]:
+    """Multiply-adds x 2 of each of the seven convs on ``batch`` clips of ``length`` samples."""
+    flops, c_in = [], 1
     for dim, k, s in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
         length = (length - k) // s + 1
-        total += 2.0 * length * k * c_in * dim
+        flops.append(2.0 * length * k * c_in * dim * batch)
         c_in = dim
-    return total * batch
+    return flops
+
+
+def conv_flops(cfg: Wav2Vec2Config, batch: int, length: int) -> float:
+    """Multiply-adds x 2 of the seven convs on ``batch`` clips of ``length`` samples."""
+    return sum(layer_flops(cfg, batch, length))
+
+
+def launches_us(fn) -> list[tuple[str, float]]:
+    """(kernel name, device us) of every launch and fill of one call of ``fn``
+    on the card, in order, from torch.profiler's trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memset")), key=lambda e: e["ts"])
+    return [(e["name"], float(e["dur"])) for e in kernels]
 
 
 def timed_ms(fn, repeats: int, device: torch.device) -> float:
@@ -100,6 +128,7 @@ def main(argv=None) -> dict:
     p.add_argument("--f32", action="store_true", help="float32 compute (default bf16)")
     p.add_argument("--repeats", type=int, default=20)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--trace", action="store_true", help="each launch of one call with its device time (card only)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     dtype = torch.float32 if args.f32 else torch.bfloat16
@@ -135,6 +164,14 @@ def main(argv=None) -> dict:
                              "max_rel_err": rel}
             print(f"{name}_conv: {ms:8.3f} ms/batch  {rate / 1e12:6.1f} TFLOP/s  "
                   f"({rate / PEAK_FLOPS[dtype] * 100:4.1f}% of the card's dense {dtype} peak)")
+            if args.trace and name != "stock":
+                trace = launches_us(lambda: fns[name](wave))
+                tail = iter(layer_flops(cfg, args.batch, length)[1:])  # K6's grids are layers 1..6 in order
+                for kernel, us in trace:
+                    share = f"  {next(tail) / (us * 1e-6) / PEAK_FLOPS[dtype] * 100:4.1f}% of the peak" \
+                        if "w2v_conv_s2_gelu" in kernel else ""
+                    print(f"  {us:9.1f} us  {kernel[:90]}{share}")
+                results[name]["launches_us"] = trace
     return results
 
 
