@@ -47,7 +47,9 @@ that two runs see the same tokens:
    ``BWD_FUSED_MAX`` keys) on the same inputs ([2, 2, S, S, 64]); the bf16
    limits shown to fail a K1, K2, K3 and K4 that read the wrong key tiles;
    K3's and K4's dropout masks read off exactly in f32 and bf16 (K4's at Dh
-   64, over three 64-row windows of g);
+   64, over three 64-row windows of g; K3's also at Dh 64, over two 64-key
+   windows of v: its Hopper design in bf16); K3 also the same bits from two
+   calls at every case;
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -83,7 +85,8 @@ that two runs see the same tokens:
    ``mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings`` over the
    three splits of that root in batches of 32 (per batch: K7 once, K6 once,
    K1 12 times; no other kernel), [N, 768] finite tables that
-   ``load_embeddings`` reads back; clips per second on the test split and one
+   ``load_embeddings`` reads back; clips per second on the test split in
+   bf16 and in f32 (the f32 export a counted path: K6's f32 launches) and one
    batch's eager vs device time with the shares of K6, K7 and K1; an f32 leg
    that embeds the same batches through the kernels and through the plain
    versions;
@@ -131,12 +134,16 @@ that two runs see the same tokens:
    within 1e-5 of each frame's largest band in the linear domain, exactly
    log(eps) (rounded once from float64) on silence, the same bits from two
    calls;
-8. per main-path shape of each kernel its launches, time, bound, plain and
-   library time, then one ``{"kernels": [...]}`` line, whose times and bound
-   are per launch, averaged over the main paths' launches at their own
-   shapes (K5's bound from the function's least work, a real FFT and the mel
-   product over the filterbank's nonzeros; P's averaged over its six probes,
-   each probe's row beside it); then the device line last.
+8. K6 in f32 against cuDNN's f32 chain and K3 against SDPA at every phase-3
+   shape, and per main-path shape of each kernel its launches, time, bound,
+   plain and library time, then one ``{"kernels": [...]}`` line, whose times
+   and bound are per launch, averaged over the main paths' launches at their
+   own shapes (K6 an entry per dtype, ``w2v_conv_tail`` bf16 and
+   ``w2v_conv_tail_f32``, whose bound counts three TF32 products per f32
+   product at the TF32 peak; K5's bound from the function's least work, a
+   real FFT and the mel product over the filterbank's nonzeros; P's averaged
+   over its six probes, each probe's row beside it); then the device line
+   last.
 
 Tolerances (kernel against plain version, same inputs, |err| <= atol +
 rtol |want|; every plain attention version runs on the inputs' own dtype and
@@ -186,6 +193,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
+# K6 in f32 runs three TF32 products per f32 product on the tensor cores (3xTF32): its bound counts them at the
+# 495 TFLOP/s of TF32, i.e. the f32 FLOPs at a third of that
+K6_F32_FLOPS = 495e12 / 3
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DTYPE_NAMES = {0: "float32", 1: "bfloat16"}  # the kernels' dtype codes
 DTYPE_LABELS = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -427,6 +437,11 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
     elif scores > 1 << 22:
         time_device, time_eager = (functools.partial(device_ms, reps=4, replays=3),
                                    functools.partial(eager_ms, iters=10, warmup=2))
+    same = True  # K3: the same bits from a second call
+    if kernel == STREAM:
+        again = call_fn(q, k, v, mask, seed, rate)
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        del again
     if kernel in ATTENTION_FWD:
         torch.cuda.synchronize()
         ref_out, ref_lse = plain_fn(q, k, v, mask, seed, rate)
@@ -450,7 +465,7 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
         plain = lambda: plain_fn(q, k, v, mask, out, lse, g, seed, rate)
         library = (lambda: library_backward_ms(q, k, v, mask, g, rate))
     row = {"kernel": kernel, "shape": shape, "dtype": dtype, "rate": rate, "fully_masked": fully_masked,
-           "max_abs_err": max_abs_err, "err_over_largest": rel_err, "excess": errs}
+           "max_abs_err": max_abs_err, "err_over_largest": rel_err, "excess": errs, "same_bits": same}
     if timed:
         row.update(kernel_ms=time_device(call), kernel_eager_ms=time_eager(call), plain_ms=time_device(plain),
                    library_ms=library())
@@ -458,10 +473,10 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
     row.update(bound_bytes_us=bytes_us, bound_ops_us=ops_us, bound_us=max(bytes_us, ops_us),
                bound_by="bytes" if bytes_us >= ops_us else "operations")
     log("kernel " + json.dumps(row))
-    if not all(e <= 0 for e in errs.values()):
+    if not (all(e <= 0 for e in errs.values()) and same):
         raise AssertionError(f"{kernel} disagrees with its plain version at {shape} {dtype} dropout {rate}"
                              f"{' (a fully masked batch element)' if fully_masked else ''}: excess over tolerance "
-                             f"{errs}")
+                             f"{errs}, the same bits from two calls {same}")
     return row
 
 
@@ -472,7 +487,9 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
     rows i0 .. i0 + Dh - 1 of a window, the backward's dv[j, i - i0] is too.
     K1 and K2 (Dh = Sq: one window), or with ``long`` K3 and K4 (their
     wrappers, at this key count; Dh 64, K4's Hopper design in bf16, so
-    ceil(Sq / 64) windows)."""
+    ceil(Sq / 64) windows). With ``long`` K3 is also read at Dh 64 (its
+    Hopper design in bf16): v one-hot on a window of 64 keys, v[j, j - j0] = 1,
+    gives out[i, j - j0] = P_ij D_ij, ceil(Sk / 64) windows."""
     seed = (0xC0FFEE, sq * 100 + sk)
     want = fa.dropout_factor(seed, (b, h, sq, sk), rate, "cuda") > 0
     eye = lambda n: torch.eye(n, device="cuda", dtype=dtype).expand(b, h, n, n).contiguous()
@@ -492,11 +509,17 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
         g = torch.zeros(b, h, sq, dh, device="cuda", dtype=dtype)
         g[:, :, i0:i0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
         bwd_mask[:, :, i0:i0 + n] = backward(q, k, v, None, out, lse, g, seed, rate)[2][..., :n].transpose(2, 3) > 0
-    bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum())
+    window_mask = want.clone()  # K1 and K2: nothing more to read
+    for j0 in range(0, sk, dh) if long else ():
+        n = min(dh, sk - j0)
+        v = torch.zeros(b, h, sk, dh, device="cuda", dtype=dtype)
+        v[:, :, j0:j0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
+        window_mask[..., j0:j0 + n] = forward(q, k, v, None, seed, rate)[0][..., :n] > 0
+    bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum()), int((window_mask != want).sum())
     log(f"dropout masks of {'K3, K4' if long else 'K1, K2'} {DTYPE_LABELS[dtype]} at B={b} H={h} Sq={sq} Sk={sk} "
         f"rate {rate}: {want.numel()} probabilities, keep rate {want.float().mean().item()}, mismatches forward "
-        f"{bad[0]}, backward {bad[1]}")
-    if bad != (0, 0):
+        f"{bad[0]}, backward {bad[1]}" + (f", forward at Dh 64 in key windows {bad[2]}" if long else ""))
+    if bad != (0, 0, 0):
         raise AssertionError(f"kernel dropout masks differ from the plain Philox mask: {bad}")
 
 
@@ -1170,7 +1193,8 @@ def w2v_bound(kernel: str, shape, dtype) -> tuple[float, float]:
     samples): wave, taps, gamma, beta in, [B, T0, 512] out; 2 x 10 x 512 per
     frame, and 8 per value for the statistics, the affine and the GELU (the
     erf as one). K6 (clips, T0): [B, T0, 512] and the 16 x 512 x 512 weights
-    in, [B, T6, 512] out; 2 x k x 512 x 512 per frame of each layer. K8 (clips,
+    in, [B, T6, 512] out; 2 x k x 512 x 512 per frame of each layer, in f32 at
+    ``K6_F32_FLOPS`` (three TF32 products each at the TF32 peak). K8 (clips,
     rows, valid rows): [B, T, 512] in and out, gamma and beta in; no product:
     3 operations per valid value for the statistics and 8 per value for the
     affine and the GELU (the erf as one), at the f32 non-tensor peak whatever
@@ -1193,6 +1217,8 @@ def w2v_bound(kernel: str, shape, dtype) -> tuple[float, float]:
         lengths = wc.tail_lengths(t0)
         nbytes = (b * t0 * c + sum(wc.TAIL_TAPS) * c * c + b * lengths[-1] * c) * esize
         flops = 2 * c * c * b * sum(k * t for k, t in zip(wc.TAIL_TAPS, lengths))
+        if dtype == torch.float32:
+            return nbytes / HBM_BYTES_PER_S * 1e6, flops / K6_F32_FLOPS * 1e6
     return nbytes / HBM_BYTES_PER_S * 1e6, flops / PEAK_FLOPS[dtype] * 1e6
 
 
@@ -1378,7 +1404,8 @@ def w2v_phase(fa, wc, card: str, root: str, tmp: str, model) -> dict:
     for name in KERNELS:
         launches[name] += run[name]
 
-    # throughput of the export on the test split alone, from a fresh wav store
+    # throughput of the export on the test split alone, from a fresh wav store; the f32 one (--f32) is a counted
+    # path: K6's f32 launches
     for dtype in (torch.bfloat16, torch.float32):
         model.set_compute_dtype(dtype)
         w2v_embeddings.export_split(model, Wav2Vec2FeatureDataset("val", data_root=root))  # warm-up
@@ -1386,11 +1413,19 @@ def w2v_phase(fa, wc, card: str, root: str, tmp: str, model) -> dict:
         widths = collections.Counter(b["audio"].shape[1] for b in Wav2Vec2Batcher(test, W2V_EXPORT_BATCH))
         test = Wav2Vec2FeatureDataset("test", data_root=root)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        w2v_embeddings.export_split(model, test)  # ends in a device-to-host fetch
-        seconds = time.perf_counter() - t0
+        with main_path_run() if dtype == torch.float32 else contextlib.nullcontext({}) as run:
+            t0 = time.perf_counter()
+            w2v_embeddings.export_split(model, test)  # ends in a device-to-host fetch
+            seconds = time.perf_counter() - t0
         log(f"wav2vec2 export {DTYPE_LABELS[dtype]} test split: {len(test)} clips (wav decode, K7, K6, 12 layers) in "
-            f"{seconds * 1e3} ms = {len(test) / seconds} clips/s; batch widths {dict(sorted(widths.items()))} ({card})")
+            f"{seconds * 1e3} ms = {len(test) / seconds} clips/s; batch widths {dict(sorted(widths.items()))}"
+            + (f"; launches {run}" if run else "") + f" ({card})")
+        if dtype == torch.float32:
+            want = {name: n * sum(widths.values()) for name, n in per_batch.items()}
+            if run != want:
+                raise AssertionError(f"wav2vec2 f32 export launches {run}, want {want}")
+            for name in KERNELS:
+                launches[name] += run[name]
 
     # one export batch: eager against device time, and where the device time goes
     model.set_compute_dtype(torch.bfloat16)
@@ -2181,27 +2216,40 @@ def main() -> None:
 
     # 8. kernel line (times per launch, averaged over the main paths' launches
     # at their own shapes), then the device line last
+    for what, kernel, dtype in (("K6 f32 (3xTF32) against cuDNN's f32 chain, TF32 off", W2V_TAIL, "float32"),
+                                ("K3 against SDPA", STREAM, "bfloat16")):
+        log(f"{what}, per phase-3 shape (launches: the counted paths'; ms a call, graph replay; {card}):")
+        for case in sorted(c for c in by_case if c[0] == kernel and c[2] == dtype):
+            r = by_case[case]
+            log(f"  {case[1]} dropout {case[3]}: launches {PATH_SHAPES.get(case, 0)}, kernel {r['kernel_ms']} ms, "
+                f"library {r['library_ms']} ms, kernel / library {r['kernel_ms'] / r['library_ms']}, bound "
+                f"{r['bound_us'] / 1e3} ms ({r['bound_by']}), share of bound {r['bound_us'] / 1e3 / r['kernel_ms']}")
     kernels = []
-    for name in KERNELS:
+    # K6's two dtypes are two routes (bf16 wgmma, f32 3xTF32): an entry each, together its launches
+    entries = [entry for name in KERNELS for entry in (
+        [(name, name, "bfloat16"), (name + "_f32", name, "float32")] if name == W2V_TAIL else [(name, name, None)])]
+    for entry, name, only in entries:
         if name == PROBE:
             kernels.append(probe_kernel_line(probe_results, launches[PROBE], card))
             continue
-        path = {case: n for case, n in PATH_SHAPES.items() if case[0] == name}
+        path = {case: n for case, n in PATH_SHAPES.items() if case[0] == name and only in (None, case[2])}
         for case, n in sorted(path.items()):
             r = by_case[case]
             log(f"main path {case}: {n} launches x kernel {r['kernel_ms']} ms (bound {r['bound_us'] / 1e3} ms, "
                 f"plain {r['plain_ms']} ms, library {r['library_ms']} ms)")
         keys = ("kernel_ms", "plain_ms", "library_ms", "bound_bytes_us", "bound_ops_us")
         total = {key: sum(n * by_case[case][key] for case, n in path.items()) for key in keys}
-        n = launches[name]
-        log(f"{name} main path: {n} launches at {len(path)} cases; summed over them {json.dumps(total)} ({card})")
+        n = sum(path.values())  # launches[name] over all its entries (tallied = counted, checked above)
+        if n == 0:
+            raise AssertionError(f"{entry}: no launch on the counted paths")
+        log(f"{entry} main path: {n} launches at {len(path)} cases; summed over them {json.dumps(total)} ({card})")
         kernels.append({
-            "name": name,
+            "name": entry,
             "route": "cuda",
             "source": f"mer_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
             "launches": n,
-            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name and only in (None, r["dtype"])),
             "ms": total["kernel_ms"] / n,
             "plain_ms": total["plain_ms"] / n,
             "bound_ms": max(total["bound_bytes_us"], total["bound_ops_us"]) / 1e3 / n,
@@ -2210,7 +2258,7 @@ def main() -> None:
             "shapes": {f"{dtype} {'x'.join(map(str, shape))}" + (f" dropout {rate}" if name in (FWD, BWD, STREAM, TILED)
                                                                  else ""): c
                        for (_, shape, dtype, rate), c in sorted(path.items())},
-            "cases_checked": sum(r["kernel"] == name for r in rows),
+            "cases_checked": sum(r["kernel"] == name and only in (None, r["dtype"]) for r in rows),
             "card": card,
         })
     print(json.dumps({"kernels": kernels}))

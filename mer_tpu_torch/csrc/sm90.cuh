@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, named barriers,
 // programmatic dependent launch, TMA loads, the wgmma shared-memory
-// descriptor and the bf16 m64nNk16 wgmma products (N = 64, 128), and host
+// descriptor, the bf16 m64nNk16 wgmma products (N = 64, 128) and the tf32
+// m64n128k8 one with A from registers, the f32 -> tf32 rounding, and host
 // helpers that encode TMA descriptors through the driver entry point (so
 // nothing links against libcuda).
 //
-// Tiles are [64 rows][64 bf16] = 128-byte rows, written by TMA with
+// Tiles are [64 rows][64 bf16] (or 32 f32) = 128-byte rows, written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B at a 1024-byte aligned address: 8-row atoms of
 // 1024 bytes whose 16-byte chunks are XOR-swizzled by the row. One descriptor
 // describes such a tile both as a K-major operand (the reduction runs along the
@@ -105,6 +106,13 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// x rounded to tf32 (10 stored mantissa bits; to nearest, ties away from zero), as f32 bits whose low 13 are 0
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 #define MER_WGMMA_D32                                                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
   "%23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -140,6 +148,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : MER_F64(d, 0)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+// d[64 x 128] += A[64 x 8] B[128 x 8]^T in tf32 (f32 accumulation), A from registers as tf32 bits (a[0..3]: rows
+// g, g + 8 at column t, then at column t + 4, for warp w's rows 16 w ..; the layout of mma.m16n8k8's tf32 A), B
+// K-major in shared memory (tf32 takes no transpose); d's layout as wgmma_ss's; accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : MER_F64(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 #undef MER_F4
 #undef MER_F16
@@ -181,23 +205,24 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D bf16 tensor (dims innermost first; strides in bytes of dims 1 and 2, multiples of 16) as boxes of
-// `box` values, 128-byte swizzled (box[0] = 64 values: one 128-byte row); a box's elements outside the dims read
-// as zeros, and nothing outside them is read. false if the driver refuses it.
-inline bool encode_bf16_3d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[3],
-                           const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
+// A 3-D tensor of `type` (dims innermost first; strides in bytes of dims 1 and 2, multiples of 16) as boxes of
+// `box` values, 128-byte swizzled (box[0] values make one 128-byte row: 64 bf16 or 32 f32); a box's elements
+// outside the dims read as zeros, and nothing outside them is read. false if the driver refuses it.
+inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base, const cuuint64_t (&dims)[3],
+                      const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A bf16 tensor [n_slices][rows][64] as 64 x 64 boxes; rows past `rows` of a slice read as zeros.
 inline bool encode_rows64(CUtensorMap* map, const void* base, int rows, int n_slices) {
-  return encode_bf16_3d(map, base, {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(n_slices)},
-                        {64 * 2, static_cast<cuuint64_t>(rows) * 64 * 2}, {64, 64, 1});
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base,
+                   {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(n_slices)},
+                   {64 * 2, static_cast<cuuint64_t>(rows) * 64 * 2}, {64, 64, 1});
 }
 
 }  // namespace sm90

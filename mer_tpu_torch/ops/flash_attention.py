@@ -14,8 +14,8 @@ and ``_bwd_dq_kernel``, the key-tiled backward, ``_flash_bwd_tiled`` ``:659``)
 template (``csrc/flash_attention_forward.cuh``), K2 and K4's f32 and odd head
 dims two (``csrc/flash_attention_backward.cuh``), all on the tensor-core tile
 products of ``csrc/flash_attention_tiles.cuh`` in bf16 (``mma.sync``; f32 by
-FMA on the CUDA cores); K4 in bf16 at head dim 64 is a Hopper design of its own
-(``wgmma``, TMA into an ``mbarrier`` ring filled by a producer warp;
+FMA on the CUDA cores); K3 and K4 in bf16 at head dim 64 are Hopper designs of
+their own (``wgmma``, TMA into an ``mbarrier`` ring filled by a producer warp;
 ``csrc/sm90.cuh``). All draw dropout with the Philox generator
 ``csrc/philox.cuh``; K1 and K2 take several (b*h) slices a block for
 sequences up to 32 rows. Each source's header states its design and bound.
@@ -372,19 +372,27 @@ flash_attention_forward.launches = 0
 def flash_attention_stream(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
     """``(out, lse)`` through the streaming forward K3 for CUDA tensors, its
     plain version for CPU tensors. ``flash_attention_stream.launches`` counts
-    K3's launches."""
+    K3's launches (one per call; in bf16 at head dim 64 a prep pass writes the
+    keys' biases, ``stream_scratch_numel`` floats, then the forward runs)."""
     if not _device_or_raise(q):
         return flash_attention_stream_reference(q, k, v, key_padding_mask, seed, dropout_rate)
     _check(q, k, v, key_padding_mask)
     drop = _dropout_args(seed, dropout_rate)
     out, lse = _forward_outputs(q)
+    scratch = torch.empty(stream_scratch_numel(q.shape[0], k.shape[2]), dtype=torch.float32, device=q.device)
     _launch("flash_attention_stream", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
-                                          out.data_ptr(), lse.data_ptr()], k.shape[2], drop)
+                                          out.data_ptr(), lse.data_ptr(), scratch.data_ptr()], k.shape[2], drop)
     flash_attention_stream.launches += 1
     return out, lse
 
 
 flash_attention_stream.launches = 0
+
+
+def stream_scratch_numel(b: int, sk: int) -> int:
+    """f32 scratch of one K3 call: per key of each batch element its bias in
+    log2 units, keys padded to 64 (the Hopper design's prep pass)."""
+    return b * (-(-sk // 64) * 64)
 
 
 def _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse, scratch_numel=None):

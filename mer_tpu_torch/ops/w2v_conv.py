@@ -14,7 +14,9 @@ Replaces the TPU kernels of ``mer_tpu/ops/w2v_conv_pallas.py``:
   operands TMA brings into an ``mbarrier`` ring under a producer warp, the
   layer-0 frames read as pair rows and even frames (the TPU kernel's
   ``_fold_pairs``), so that every load stays inside the tensor; the f32 path
-  runs on the CUDA cores.
+  runs the same pipeline on TF32 with error compensation (3xTF32: each
+  operand split into a TF32 high and low half, three products a step), which
+  keeps f32's accuracy.
 - K8, :func:`gn_gelu`: ``gn_gelu_pallas`` (``:345``; ``_gn_stats_kernel``
   ``:320`` and ``_gn_apply_kernel`` ``:335``), the GroupNorm(512, 512) and
   exact GELU alone, on a layer-0 conv output [B, T, 512] that something else
@@ -78,9 +80,9 @@ SMS = 132  # streaming multiprocessors of the H100 SXM: a grid of fewer blocks l
 L0_TILES = (256, 128, 64, 32)  # K7's frames per block, by preference
 L0_BLOCKS_PER_SM = 2  # K7's apply blocks resident per SM (256 threads of 128 registers)
 L0_MOMENTS = 65  # K7's window moments per tile: 10 sums and 55 products (kMoments in the source)
-TAIL_TILES = (2, 1)  # K6's bf16 tiles by preference: consumer warpgroups of 64 frames (128 x 128, 64 x 128)
-TAIL_TILE_CHANNELS = 128  # output channels of every K6 bf16 tile (kBN in the source)
-TAIL_K_SLICE = 64  # k per stage of K6's ring (kBK in the source)
+TAIL_TILES = (2, 1)  # K6's tiles by preference: consumer warpgroups of 64 frames (128 x 128, 64 x 128)
+TAIL_TILE_CHANNELS = 128  # output channels of every K6 tile (kBN in the source)
+TAIL_K_SLICE = 64  # k per stage of K6's bf16 ring (kBK in the source; f32 stages hold 32)
 _CACHE_SIZE = 4  # restacked weight sets kept (see _restacked)
 _restacked_cache: list = []
 
@@ -105,7 +107,7 @@ def tail_blocks(clips: int, t_out: int, warpgroups: int, splits: int = 1) -> int
 
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
-    """How K7 and K6's bf16 path tile one call: ``l0_tile`` frames per K7
+    """How K7 and K6 tile one call: ``l0_tile`` frames per K7
     block (both passes), and per K6 layer (consumer warpgroups, K splits)
     of its 128-channel tile."""
 
@@ -134,8 +136,9 @@ def conv_plan(clips: int, t0: int) -> ConvPlan:
 
 
 def tail_scratch(clips: int, t0: int, plan: ConvPlan) -> tuple[int, int]:
-    """(f32 values, int counters) of K6's split-K scratch for ``plan``: what
-    the split layer that needs most takes (0, 0 when no layer splits)."""
+    """(f32 values, int counters) of K6's split-K scratch for ``plan`` in
+    either dtype: what the split layer that needs most takes (0, 0 when no
+    layer splits)."""
     values = counters = 0
     for (warpgroups, splits), t_out in zip(plan.tail, tail_lengths(t0)):
         if splits > 1:
@@ -333,6 +336,24 @@ def stack_tail_weights(weights: Sequence[torch.Tensor], dtype: torch.dtype) -> t
     return torch.stack(rows[:4]).contiguous(), torch.stack(rows[4:]).contiguous()
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 stored mantissa bits) to nearest, ties
+    away from zero, as the kernel's ``cvt.rna.tf32.f32``: the low 13 bits of
+    the pattern cleared after adding half their range to the magnitude."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tail_weights(weights: Sequence[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 weights of K6's 3xTF32 products: :func:`stack_tail_weights`'
+    (w3, w2) in float32, each as [2, n, C, k C], the TF32 high halves
+    ``hi = tf32(w)`` then the low halves ``lo = tf32(w - hi)``."""
+    halves = []
+    for w in stack_tail_weights(weights, torch.float32):
+        hi = tf32_round(w)
+        halves.append(torch.stack([hi, tf32_round(w - hi)]).contiguous())
+    return halves[0], halves[1]
+
+
 def conv_stack_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
                      strides: Sequence[int] = TAIL_STRIDES) -> torch.Tensor:
     """x [B, T0, C] (the layer-0 output, in the compute dtype) -> [B, T6, C]:
@@ -358,10 +379,12 @@ def conv_stack_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
         return out
     if x.data_ptr() % 16:
         raise ValueError("the conv-tail kernel reads x through TMA, which needs a 16-byte aligned start")
-    w3, w2 = _restacked("tail", weights, x.dtype, lambda: stack_tail_weights(weights, x.dtype))
+    split = x.dtype == torch.float32  # the 3xTF32 products take each weight's two halves
+    w3, w2 = _restacked("tail", weights, x.dtype,
+                        lambda: split_tail_weights(weights) if split else stack_tail_weights(weights, x.dtype))
     buf_a, buf_b = new(lengths[0]), new(lengths[1])
     plan = conv_plan(b, t0)
-    values, n_counters = tail_scratch(b, t0, plan) if x.dtype == torch.bfloat16 else (0, 0)
+    values, n_counters = tail_scratch(b, t0, plan)
     partial = torch.empty(values, dtype=torch.float32, device=x.device) if values else None
     counters = torch.zeros(n_counters, dtype=torch.int32, device=x.device) if n_counters else None
     plan_ints = (ctypes.c_int * (2 * len(plan.tail)))(*(v for layer in plan.tail for v in layer))
