@@ -47,9 +47,11 @@ that two runs see the same tokens:
    ``BWD_FUSED_MAX`` keys) on the same inputs ([2, 2, S, S, 64]); the bf16
    limits shown to fail a K1, K2, K3 and K4 that read the wrong key tiles;
    K3's and K4's dropout masks read off exactly in f32 and bf16 (K4's at Dh
-   64, over three 64-row windows of g; K3's also at Dh 64, over two 64-key
-   windows of v: its Hopper design in bf16); K3 also the same bits from two
-   calls at every case;
+   64, over three 64-row windows of g; K3's and K1's also at Dh 64, over two
+   64-key windows of v: K3's Hopper design in bf16, the 3xTF32 forward of
+   both in f32); K3 also the same bits from two calls at every case; the
+   kernels SDPA's f32 forward runs at [32, 12, 499, 499, 64] (the
+   profiler's names: the f32 yardstick of K1 and K3);
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -86,8 +88,9 @@ that two runs see the same tokens:
    three splits of that root in batches of 32 (per batch: K7 once, K6 once,
    K1 12 times; no other kernel), [N, 768] finite tables that
    ``load_embeddings`` reads back; clips per second on the test split in
-   bf16 and in f32 (the f32 export a counted path: K6's f32 launches) and one
-   batch's eager vs device time with the shares of K6, K7 and K1; an f32 leg
+   bf16 and in f32 (the f32 export a counted path: K6's, K7's and K1's f32
+   launches) and one batch's eager vs device time with the shares of K6, K7
+   and K1, in bf16 and in f32; an f32 leg
    that embeds the same batches through the kernels and through the plain
    versions;
 6e. wav2vec2 evaluation: ``...audio_wav2vec2.test`` on the 2,608-clip test
@@ -119,7 +122,9 @@ that two runs see the same tokens:
    4 dev, 4 test), the dataset at ``max_seconds=90`` and the batcher at
    ``seconds_buckets=(60, 90)`` (2,999 and 4,499 frames). The export of the
    test clips in batches of 2 (per batch K7 1, K6 1 and 12 attention forwards:
-   K3 at 90 s, K1 at 60 s); 4 fine-tune steps at batch 2, bf16, attention
+   K3 at 90 s, K1 at 60 s), in bf16 and in f32 (``--f32``: the 4 test clips
+   fill two 90 s batches, so 24 K3 f32 launches at 4,499 keys; clips per
+   second); 4 fine-tune steps at batch 2, bf16, attention
    dropout 0.1 (per step 12 forwards and 12 K4; no K2, K7, K6); clips per
    second, one profiled step (eager, device, idle share), peak memory; one
    f32 step's loss and gradients through K3 and K4 against the plain versions;
@@ -134,13 +139,15 @@ that two runs see the same tokens:
    within 1e-5 of each frame's largest band in the linear domain, exactly
    log(eps) (rounded once from float64) on silence, the same bits from two
    calls;
-8. K6 in f32 against cuDNN's f32 chain and K3 against SDPA at every phase-3
-   shape, and per main-path shape of each kernel its launches, time, bound,
-   plain and library time, then one ``{"kernels": [...]}`` line, whose times
-   and bound are per launch, averaged over the main paths' launches at their
-   own shapes (K6 an entry per dtype, ``w2v_conv_tail`` bf16 and
-   ``w2v_conv_tail_f32``, whose bound counts three TF32 products per f32
-   product at the TF32 peak; K5's bound from the function's least work, a
+8. K6 in f32 against cuDNN's f32 chain, K3 against SDPA, and K1 and K3 in
+   f32 at head dim 64 against SDPA's f32 at every phase-3 shape; per
+   main-path shape of each kernel its launches, time, bound, plain and
+   library time, then one ``{"kernels": [...]}`` line, whose times and bound
+   are per launch, averaged over the main paths' launches at their own shapes
+   (K6, K1 and K3 an entry per dtype, ``w2v_conv_tail``,
+   ``flash_attention_fwd`` and ``flash_attention_stream`` bf16 and the same
+   names with ``_f32``, whose bounds count three TF32 products per f32
+   product at the TF32 peak: K6 and, at head dim 64, K1 and K3; K5's bound from the function's least work, a
    real FFT and the mel product over the filterbank's nonzeros; P's averaged
    over its six probes, each probe's row beside it); then the device line
    last.
@@ -193,9 +200,10 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
-# K6 in f32 runs three TF32 products per f32 product on the tensor cores (3xTF32): its bound counts them at the
-# 495 TFLOP/s of TF32, i.e. the f32 FLOPs at a third of that
-K6_F32_FLOPS = 495e12 / 3
+# K6 in f32, and K1 and K3 in f32 at head dim 64, run three TF32 products per f32 product on the tensor cores
+# (3xTF32): their bounds count them at the 495 TFLOP/s of TF32, i.e. the f32 FLOPs at a third of that (the f32
+# attention template's other head dims keep PEAK_FLOPS' CUDA-core rate)
+TF32X3_FLOPS = 495e12 / 3
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DTYPE_NAMES = {0: "float32", 1: "bfloat16"}  # the kernels' dtype codes
 DTYPE_LABELS = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -369,14 +377,16 @@ def attention_bound(kernel: str, shape, dtype) -> tuple[float, float]:
     the dense peak of the dtype; the bound is the larger. A forward (K1, K3)
     reads q, k, v, mask and writes out, lse (2 products); a backward (K2, K4)
     reads q, k, v, out, g, lse, mask and writes dq, dk, dv (5 products).
-    Dropout's Philox integer work is not counted."""
+    A forward in f32 at head dim 64 (the 3xTF32 design) counts its products
+    at ``TF32X3_FLOPS``. Dropout's Philox integer work is not counted."""
     b, h, sq, sk, dh = shape
     esize = torch.tensor([], dtype=dtype).element_size()
     forward = kernel in ATTENTION_FWD
     rows_q, rows_k = (2, 2) if forward else (4, 4)  # q, out (+ g, dq); k, v (+ dk, dv)
     nbytes = (rows_q * b * h * sq * dh + rows_k * b * h * sk * dh) * esize + b * h * sq * 4 + b * sk
     flops = (4 if forward else 10) * b * h * sq * sk * dh
-    return nbytes / HBM_BYTES_PER_S * 1e6, flops / PEAK_FLOPS[dtype] * 1e6
+    rate = TF32X3_FLOPS if forward and dtype == torch.float32 and dh == 64 else PEAK_FLOPS[dtype]
+    return nbytes / HBM_BYTES_PER_S * 1e6, flops / rate * 1e6
 
 
 def sdpa_forward(q, k, v, mask, rate):
@@ -487,9 +497,10 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
     rows i0 .. i0 + Dh - 1 of a window, the backward's dv[j, i - i0] is too.
     K1 and K2 (Dh = Sq: one window), or with ``long`` K3 and K4 (their
     wrappers, at this key count; Dh 64, K4's Hopper design in bf16, so
-    ceil(Sq / 64) windows). With ``long`` K3 is also read at Dh 64 (its
-    Hopper design in bf16): v one-hot on a window of 64 keys, v[j, j - j0] = 1,
-    gives out[i, j - j0] = P_ij D_ij, ceil(Sk / 64) windows."""
+    ceil(Sq / 64) windows). With ``long`` K3 and K1 are also read at Dh 64
+    (their Hopper designs: K3's in bf16, the 3xTF32 forward both launch in
+    f32): v one-hot on a window of 64 keys, v[j, j - j0] = 1, gives
+    out[i, j - j0] = P_ij D_ij, ceil(Sk / 64) windows."""
     seed = (0xC0FFEE, sq * 100 + sk)
     want = fa.dropout_factor(seed, (b, h, sq, sk), rate, "cuda") > 0
     eye = lambda n: torch.eye(n, device="cuda", dtype=dtype).expand(b, h, n, n).contiguous()
@@ -509,16 +520,19 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
         g = torch.zeros(b, h, sq, dh, device="cuda", dtype=dtype)
         g[:, :, i0:i0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
         bwd_mask[:, :, i0:i0 + n] = backward(q, k, v, None, out, lse, g, seed, rate)[2][..., :n].transpose(2, 3) > 0
-    window_mask = want.clone()  # K1 and K2: nothing more to read
-    for j0 in range(0, sk, dh) if long else ():
-        n = min(dh, sk - j0)
-        v = torch.zeros(b, h, sk, dh, device="cuda", dtype=dtype)
-        v[:, :, j0:j0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
-        window_mask[..., j0:j0 + n] = forward(q, k, v, None, seed, rate)[0][..., :n] > 0
-    bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum()), int((window_mask != want).sum())
+    windowed = {}  # K3's and K1's mismatches at Dh 64, read in key windows
+    for name, fwd in (("K3", forward), ("K1", fa.flash_attention_forward)) if long else ():
+        window_mask = want.clone()
+        for j0 in range(0, sk, dh):
+            n = min(dh, sk - j0)
+            v = torch.zeros(b, h, sk, dh, device="cuda", dtype=dtype)
+            v[:, :, j0:j0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
+            window_mask[..., j0:j0 + n] = fwd(q, k, v, None, seed, rate)[0][..., :n] > 0
+        windowed[name] = int((window_mask != want).sum())
+    bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum()), sum(windowed.values())
     log(f"dropout masks of {'K3, K4' if long else 'K1, K2'} {DTYPE_LABELS[dtype]} at B={b} H={h} Sq={sq} Sk={sk} "
         f"rate {rate}: {want.numel()} probabilities, keep rate {want.float().mean().item()}, mismatches forward "
-        f"{bad[0]}, backward {bad[1]}" + (f", forward at Dh 64 in key windows {bad[2]}" if long else ""))
+        f"{bad[0]}, backward {bad[1]}" + (f", forwards at Dh 64 in key windows {windowed}" if long else ""))
     if bad != (0, 0, 0):
         raise AssertionError(f"kernel dropout masks differ from the plain Philox mask: {bad}")
 
@@ -884,7 +898,8 @@ def log_profile(kernels: dict[str, float], count: int) -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {share('flash_attention_fwd')}, "
         f"K2 share {share('flash_attention_bwd')}, K3 share {share('flash_attention_stream')}, "
-        f"K4 share {share('flash_attention_tiled_bwd')}, K5 share {share('logmel_fwd')}, "
+        f"K4 share {share('flash_attention_tiled_bwd')}, K1 and K3 f32 prep pass share {share('prep_tf32_kernel')}, "
+        f"K5 share {share('logmel_fwd')}, "
         f"K6 share {share('w2v_conv_s2_gelu')}, K7 share {share('w2v_layer0')}, K8 share {share('w2v_gn_')}; top: "
         + "; ".join(f"{n[:60]} {t} us" for n, t in top))
 
@@ -1194,7 +1209,7 @@ def w2v_bound(kernel: str, shape, dtype) -> tuple[float, float]:
     frame, and 8 per value for the statistics, the affine and the GELU (the
     erf as one). K6 (clips, T0): [B, T0, 512] and the 16 x 512 x 512 weights
     in, [B, T6, 512] out; 2 x k x 512 x 512 per frame of each layer, in f32 at
-    ``K6_F32_FLOPS`` (three TF32 products each at the TF32 peak). K8 (clips,
+    ``TF32X3_FLOPS`` (three TF32 products each at the TF32 peak). K8 (clips,
     rows, valid rows): [B, T, 512] in and out, gamma and beta in; no product:
     3 operations per valid value for the statistics and 8 per value for the
     affine and the GELU (the erf as one), at the f32 non-tensor peak whatever
@@ -1218,7 +1233,7 @@ def w2v_bound(kernel: str, shape, dtype) -> tuple[float, float]:
         nbytes = (b * t0 * c + sum(wc.TAIL_TAPS) * c * c + b * lengths[-1] * c) * esize
         flops = 2 * c * c * b * sum(k * t for k, t in zip(wc.TAIL_TAPS, lengths))
         if dtype == torch.float32:
-            return nbytes / HBM_BYTES_PER_S * 1e6, flops / K6_F32_FLOPS * 1e6
+            return nbytes / HBM_BYTES_PER_S * 1e6, flops / TF32X3_FLOPS * 1e6
     return nbytes / HBM_BYTES_PER_S * 1e6, flops / PEAK_FLOPS[dtype] * 1e6
 
 
@@ -1440,6 +1455,15 @@ def w2v_phase(fa, wc, card: str, root: str, tmp: str, model) -> dict:
     log(f"wav2vec2 export batch bf16 {tuple(inputs[0].shape)}: eager {eager} ms, device-only (CUDA graph replay) "
         f"{device} ms, device idle share of the eager batch {1 - device / eager} ({card})")
     log_profile(kernels, count)
+    model.set_compute_dtype(torch.float32)  # the same batch through the f32 export (--f32)
+    with torch.inference_mode():
+        eager = eager_ms(step, iters=5, warmup=2)
+        device = device_ms(step, reps=1, replays=5)
+        kernels, count = kernel_profile(step)
+    log(f"wav2vec2 export batch f32 {tuple(inputs[0].shape)}: eager {eager} ms, device-only (CUDA graph replay) "
+        f"{device} ms, device idle share of the eager batch {1 - device / eager} ({card})")
+    log_profile(kernels, count)
+    model.set_compute_dtype(torch.bfloat16)
     # one evaluation batch, at the width most of the first 64 have
     firsts = list(itertools.islice(Wav2Vec2Batcher(Wav2Vec2FeatureDataset("test", data_root=root), batch), 64))
     common = collections.Counter(b["audio"].shape[1] for b in firsts).most_common(1)[0][0]
@@ -1934,6 +1958,25 @@ def long_clip_phase(fa, wc, card: str, tmp: str) -> dict:
         raise AssertionError(f"long-clip export table {table.shape}: not finite or rows missing")
     for name, n in run.items():
         launches[name] += n
+    # the same export in f32 (--f32): K7, K6 and the 12 forwards in f32 (K3 in the 90 s bucket, K1 in the 60 s one);
+    # a first export at these shapes warms the allocator, the second is timed and counted
+    model.set_compute_dtype(torch.float32)
+    export_split(model, data["test"], LONG_BATCH, LONG_BUCKETS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with main_path_run() as run:
+        table = export_split(model, data["test"], LONG_BATCH, LONG_BUCKETS)  # ends in a device-to-host fetch
+    seconds = time.perf_counter() - t0
+    log(f"long-clip export f32: {len(data['test'])} test clips in batches of {LONG_BATCH} in {seconds * 1e3} ms = "
+        f"{len(data['test']) / seconds} clips/s; launches {run} (want {want}: per batch K7 1, K6 1, 12 forwards) "
+        f"({card})")
+    if run != want:
+        raise AssertionError(f"long-clip f32 export launches {run}, want {want}")
+    if table.shape != (len(data["test"]), W2V_HIDDEN) or not np.isfinite(table).all() or \
+            not (np.abs(table).sum(1) > 0).all():
+        raise AssertionError(f"long-clip f32 export table {table.shape}: not finite or rows missing")
+    for name, n in run.items():
+        launches[name] += n
     del model
     torch.cuda.empty_cache()
 
@@ -2013,6 +2056,24 @@ def long_clip_parity(fa, wc, config, batch) -> None:
         f"left out)")
     if not (abs(k_loss - p_loss) <= 1e-4 and worst <= 1e-3):
         raise AssertionError("the f32 long-clip step through K3 and K4 departs from the plain versions")
+
+
+def log_sdpa_f32_kernels(card: str) -> None:
+    """The kernels SDPA's f32 forward runs at the f32 export's [32, 12, 499, 499, 64] with a key mask, by name
+    with their device us a call (a CUDA-only profile of three calls): the yardstick of K1 and K3 in f32."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, _, mask = attention_inputs((32, W2V_HEADS, 499, 499, 64), torch.float32, seed=0, clips=True)
+    sdpa_forward(q, k, v, mask, 0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sdpa_forward(q, k, v, mask, 0.0)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.device_time_total / 3 for e in prof.key_averages() if e.device_time_total > 0}
+    log("SDPA f32 forward [32, 12, 499, 499, 64] with a key mask, device us a call by kernel: "
+        + ("; ".join(f"{name} {us}" for name, us in sorted(kernels.items(), key=lambda kv: -kv[1]))
+           or "no device activity recorded (not measured)") + f" ({card})")
 
 
 def attention_bench_phase(card: str) -> None:
@@ -2143,6 +2204,7 @@ def main() -> None:
     t0 = time.perf_counter()
     rows += long_kernel_checks(fa, len(rows))
     log(f"phase 3b (K3, K4 against their plain versions) in {time.perf_counter() - t0:.1f} s")
+    log_sdpa_f32_kernels(card)
 
     # 4. offline evaluation, 5. online serving, 6. training: counts start at 0 for each path
     launches = {**ZERO, FWD: offline_phase(fa, card)}
@@ -2217,17 +2279,23 @@ def main() -> None:
     # 8. kernel line (times per launch, averaged over the main paths' launches
     # at their own shapes), then the device line last
     for what, kernel, dtype in (("K6 f32 (3xTF32) against cuDNN's f32 chain, TF32 off", W2V_TAIL, "float32"),
-                                ("K3 against SDPA", STREAM, "bfloat16")):
+                                ("K3 against SDPA", STREAM, "bfloat16"),
+                                ("K1 f32 (3xTF32) against SDPA's f32", FWD, "float32"),
+                                ("K3 f32 (3xTF32) against SDPA's f32", STREAM, "float32")):
         log(f"{what}, per phase-3 shape (launches: the counted paths'; ms a call, graph replay; {card}):")
-        for case in sorted(c for c in by_case if c[0] == kernel and c[2] == dtype):
+        # the attention f32 rows: head dim 64 alone (the 3xTF32 design; other head dims run the template)
+        for case in sorted(c for c in by_case if c[0] == kernel and c[2] == dtype
+                           and (kernel == W2V_TAIL or dtype == "bfloat16" or c[1][-1] == 64)):
             r = by_case[case]
             log(f"  {case[1]} dropout {case[3]}: launches {PATH_SHAPES.get(case, 0)}, kernel {r['kernel_ms']} ms, "
                 f"library {r['library_ms']} ms, kernel / library {r['kernel_ms'] / r['library_ms']}, bound "
                 f"{r['bound_us'] / 1e3} ms ({r['bound_by']}), share of bound {r['bound_us'] / 1e3 / r['kernel_ms']}")
     kernels = []
-    # K6's two dtypes are two routes (bf16 wgmma, f32 3xTF32): an entry each, together its launches
+    # K6's, K1's and K3's two dtypes are two routes each (bf16 wgmma or mma.sync, f32 3xTF32 or the f32 template):
+    # an entry each, together the kernel's launches
     entries = [entry for name in KERNELS for entry in (
-        [(name, name, "bfloat16"), (name + "_f32", name, "float32")] if name == W2V_TAIL else [(name, name, None)])]
+        [(name, name, "bfloat16"), (name + "_f32", name, "float32")] if name in (W2V_TAIL, FWD, STREAM)
+        else [(name, name, None)])]
     for entry, name, only in entries:
         if name == PROBE:
             kernels.append(probe_kernel_line(probe_results, launches[PROBE], card))

@@ -29,8 +29,12 @@
 // output rows stay in f32 registers in the mma.sync.m16n8k16 accumulator
 // layout; in bf16 both products run on the tensor cores (the scores'
 // registers become P's A operand, V enters through ldmatrix.trans), in f32 as
-// FMA on the CUDA cores, no TF32. Keys past Sk get a -inf bias, so the zero- or
-// stale-padded last tile adds nothing.
+// FMA on the CUDA cores (bound by the f32 rate, 67 TFLOP/s). K1 and K3 take
+// this template in f32 only at head dims other than 64 (the fusion model's 96
+// and 50); f32 at 64 runs the 3xTF32 Hopper forward of
+// flash_attention_hopper.cuh (bound at the TF32 rate, 495 TFLOP/s over three
+// passes), bf16 at 64 in K3 its own Hopper design. Keys past Sk get a -inf
+// bias, so the zero- or stale-padded last tile adds nothing.
 
 #pragma once
 

@@ -14,15 +14,22 @@
 // giving the mean of v, dropout as Philox4x32-10 of (seed, b*H + h, row,
 // column), one call per 2 x 2 scores (philox.cuh).
 //
-// Two designs, picked per call:
+// Three designs, picked per call:
 //
 // - bf16 with Dh = 64 (the wav2vec2 heads: the long-clip path) and 16-byte
-//   aligned tensors: the Hopper design below (`mer_k3`).
-// - Anything else (f32, whose products wgmma has no exact type for; any other
-//   Dh <= 128): the forward template of flash_attention_forward.cuh, which K1
-//   shares, at one (b*h) slice a block (mma.sync in bf16, FMA in f32).
+//   aligned tensors (scratch too): the Hopper design below (`mer_k3`).
+// - f32 with Dh = 64 and 16-byte aligned tensors: the 3xTF32 Hopper forward
+//   of flash_attention_hopper.cuh, which K1 launches too (a prep pass that
+//   splits K and V^T into TF32 halves, then wgmma.m64n64k8 tf32 in three
+//   passes; bound at [2, 12, 4499, 4499, 64]: 373 GFLOP of TF32, 0.754 ms at
+//   495 TFLOP/s).
+// - Anything else (any other Dh <= 128: the f32 parity legs' 50 and 96): the
+//   forward template of flash_attention_forward.cuh, which K1 shares, at one
+//   (b*h) slice a block (mma.sync in bf16, FMA in f32).
 //
-// The Hopper design: two launches in order on the stream.
+// The bf16 Hopper design: two launches in order on the stream, on the parts
+// of flash_attention_hopper.cuh (the key biases, the online softmax of a
+// tile in the accumulator registers, the epilogue).
 //
 // 1. prep: per key its bias in log2 units into f32 scratch [B][Sk padded to
 //    64]: 0, -1e30 log2 e on an ignored key, -inf past Sk (no weight, even in
@@ -64,6 +71,7 @@
 #include <stdint.h>
 
 #include "flash_attention_forward.cuh"
+#include "flash_attention_hopper.cuh"
 #include "philox.cuh"
 #include "sm90.cuh"
 
@@ -75,26 +83,15 @@ namespace mer_k3 {
 
 using bf16 = __nv_bfloat16;
 using namespace sm90;
+using mer_hopper::align1024;
+using mer_hopper::kD;
+using mer_hopper::kTile;
 using mer_tiles::pack_bf16;
+using Params = mer_hopper::Params<bf16>;
 
-constexpr int kD = 64;     // the head dim of this design
-constexpr int kTile = 64;  // query rows of a block; keys of a ring stage
 constexpr uint32_t kTileBytes = kTile * kD * sizeof(bf16);
 constexpr int kStages = 3;
 constexpr int kThreads = 128 + 32;  // one consumer warpgroup, one producer warp
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kMaskBias2 = mer_fwd::kMaskBias * kLog2e;  // an ignored key's bias, in log2 units
-
-struct Params {
-  bf16* out;
-  float* lse;
-  const uint8_t* mask;
-  float* bias;  // [B][sk_pad]
-  int BH, B, H, Sq, Sk, sk_pad;
-  float scale;
-  mer_philox::Dropout drop;
-};
 
 struct Smem {
   bf16 q[kTile * kD];  // 1024-byte aligned tiles first
@@ -104,17 +101,13 @@ struct Smem {
   uint64_t full[kStages], empty[kStages], q_full;
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
 // 1. per key its bias in log2 units
 template <typename Tag>
 __global__ void __launch_bounds__(256) prep_kernel(const Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B * p.sk_pad) return;
   const int b = i / p.sk_pad, j = i - b * p.sk_pad;
-  p.bias[i] = j >= p.Sk ? -INFINITY : (p.mask != nullptr && p.mask[(size_t)b * p.Sk + j]) ? kMaskBias2 : 0.f;
+  p.bias[i] = mer_hopper::key_bias(p, b, j);
 }
 
 // 2. out and lse of 64 query rows of one slice; three blocks an SM (with dropout that caps it at 128 registers,
@@ -156,7 +149,7 @@ __global__ void __launch_bounds__(kThreads, 3)
 
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = q0 + 16 * w + g;  // this lane's query rows: row0, row0 + 8
-  const float c_log2 = p.scale * kLog2e;
+  const float c_log2 = p.scale * mer_hopper::kLog2e;
 
   float o[32], sc[32], m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
@@ -186,38 +179,8 @@ __global__ void __launch_bounds__(kThreads, 3)
     fence_operands(sc);
 
     // scores in log2 units where they lie: row row0 + 8 h, key it * 64 + 8 j + 2 t + c
-    float mx[2] = {m2[0], m2[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 b2 = *reinterpret_cast<const float2*>(&sm.bias[s][8 * j + 2 * t]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[4 * j + e] = fmaf(sc[4 * j + e], c_log2, (e & 1) ? b2.y : b2.x);
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
-      }
-    }
     float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // the first tile holds key 0, whose bias is finite: m is finite from then on
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2f(m2[h] - mx[h]);
-      m2[h] = mx[h];
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float f[4];
-      if (kDrop) mer_philox::factors(p.drop, bh, row0, it * kTile + 8 * j + 2 * t, false, f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pr = exp2f(sc[4 * j + e] - m2[e >> 1]);
-        l[e >> 1] += pr;  // undropped and unrounded: l and lse as without dropout
-        if (kDrop) pr *= f[e];
-        sc[4 * j + e] = pr;
-      }
-    }
+    mer_hopper::softmax_tile<kDrop>(sc, sm.bias[s], c_log2, m2, l, alpha, p.drop, bh, row0, it * kTile, t);
     if (it > 0) {
       wgmma_wait<0>();  // the previous tile's product with V: its stage and a_p are free
       fence_operands(o);
@@ -241,26 +204,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     wgmma_wait<0>();
     fence_operands(o);
   }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int r = row0 + 8 * h;
-    if (r >= p.Sq) continue;
-    const float lsum = fmaxf(l[h], 1e-30f), inv = 1.f / lsum;
-    const size_t row = ((size_t)bh * p.Sq + r) * kD;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = 4 * j + 2 * h;
-      *reinterpret_cast<__nv_bfloat162*>(p.out + row + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
-    }
-    // a fully masked row's max is the mask bias itself: its lse in natural units as the plain version rounds it
-    if (t == 0)
-      p.lse[(size_t)bh * p.Sq + r] = m2[h] < 0.5f * kMaskBias2 ? mer_fwd::kMaskBias + logf(lsum)
-                                                                  : m2[h] * kLn2 + logf(lsum);
-  }
+  mer_hopper::write_rows(o, l, m2, p, bh, row0, t);
 }
 
 template <typename Kernel>
@@ -297,8 +241,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 
 // dtype: 0 = float32, 1 = bfloat16. dropout: 0 = off; else the keep bit of
 // each probability is Philox(seed0, seed1) >= threshold, kept ones scaled by
-// keep_scale. scratch: 16-byte aligned, B pad64(Sk) floats (pad64: rounded up
-// to 64), read by the Hopper design only. Returns the cudaError_t of the
+// keep_scale. scratch: 16-byte aligned, read by the Hopper designs only: in
+// bf16 B pad64(Sk) floats (pad64: rounded up to 64), in f32
+// mer_hopper::tf32_scratch_floats(B, H, Sk). Returns the cudaError_t of the
 // launches.
 extern "C" int mer_flash_attention_stream(int dtype, const void* q, const void* k, const void* v,
                                           const void* mask, void* out, void* lse, void* scratch, int B, int H,
@@ -310,8 +255,13 @@ extern "C" int mer_flash_attention_stream(int dtype, const void* q, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using K3 = flash_attention_stream;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  if (dtype == 1 && Dh == mer_k3::kD && aligned(q) && aligned(k) && aligned(v) && aligned(out) && aligned(scratch))
-    return static_cast<int>(mer_k3::launch<K3>(q, k, v, mask, out, lse, scratch, B, H, Sq, Sk, scale, drop, s));
+  if (Dh == mer_hopper::kD && aligned(q) && aligned(k) && aligned(v) && aligned(out) && aligned(scratch)) {
+    if (dtype == 1)
+      return static_cast<int>(mer_k3::launch<K3>(q, k, v, mask, out, lse, scratch, B, H, Sq, Sk, scale, drop, s));
+    if (dtype == 0)
+      return static_cast<int>(
+          mer_hopper::launch_tf32<K3>(q, k, v, mask, out, lse, scratch, B, H, Sq, Sk, scale, drop, s));
+  }
   if (dtype == 0) err = mer_fwd::launch<K3, float, 1>(q, k, v, mask, out, lse, B, H, Sq, Sk, Dh, scale, drop, s);
   else if (dtype == 1)
     err = mer_fwd::launch<K3, __nv_bfloat16, 1>(q, k, v, mask, out, lse, B, H, Sq, Sk, Dh, scale, drop, s);

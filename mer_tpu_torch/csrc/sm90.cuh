@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, named barriers,
-// programmatic dependent launch, TMA loads, the wgmma shared-memory
-// descriptor, the bf16 m64nNk16 wgmma products (N = 64, 128) and the tf32
-// m64n128k8 one with A from registers, the f32 -> tf32 rounding, and host
-// helpers that encode TMA descriptors through the driver entry point (so
-// nothing links against libcuda).
+// programmatic dependent launch, TMA loads, the async-proxy fence, the wgmma
+// shared-memory descriptor, the bf16 m64nNk16 wgmma products (N = 64, 128),
+// the tf32 m64n64k8 ones (A from shared memory or registers) and m64n128k8
+// one (A from registers), the f32 -> tf32 rounding, and host helpers that
+// encode TMA descriptors through the driver entry point (so nothing links
+// against libcuda).
 //
 // Tiles are [64 rows][64 bf16] (or 32 f32) = 128-byte rows, written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B at a 1024-byte aligned address: 8-row atoms of
@@ -84,6 +85,10 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
                "l"(src), "r"(bytes), "r"(smem_u32(bar))
                : "memory");
 }
+
+// Orders this thread's generic-proxy writes to shared memory before later async-proxy reads of it (wgmma, TMA
+// stores); the readers still wait at a barrier behind every writer's fence.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // -- wgmma --------------------------------------------------------------------------
 
@@ -180,6 +185,26 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d[64 x 64] (+)= A[64 x 8] B[64 x 8]^T in tf32 (f32 accumulation), A and B K-major in shared memory as tf32
+// values (f32 patterns whose low 13 bits are 0; tf32 takes no transpose), d's layout as wgmma_ss's; accumulate =
+// 0 overwrites d. A k-step of 8 advances a descriptor by 32 bytes (2), as a k-step of 16 in bf16.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MER_WGMMA_D32 ", %32, %33, p, 1, 1;\n}\n"
+      : MER_WGMMA_D32_OPERANDS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+// The same with A from registers as tf32 bits in the layout of the m64n128k8 form's a[0..3].
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MER_WGMMA_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : MER_WGMMA_D32_OPERANDS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 #undef MER_WGMMA_D32
 #undef MER_WGMMA_D32_OPERANDS
 
@@ -223,6 +248,14 @@ inline bool encode_rows64(CUtensorMap* map, const void* base, int rows, int n_sl
   return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base,
                    {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(n_slices)},
                    {64 * 2, static_cast<cuuint64_t>(rows) * 64 * 2}, {64, 64, 1});
+}
+
+// An f32 tensor [n_slices][rows][cols] (cols a multiple of 4) as boxes of 64 rows x 32 values (one 128-byte row
+// each); rows past `rows` of a slice and columns past `cols` read as zeros.
+inline bool encode_f32_rows(CUtensorMap* map, const void* base, int cols, int rows, int n_slices) {
+  const cuuint64_t c = static_cast<cuuint64_t>(cols), r = static_cast<cuuint64_t>(rows);
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, {c, r, static_cast<cuuint64_t>(n_slices)},
+                   {c * 4, r * c * 4}, {32, 64, 1});
 }
 
 }  // namespace sm90

@@ -14,11 +14,17 @@ and ``_bwd_dq_kernel``, the key-tiled backward, ``_flash_bwd_tiled`` ``:659``)
 template (``csrc/flash_attention_forward.cuh``), K2 and K4's f32 and odd head
 dims two (``csrc/flash_attention_backward.cuh``), all on the tensor-core tile
 products of ``csrc/flash_attention_tiles.cuh`` in bf16 (``mma.sync``; f32 by
-FMA on the CUDA cores); K3 and K4 in bf16 at head dim 64 are Hopper designs of
-their own (``wgmma``, TMA into an ``mbarrier`` ring filled by a producer warp;
-``csrc/sm90.cuh``). All draw dropout with the Philox generator
-``csrc/philox.cuh``; K1 and K2 take several (b*h) slices a block for
-sequences up to 32 rows. Each source's header states its design and bound.
+FMA on the CUDA cores, bound by the f32 rate); K3 and K4 in bf16 at head dim
+64 are Hopper designs of their own (``wgmma``, TMA into an ``mbarrier`` ring
+filled by a producer warp; ``csrc/sm90.cuh``). In f32 at head dim 64 (the
+wav2vec2 and RoBERTa heads) K1 and K3 launch one Hopper forward
+(``csrc/flash_attention_hopper.cuh``): a prep pass splits K and V^T into TF32
+halves, then both products run as three TF32 ``wgmma`` passes (3xTF32), bound
+by three TF32 products per f32 product at 495 TFLOP/s (0.148 ms at the f32
+export's [32, 12, 499, 499, 64]); other f32 head dims stay on the template.
+All draw dropout with the Philox generator ``csrc/philox.cuh``; K1 and K2 take
+several (b*h) slices a block for sequences up to 32 rows. Each source's header
+states its design and bound.
 
 Dispatch by key count: :func:`flash_attention_forward` runs K1 up to
 ``STREAM_THRESHOLD`` keys and K3 above; :func:`flash_attention_backward` runs
@@ -344,24 +350,31 @@ def _launch(name: str, q, pointers, sk: int, drop) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def _forward_outputs(q):
-    return torch.empty_like(q), torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+def _forward_outputs(q, sk: int):
+    """out, lse and the f32 scratch of a K1 or K3 call: :func:`tf32_scratch_numel` floats in f32 at head dim 64,
+    else :func:`stream_scratch_numel` (read by K3's bf16 Hopper design alone)."""
+    b, h, _, dh = q.shape
+    n = tf32_scratch_numel(b, h, sk) if q.dtype == torch.float32 and dh == 64 else stream_scratch_numel(b, sk)
+    return (torch.empty_like(q), torch.empty(q.shape[:3], dtype=torch.float32, device=q.device),
+            torch.empty(n, dtype=torch.float32, device=q.device))
 
 
 def flash_attention_forward(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
     """``(out, lse)`` of masked attention. Above ``STREAM_THRESHOLD`` keys
     through :func:`flash_attention_stream` (K3); else K1 for CUDA tensors,
     its plain version for CPU tensors. ``flash_attention_forward.launches``
-    counts K1's launches."""
+    counts K1's launches (one per call; in f32 at head dim 64 a prep pass
+    splits K and V^T into TF32 halves, ``tf32_scratch_numel`` floats, then
+    the forward runs)."""
     if k.shape[2] > STREAM_THRESHOLD:
         return flash_attention_stream(q, k, v, key_padding_mask, seed, dropout_rate)
     if not _device_or_raise(q):
         return flash_attention_reference(q, k, v, key_padding_mask, seed, dropout_rate)
     _check(q, k, v, key_padding_mask)
     drop = _dropout_args(seed, dropout_rate)
-    out, lse = _forward_outputs(q)
+    out, lse, scratch = _forward_outputs(q, k.shape[2])
     _launch("flash_attention_fwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
-                                       out.data_ptr(), lse.data_ptr()], k.shape[2], drop)
+                                       out.data_ptr(), lse.data_ptr(), scratch.data_ptr()], k.shape[2], drop)
     flash_attention_forward.launches += 1
     return out, lse
 
@@ -372,14 +385,14 @@ flash_attention_forward.launches = 0
 def flash_attention_stream(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
     """``(out, lse)`` through the streaming forward K3 for CUDA tensors, its
     plain version for CPU tensors. ``flash_attention_stream.launches`` counts
-    K3's launches (one per call; in bf16 at head dim 64 a prep pass writes the
-    keys' biases, ``stream_scratch_numel`` floats, then the forward runs)."""
+    K3's launches (one per call; at head dim 64 a prep pass writes the keys'
+    biases, in bf16 ``stream_scratch_numel`` floats, in f32 with K's and V^T's
+    TF32 halves ``tf32_scratch_numel``, then the forward runs)."""
     if not _device_or_raise(q):
         return flash_attention_stream_reference(q, k, v, key_padding_mask, seed, dropout_rate)
     _check(q, k, v, key_padding_mask)
     drop = _dropout_args(seed, dropout_rate)
-    out, lse = _forward_outputs(q)
-    scratch = torch.empty(stream_scratch_numel(q.shape[0], k.shape[2]), dtype=torch.float32, device=q.device)
+    out, lse, scratch = _forward_outputs(q, k.shape[2])
     _launch("flash_attention_stream", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                                           out.data_ptr(), lse.data_ptr(), scratch.data_ptr()], k.shape[2], drop)
     flash_attention_stream.launches += 1
@@ -390,9 +403,18 @@ flash_attention_stream.launches = 0
 
 
 def stream_scratch_numel(b: int, sk: int) -> int:
-    """f32 scratch of one K3 call: per key of each batch element its bias in
-    log2 units, keys padded to 64 (the Hopper design's prep pass)."""
+    """f32 scratch of one K3 call in bf16: per key of each batch element its
+    bias in log2 units, keys padded to 64 (the Hopper design's prep pass)."""
     return b * (-(-sk // 64) * 64)
+
+
+def tf32_scratch_numel(b: int, h: int, sk: int) -> int:
+    """f32 scratch of one K1 or K3 call in f32 at head dim 64 (the 3xTF32
+    Hopper forward's prep pass): the key biases as :func:`stream_scratch_numel`,
+    then K's TF32 halves [2, B*H, Sk padded, 64] and V^T's [2, B*H, 64, Sk
+    padded], keys padded to 64."""
+    pad = -(-sk // 64) * 64
+    return b * pad + 4 * b * h * pad * 64
 
 
 def _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse, scratch_numel=None):

@@ -30,11 +30,20 @@ dispatch would pick (K2's: ``flash_attention_fused_backward``). One JSON line
 per key count and rate, both kernels named. ``STREAM_THRESHOLD`` and
 ``BWD_FUSED_MAX`` rest on these rows. K1 is timed only up to
 ``STREAM_THRESHOLD``: its wrapper hands longer calls to K3.
+
+    python -m mer_tpu_torch.scripts.bench_attention --digest [--device cuda|cpu]
+
+prints, instead, the sha256 of the out and lse bytes of K1 at [2, 12, 499,
+499, 64] and K3 at [2, 12, 4499, 4499, 64] (``DIGEST_CASES``), f32 and bf16,
+dropout 0 and 0.1, on seeded inputs with the same 10% key mask: two builds
+that print the same digest compute the same bits. Run this file with
+``PYTHONPATH`` set to another checkout to digest that checkout's kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 
@@ -46,6 +55,9 @@ from mer_tpu_torch.serving.engine import resolve_device
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# K1 and K3 in f32 at head dim 64 run three TF32 products per f32 product (3xTF32): the forward's products at a
+# third of the 495 TFLOP/s of TF32
+TF32X3_FLOPS = 495e12 / 3
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (name, B, H, S, Dh): scripts/bench_attention.py:67-80, then 16,384 frames
 SHAPES = [
@@ -72,6 +84,8 @@ CROSSOVER_FORWARD = FUSION_ROWS + [(8, 12, 256, 64), (8, 12, 512, 64), (4, 12, 1
 CROSSOVER_BACKWARD = FUSION_ROWS + [(16, 12, s, 64) for s in (48, 64, 128, 256, 499)] + [
     (8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64)]
 CROSSOVER_RATES = (0.0, 0.1)
+# --digest: (kernel, B, H, Sq, Sk) at head dim 64: K1 at the wav2vec2 export's frames, K3 at the 90 s clips'
+DIGEST_CASES = [("K1", 2, 12, 499, 499), ("K3", 2, 12, 4499, 4499)]
 
 
 def kernel_names(s: int) -> tuple[str, str]:
@@ -84,15 +98,17 @@ def bound_ms(b: int, h: int, s: int, dh: int, dtype: torch.dtype, backward: bool
     it: each input read once and each output written once at the HBM rate
     (forward: q, k, v, mask -> out, lse; backward: q, k, v, out, g, lse, mask
     -> dq, dk, dv), against the products at the dtype's dense peak (2 in the
-    forward, 5 in the backward)."""
+    forward, 5 in the backward; the f32 forward at head dim 64 at
+    ``TF32X3_FLOPS``)."""
     esize = torch.tensor([], dtype=dtype).element_size()
     tensor, stats, mask = b * h * s * dh * esize, b * h * s * 4, b * s
     nbytes = 4 * tensor + stats + mask
-    flops = 4 * b * h * s * s * dh
+    fwd_rate = TF32X3_FLOPS if dtype == torch.float32 and dh == 64 else PEAK_FLOPS[dtype]
+    seconds = 4 * b * h * s * s * dh / fwd_rate
     if backward:
         nbytes += 8 * tensor + stats + mask
-        flops += 10 * b * h * s * s * dh
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        seconds += 10 * b * h * s * s * dh / PEAK_FLOPS[dtype]
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, seconds * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -227,6 +243,27 @@ def crossover(device: torch.device) -> list[dict]:
     return rows
 
 
+def digest(device: torch.device) -> list[dict]:
+    """The rows of ``--digest``: per case, dtype and dropout rate the sha256
+    of out's and lse's bytes."""
+    rows = []
+    for name, b, h, sq, sk in DIGEST_CASES:
+        call = fa.flash_attention_forward if name == "K1" else fa.flash_attention_stream
+        rng = np.random.default_rng(0)
+        q, k, v = (rng.normal(size=(b, h, n, 64)).astype(np.float32) for n in (sq, sk, sk))
+        mask = torch.from_numpy(rng.random((b, sk)) < KEY_MASK_FRACTION).to(device)
+        for dtype_name, dtype in DTYPES.items():
+            tensors = [torch.from_numpy(a).to(device, dtype) for a in (q, k, v)]
+            for rate in CROSSOVER_RATES:
+                out, lse = call(*tensors, mask, (0x5EED, sk) if rate else None, rate)
+                sha = hashlib.sha256(out.float().cpu().numpy().tobytes())
+                sha.update(lse.cpu().numpy().tobytes())
+                rows.append({"kernel": name, "B": b, "H": h, "Sq": sq, "Sk": sk, "Dh": 64, "dtype": dtype_name,
+                             "dropout": rate, "sha256": sha.hexdigest()})
+                print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main(argv=None) -> list[dict]:
     p = argparse.ArgumentParser(prog="python -m mer_tpu_torch.scripts.bench_attention")
     p.add_argument("--shapes", default=",".join(n for n, *_ in SHAPES), help="comma-separated shape names")
@@ -234,10 +271,13 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--crossover", action="store_true",
                    help="time K1 | K3 and K2 | K4 on either side of the dispatch thresholds instead")
+    p.add_argument("--digest", action="store_true", help="print the sha256 of K1's and K3's outputs instead")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+    if args.digest:
+        return digest(device)
     if args.crossover:
         print(f"attention crossover on {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
         return crossover(device)

@@ -258,9 +258,10 @@ def test_k3_matches_plain_version(case, fully_masked, rate, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype, dh", [(torch.float32, 64), (torch.bfloat16, 50)])
+@pytest.mark.parametrize("dtype, dh", [(torch.float32, 50), (torch.bfloat16, 50)])
 def test_k3_older_template_still_holds(dtype, dh, cuda):
-    """f32 and head dims other than 64 stay on the forward template K1 shares."""
+    """Head dims other than 64 stay on the forward template K1 shares, in f32 and bf16 (f32 at 64 runs the
+    3xTF32 forward: tests/test_torch_attention_tf32.py)."""
     q, k, v, mask = _card((2, 2, 700, 4100), dtype, cuda, 4, dh=dh)
     out, lse = fa.flash_attention_stream(q, k, v, mask)
     want_out, want_lse = fa.flash_attention_stream_reference(q, k, v, mask)
