@@ -16,7 +16,9 @@ and K4), its conv frontend's profile entry point, the attention bench and the
 lowering probes P, and the text feature extractor's fine-tuning, evaluation
 and export at the full width and depth of RoBERTa-base (12 layers of 768, 12
 heads of 64, vocabulary 50,265; seeded random weights, the hash tokenizer),
-and fails on any fault. The script runs itself under ``PYTHONHASHSEED=0``, so
+the end-to-end stream over both audio branches, both wires and the int8
+engines, and the int8 legs of offline evaluation and online serving, and
+fails on any fault. The script runs itself under ``PYTHONHASHSEED=0``, so
 that two runs see the same tokens:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -36,8 +38,9 @@ that two runs see the same tokens:
    shifted by one frame; K8 on the stock layer-0 conv output at [32, 31999,
    512], [2, 12799, 512] and [3, 301, 512] with 7 valid rows (library:
    F.group_norm + F.gelu); K1 at the wav2vec2 encoder's shapes [32 or 2, 12, S, S, 64],
-   S = 99 .. 499, with padded keys (clip masks: each row keeps L >= S / 2
-   keys);
+   S = 99 .. 499, and at RoBERTa's batches of 32 on every rung of the token
+   ladder (S = 64 .. 512), with padded keys (clip masks: each row keeps
+   L >= S / 2 keys);
 3b. K3 at Sk = 4,097, 8,192, 16,384 and K4 at 2,049, 4,499, 8,192 ([2, 1, S,
    S, 64] and [2, 1, S, S, 50]), f32 and bf16, with a key mask, with a fully
    masked batch element and with dropout 0.1, against their plain versions
@@ -51,7 +54,8 @@ that two runs see the same tokens:
    64-key windows of v: K3's Hopper design in bf16, the 3xTF32 forward of
    both in f32); K3 also the same bits from two calls at every case; the
    kernels SDPA's f32 forward runs at [32, 12, 499, 499, 64] (the
-   profiler's names: the f32 yardstick of K1 and K3);
+   profiler's names: the f32 yardstick of K1 and K3); then K1 at the mel
+   variant's fusion shapes [32, 6, S, S, 50];
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -133,6 +137,24 @@ that two runs see the same tokens:
    the same inputs at the fusion buckets and up to each threshold, bf16,
    dropout 0 and 0.1); 6k. the probes P
    (``mer_tpu_torch.scripts.probe_strided``), each exact, counted on their own;
+6l. the e2e stream, ``python -m mer_tpu_torch.e2e_stream --toy-tokenizer``
+   over the MELD-shaped test split (2,608 utterances in 82 batches of 32,
+   280 dialogues) at full width: RoBERTa-base, wav2vec2-base or the mel
+   extractor, the config's M2FNet; wav2vec2 with the int16 wire (the entry
+   point: a warm pass and a timed one), with the mu-law wire (one timed
+   pass), mel (the entry point) and the int8 engines (one timed pass). Each
+   run's launches exactly (per wav2vec2 batch K7 1, K6 1, K1 12; per text
+   batch K1 12; per mel batch K5 1; per fusion forward K1 17), utterances/s,
+   stages, H2D bytes, and the device's idle share of the timed pass (kernel
+   time from one more pass under the profiler); the first two batches of each
+   branch in f32 through the kernels against the plain versions (1e-3); the
+   mu-law audio table within 0.05 of the int16 one (relative norm,
+   tests/test_mulaw.py:153) and the int8 tables within 0.25 of the bf16 ones
+   (of the largest value), over the first 16 batches; the native wav decoder
+   against the stdlib reader in ms a batch, equal bits on every batch; then
+   ``mer_tpu_torch.test --synthetic --int8`` (17 K1 a forward; its logits
+   within 0.15 of the bf16 model's largest logit; utterances/s) and
+   ``.serve --synthetic --int8 --requests 280`` (p50, p99);
 7. hold each kernel against its plain version again at every shape that
    phases 4-6i gave it (recorded at each launch), in float32 and bfloat16
    (K5: float32, in both layouts), and K5 on pure tones and a silent clip:
@@ -263,6 +285,16 @@ TEXT_LAYERS = 12
 W2V_TRAIN_SECONDS = (0.5, 10.0)  # clip lengths of the wav2vec2 training root: batches in all five wave buckets
 # K1 at the wav2vec2 encoder: (B, H, S, S, 64), S the frames of each bucket, export and evaluation batch
 W2V_ATTENTION_SHAPES = [(b, W2V_HEADS, s, s, 64) for b in (32, 2) for s in (99, 199, 299, 399, 499)]
+# K1 at RoBERTa-base's batches of 32 (the export's and the e2e stream's): every rung of the token ladder
+TEXT_ATTENTION_SHAPES = [(32, 12, s, s, 64) for s in (64, 128, 256, 512)]
+# phase 6l, the e2e stream over the MELD-shaped test split: (what, flags, passes); the first pass of two warms
+E2E_RUNS = (("wav2vec2, int16 wire", [], 2), ("wav2vec2, mu-law wire", ["--wire", "mulaw"], 1),
+            ("mel, int16 wire", ["--audio", "mel"], 2), ("int8 engines, wav2vec2, int16 wire", ["--int8"], 1))
+E2E_BATCH = 32  # e2e_stream's --utterance-batch
+E2E_ENVELOPE_BATCHES = 16  # batches whose tables the mu-law and int8 envelopes hold (512 utterances)
+E2E_PLAIN_BATCHES = 2  # batches of each branch embedded through the kernels and through the plain versions
+MULAW_REL = 0.05  # mu-law against int16 audio embeddings, relative norm (tests/test_mulaw.py:153)
+INT8_ENCODER_REL, INT8_FUSION_REL = 0.25, 0.15  # int8 against bf16, of the largest |value| (tests/test_serving_quant.py)
 # K5: (clips, frames): the export batch, the cache chunk, a ragged chunk, a short clip
 MEL_SHAPES = [(32, 1001), (64, 1001), (47, 1001), (3, 37)]
 MEL_LAYOUTS = ("unfold", "contiguous")  # the strided view of the padded waveforms, or materialised frames
@@ -271,6 +303,8 @@ MEL_SPLIT_DIALOGUES = {"train_sent_emo.csv": 100, "dev_sent_emo.csv": 20}  # the
 BUCKETS = (8, 16, 24, 33)
 # (B, H, Sq, Sk, Dh): dialogue buckets, dh 96 (768/8) and 50 (300/6), one Sq != Sk
 KERNEL_SHAPES = [(32, 8, s, s, dh) for dh in (96, 50) for s in BUCKETS] + [(32, 8, 24, 33, 96)]
+# the mel variant's fusion: 6 audio heads of 50 (checked after phase 3b, so that every earlier case keeps its seed)
+MEL_FUSION_SHAPES = [(32, 6, s, s, 50) for s in BUCKETS]
 ONLINE_REQUESTS = (64, 280)  # one micro-batch at --max-batch 64; the MELD test split's dialogue count
 TRAIN_EPOCHS = 3
 # (kernel, (B, H, Sq, Sk, Dh), dtype name, dropout rate) -> launches, over the main paths' counted runs
@@ -1841,6 +1875,233 @@ def plain_kernels(fa, wc):
         yield
 
 
+# -- the e2e stream and the int8 engines ----------------------------------------------------
+
+
+def device_idle_share(fn) -> tuple[float, float, float]:
+    """(kernel-busy ms, wall ms, idle share) of one call of ``fn``: the union
+    of the device's kernel intervals (copies and memsets left out) against
+    the call's wall time, from a CUDA-only torch.profiler trace. The tracer
+    slows the host's launches, so the wall here is longer than untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith(("Memcpy", "Memset")))
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        return float("nan"), wall_us / 1e3, float("nan")
+    return busy / 1e3, wall_us / 1e3, 1.0 - busy / wall_us
+
+
+@contextlib.contextmanager
+def plain_mel(lk):
+    """K5 through its plain version."""
+    with mock.patch.object(lk, "logmel_frames", lk.logmel_frames_reference):
+        yield
+
+
+def log_e2e(what: str, result: dict, card: str) -> None:
+    stages = result["stages"]
+    log(f"e2e {what}: {result['n_utterances']} utterances in {result['seconds']} s = {result['utterances_per_sec']} "
+        f"utterances/s, accuracy {result['accuracy']}, weighted F1 {result['weighted_f1']}; embed_h2d_bytes "
+        f"{stages['embed_h2d_bytes']}; stages {json.dumps(stages)} ({card})")
+
+
+def e2e_phase(fa, wc, lk, card: str, root: str) -> dict:
+    """Phase 6l, the stream: ``python -m mer_tpu_torch.e2e_stream`` on the
+    2,608-clip test split at full width (RoBERTa-base, wav2vec2-base, the
+    config's M2FNet; bf16, batches of 32) for each of ``E2E_RUNS``: its
+    launches exactly, utterances/s, stages, H2D bytes, the device's idle
+    share of one more timed pass; the first batches of each branch in f32
+    through the kernels against the plain versions; the mu-law and int8
+    tables against the int16 bf16 ones; the native wav decoder against the
+    stdlib reader. Returns the counted launches."""
+    from mer_tpu_torch import e2e_stream
+    from mer_tpu_torch.core import CONFIG_PATH, dialogue_index, get_text, load_config
+    from mer_tpu_torch.data import native_wavio
+    from mer_tpu_torch.data.wav2vec2_fe import Wav2Vec2FeatureDataset
+
+    config = load_config(CONFIG_PATH)
+    df = get_text("test", root)
+    n_utt, n_batches = len(df), math.ceil(len(df) / E2E_BATCH)
+    forwards = math.ceil(len(dialogue_index(df)) / int(config.test.data_loader.batch_size))
+    per_forward = attention_calls_per_forward(config)
+    argv = ["--data-root", root, "--toy-tokenizer"]
+    launches = dict(ZERO)
+    pipelines = {}
+    real_setup = e2e_stream.setup
+    for what, flags, passes in E2E_RUNS:
+        mel = "--audio" in flags
+        per_pass = {**ZERO, FWD: n_batches * TEXT_LAYERS + forwards * per_forward}
+        if mel:
+            per_pass[MEL] = n_batches
+        else:
+            per_pass.update({FWD: per_pass[FWD] + n_batches * W2V_LAYERS, W2V0: n_batches, W2V_TAIL: n_batches})
+        want = {name: passes * n for name, n in per_pass.items()}
+        made = []  # the entry point's pipeline, batches and table, for the passes after the counted run
+        setup = lambda *a, **k: made.append(real_setup(*a, **k)) or made[-1]
+        with main_path_run() as run, mock.patch.object(e2e_stream, "setup", setup):
+            if passes == 2:  # the entry point itself: a warm pass, then the timed one
+                result = e2e_stream.main(argv + flags)
+            else:
+                pipeline, batches, table = e2e_stream.setup(e2e_stream.parse_args(argv + flags))
+                result = pipeline.run(batches(), table)
+        pipeline, batches, table = made[0]
+        log_e2e(what, result, card)
+        log(f"  launches {run} (want {want}: per pass {n_batches} text batches x K1 {TEXT_LAYERS}, "
+            + (f"{n_batches} mel batches x K5 1, " if mel else
+               f"{n_batches} wav2vec2 batches x (K7 1, K6 1, K1 {W2V_LAYERS}), ")
+            + f"{forwards} fusion forwards x K1 {per_forward})")
+        if run != want or result["n_utterances"] != n_utt or not 0.0 <= result["accuracy"] <= 1.0:
+            raise AssertionError(f"e2e {what}: launches {run}, want {want}; result {result}")
+        for name in KERNELS:
+            launches[name] += run[name]
+        busy, wall, idle = device_idle_share(lambda: pipeline.run(batches(), table))
+        log(f"  device idle share of the timed pass {1.0 - busy / (result['seconds'] * 1e3)}: {busy} ms of kernels "
+            f"in one more pass under the profiler (its wall {wall} ms, idle {idle}) against the timed pass's "
+            f"{result['seconds'] * 1e3} ms ({card})")
+        pipelines[what] = (pipeline, batches)
+
+    # the f32 tables of the first batches of each branch: kernels against plain versions
+    worst = 0.0
+    for what in ("wav2vec2, int16 wire", "mel, int16 wire"):
+        pipeline, batches = pipelines[what]
+        models = [pipeline.m.text_model] + ([] if pipeline.audio_kind == "mel" else [pipeline.m.audio_model])
+        for model in models:
+            model.set_compute_dtype(torch.float32)
+        head = list(itertools.islice(batches(), E2E_PLAIN_BATCHES))
+        tables = pipeline.embed_utterances(iter(head))
+        with plain_kernels(fa, wc), plain_mel(lk):
+            plain = pipeline.embed_utterances(iter(head))
+        for name, got, ref in zip(("text", "audio"), tables, plain):
+            err = float(np.abs(got - ref).max())
+            worst = max(worst, err)
+            log(f"e2e {what} f32 {name} table {got.shape} of {E2E_PLAIN_BATCHES} batches, kernels vs plain versions: "
+                f"max abs diff {err}, largest value {float(np.abs(ref).max())} (tol 1e-3)")
+        for model in models:
+            model.set_compute_dtype(torch.bfloat16)
+    if not worst <= 1e-3:
+        raise AssertionError(f"e2e f32 tables through the kernels differ from the plain versions by {worst}")
+
+    # the mu-law and int8 tables against the int16 bf16 ones, on the first batches
+    def head_tables(what):
+        pipeline, batches = pipelines[what]
+        return pipeline.embed_utterances(itertools.islice(batches(), E2E_ENVELOPE_BATCHES))
+
+    exact_t, exact_a = head_tables("wav2vec2, int16 wire")
+    mulaw_t, mulaw_a = head_tables("wav2vec2, mu-law wire")
+    int8_t, int8_a = head_tables("int8 engines, wav2vec2, int16 wire")
+    rel = lambda got, want: float(np.abs(got - want).max() / np.abs(want).max())
+    mulaw_rel = float(np.linalg.norm(mulaw_a - exact_a) / np.linalg.norm(exact_a))
+    int8_rel = (rel(int8_t, exact_t), rel(int8_a, exact_a))
+    log(f"e2e envelopes over {len(exact_t)} utterances: mu-law audio table off the int16 one by {mulaw_rel} of its "
+        f"norm (tol {MULAW_REL}; the text tables, which the wire does not reach, by {rel(mulaw_t, exact_t)} of their "
+        f"largest |value|); int8 text and audio tables off the bf16 ones by {int8_rel} of their largest |value| "
+        f"(tol {INT8_ENCODER_REL})")
+    if not (mulaw_rel < MULAW_REL and max(int8_rel) < INT8_ENCODER_REL):
+        raise AssertionError("e2e mu-law or int8 tables outside their envelopes")
+    del pipelines
+    torch.cuda.empty_cache()
+
+    # the native wav decoder against the stdlib reader, batch by batch in the stream's order
+    native_ds = Wav2Vec2FeatureDataset("test", data_root=root)
+    lengths = native_ds.waveform_lengths()
+    order = np.argsort(lengths, kind="stable")
+    ladder = tuple(int(x * native_ds.sample_rate) for x in (2.0, 4.0, 6.0, 8.0, 10.0))
+    plan = [(idx, next((b for b in ladder if int(lengths[idx].max()) <= b), ladder[-1]))
+            for idx in (order[i: i + E2E_BATCH] for i in range(0, len(order), E2E_BATCH))]
+    native_wavio.load()  # built before the clock starts
+    t0 = time.perf_counter()
+    native = [native_ds.waveform_batch(idx, width) for idx, width in plan]
+    native_ms = (time.perf_counter() - t0) * 1e3 / len(plan)
+    stdlib_ds = Wav2Vec2FeatureDataset("test", data_root=root)  # a fresh store: no clip cached
+    with mock.patch.dict(os.environ, {"MER_TPU_NATIVE": "0"}):
+        t0 = time.perf_counter()
+        stdlib = [stdlib_ds.waveform_batch(idx, width) for idx, width in plan]
+        stdlib_ms = (time.perf_counter() - t0) * 1e3 / len(plan)
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(native, stdlib))
+    log(f"wav decode of the test split in the stream's {len(plan)} batches of {E2E_BATCH}: native {native_ms} ms a "
+        f"batch, stdlib reader {stdlib_ms} ms a batch ({stdlib_ms / native_ms} times), equal bits on every batch "
+        f"{same} (host: {os.cpu_count()} cores)")
+    if not same:
+        raise AssertionError("the native wav decoder and the stdlib reader disagree")
+    return launches
+
+
+def int8_phase(card: str, tmp: str) -> dict:
+    """Phase 6l, the int8 legs: ``python -m mer_tpu_torch.test --synthetic
+    --int8`` (17 K1 a forward), its logits against the bf16 model's within
+    ``INT8_FUSION_REL`` of their largest |value| and its utterances/s, and
+    ``.serve --synthetic --int8 --requests 280``. Returns the counted launches."""
+    from mer_tpu_torch import serve as serve_entry
+    from mer_tpu_torch import test as eval_entry
+    from mer_tpu_torch.core import CONFIG_PATH, load_config
+    from mer_tpu_torch.models import M2FNet, init_random_, save_reference_checkpoint
+    from mer_tpu_torch.serving import BatchedPredictor, M2FNetInt8, quantize_m2fnet
+    from mer_tpu_torch.serving.engine import build_model, predict_fn
+
+    config = load_config(CONFIG_PATH)
+    per_forward = attention_calls_per_forward(config)
+    batches = eval_entry.eval_batches(config, eval_entry.eval_dataset(config, synthetic=True))
+    n_utt = int(sum((b["emotion"] != -1).sum() for b in batches))
+    ckpt = os.path.join(tmp, "m2fnet_int8.pth")
+    save_reference_checkpoint(ckpt, init_random_(M2FNet.from_config(config.model), torch.Generator().manual_seed(0)))
+    launches = dict(ZERO)
+    with main_path_run() as run:
+        summary = eval_entry.main(["--synthetic", "--checkpoint", ckpt, "--int8"])
+    want = {**ZERO, FWD: per_forward * len(batches)}
+    log(f"offline int8: {json.dumps(summary)}; launches {run} (want {want})")
+    if run != want:
+        raise AssertionError(f"offline int8 launches {run}, want {want}")
+    launches[FWD] += run[FWD]
+
+    f32 = build_model(config, torch.device("cuda"), checkpoint=ckpt, dtype=torch.float32)
+    bf16 = build_model(config, torch.device("cuda"), checkpoint=ckpt)
+    qparams, engine = quantize_m2fnet(f32), M2FNetInt8(f32)
+    worst = largest = 0.0
+    with torch.inference_mode():
+        for b in batches:
+            args = embeddings(b)
+            valid = torch.from_numpy(b["emotion"] != -1).cuda()
+            got, ref = engine.apply(qparams, *args)[valid], bf16(*args).float()[valid]
+            worst, largest = max(worst, (got - ref).abs().max().item()), max(largest, ref.abs().max().item())
+    feed = [{k: b[k] for k in ("text", "audio", "padding_mask")} for b in batches]
+    predictor = BatchedPredictor(predict_fn(f32, int8=True), "cuda")
+    predictor(feed)  # warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        predictor(feed)
+        times.append(time.perf_counter() - t0)
+    log(f"offline int8 logits against bf16 over {n_utt} utterances: max abs diff {worst} = {worst / largest} of the "
+        f"largest |logit| (tol {INT8_FUSION_REL}); batch 32: median {np.median(times) * 1e3} ms = "
+        f"{n_utt / np.median(times)} utterances/s ({card})")
+    if not worst <= INT8_FUSION_REL * largest:
+        raise AssertionError(f"int8 logits off bf16 by {worst / largest} of the largest |logit|")
+
+    with main_path_run() as run:
+        report = serve_entry.main(["--synthetic", "--requests", str(ONLINE_REQUESTS[-1]), "--int8"])
+    log(f"online int8 {ONLINE_REQUESTS[-1]} requests: {report['utterances_per_s']} utterances/s, p50 "
+        f"{report['latency_ms_p50']} ms, p99 {report['latency_ms_p99']} ms, {report['batches']} micro-batches; "
+        f"launches {run} ({card})")
+    if report["requests"] != ONLINE_REQUESTS[-1] or report["mode"] != "int8" or run[FWD] == 0 \
+            or run[FWD] % per_forward or run != {**ZERO, FWD: run[FWD]}:
+        raise AssertionError(f"online int8 answered {report['requests']} requests with launches {run}")
+    launches[FWD] += run[FWD]
+    return launches
+
+
 # -- long-sequence attention: K3, K4, the long-clip wav2vec2 path, the bench entry, P ----------
 
 
@@ -2199,11 +2460,14 @@ def main() -> None:
         for dtype in DTYPES:
             rows.append(check_w2v_case(wc, frontend, GN, shape, dtype, len(rows)))
     rows += [check_case(fa, FWD, shape, dtype, 0.0, len(rows) + i)
-             for i, (shape, dtype) in enumerate((shape, dtype) for shape in W2V_ATTENTION_SHAPES for dtype in DTYPES)]
+             for i, (shape, dtype) in enumerate((shape, dtype) for shape in W2V_ATTENTION_SHAPES + TEXT_ATTENTION_SHAPES
+                                                for dtype in DTYPES)]
     # 3b. K3 and K4 at 2,049-16,384 keys, the seams with K1 and K2, their dropout masks
     t0 = time.perf_counter()
     rows += long_kernel_checks(fa, len(rows))
     log(f"phase 3b (K3, K4 against their plain versions) in {time.perf_counter() - t0:.1f} s")
+    rows += [check_case(fa, FWD, shape, dtype, 0.0, len(rows) + i)
+             for i, (shape, dtype) in enumerate((shape, dtype) for shape in MEL_FUSION_SHAPES for dtype in DTYPES)]
     log_sdpa_f32_kernels(card)
 
     # 4. offline evaluation, 5. online serving, 6. training: counts start at 0 for each path
@@ -2247,6 +2511,12 @@ def main() -> None:
         for name, n in long_clip_phase(fa, wc, card, tmp).items():
             launches[name] += n
         log(f"phase 6i (long clips) in {time.perf_counter() - t0:.1f} s")
+        # 6l. the e2e stream and the int8 engines, on the MELD-shaped root
+        t0 = time.perf_counter()
+        for phase in (e2e_phase(fa, wc, lk, card, root), int8_phase(card, tmp)):
+            for name, n in phase.items():
+                launches[name] += n
+        log(f"phase 6l (e2e stream, int8 engines) in {time.perf_counter() - t0:.1f} s")
     attention_bench_phase(card)
     probe_results, launches[PROBE] = probe_phase(card)
     del w2v_model  # its conv frontend serves phase 7

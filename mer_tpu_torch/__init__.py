@@ -2,7 +2,9 @@
 Hopper (sm_90a): the fusion path (serving and training) and the three stage-1
 feature extractors: mel (training and embedding export), wav2vec2 (fine-tuning,
 embedding export and evaluation, clips of any length the batcher's ladder
-takes) and text (RoBERTa: fine-tuning, evaluation and export).
+takes) and text (RoBERTa: fine-tuning, evaluation and export); the
+end-to-end stream from wavs and transcripts to predictions; the int8 serving
+engines.
 
 Layout (module names follow ``mer_tpu``'s):
 
@@ -33,7 +35,13 @@ Layout (module names follow ``mer_tpu``'s):
 - ``mining``     online triplet mining (class-uniform pools, hard / semi-hard)
 - ``objectives`` cross-entropy, class weights, batch-averaged metrics, the
                  mel extractor's triplet / variance / covariance losses
-- ``serving``    offline batched prediction and the online server
+- ``pipelines``  the end-to-end stream (``e2e``): wavs and transcripts ->
+                 embeddings on the device -> fusion, behind a prefetch thread
+                 (``data/prefetch.py``) with the native wav decoder
+                 (``data/native_wavio.py``) and the int16 or μ-law wire
+                 (``ops/mulaw.py``)
+- ``serving``    offline batched prediction, the online server and the int8
+                 engines (``quant``: M2FNet; ``encoders``: RoBERTa, wav2vec2)
 - ``train``      the fusion solver, the mel solver, the text / wav2vec2
                  solver (``fe_solver``: freeze, then fine-tune), checkpoints,
                  ``python -m mer_tpu_torch.train``
@@ -45,9 +53,9 @@ Layout (module names follow ``mer_tpu``'s):
                  ``bench_attention`` (K1-K4 against SDPA at the workload's
                  shapes), ``probe_strided`` (the lowering probes P)
 - ``utils``      dropout generators, console logging
-- ``test``, ``serve``  entry points (``python -m mer_tpu_torch.test`` /
-                 ``.serve``); every entry point runs on CUDA unless
-                 ``--device cpu``
+- ``test``, ``serve``, ``e2e_stream``  entry points (``python -m
+                 mer_tpu_torch.test`` / ``.serve`` / ``.e2e_stream``); every
+                 entry point runs on CUDA unless ``--device cpu``
 
 The package imports neither ``jax`` nor anything of ``mer_tpu``.
 """

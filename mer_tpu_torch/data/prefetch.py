@@ -1,0 +1,129 @@
+"""Double-buffered host -> device input pipeline (counterpart of
+``mer_tpu/data/prefetch.py``).
+
+A producer thread runs the host batcher and moves each batch (a dict of
+numpy arrays) to the device while the consumer computes on the one before.
+On a CUDA device every array is copied into pinned host memory, then to the
+device with ``non_blocking=True`` on a side stream, and an event marks the
+end of the batch's copies. The consumer makes its current stream wait on that
+event and calls ``record_stream`` on the batch's tensors, so the caching
+allocator does not hand their memory back to the side stream while the
+compute stream still reads it. The pinned buffers form a ring of
+``buffer_size + 2`` slots; a slot is refilled only after the event of its
+last copy has completed. On the CPU the same thread hands over plain tensors,
+without streams.
+
+A producer exception reaches the consumer after the batches made before it.
+``sharding`` (placing each batch across a device mesh) is not ported.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+
+class _PinnedSlot:
+    """Pinned host buffers for one batch in flight, and the event of their last copy."""
+
+    def __init__(self):
+        self.buffers: dict[str, torch.Tensor] = {}
+        self.event: torch.cuda.Event | None = None
+
+    def stage(self, key: str, array: np.ndarray) -> torch.Tensor:
+        """``array`` copied into this slot's pinned buffer for ``key`` (grown as needed)."""
+        array = np.ascontiguousarray(array)
+        buf = self.buffers.get(key)
+        if buf is None or buf.numel() < array.nbytes:
+            buf = self.buffers[key] = torch.empty(max(array.nbytes, 1), dtype=torch.uint8, pin_memory=True)
+        view = buf[: array.nbytes].view(torch.from_numpy(array[:0].reshape(-1)).dtype).view(array.shape)
+        view.numpy()[...] = array
+        return view
+
+
+class DevicePrefetcher:
+    """Wrap an iterable of host batches (dicts of numpy arrays); yield the
+    same dicts with torch tensors on ``device``.
+
+    Args:
+        batches: the host batches.
+        device: where the tensors land.
+        sharding: not ported (raises unless None).
+        buffer_size: batches the producer may run ahead (2: double buffering).
+    """
+
+    def __init__(self, batches: Iterable[dict], device: torch.device | str = "cuda", sharding=None,
+                 buffer_size: int = 2):
+        if sharding is not None:
+            raise NotImplementedError("DevicePrefetcher(sharding=...): placing batches across a device mesh is "
+                                      "not ported to mer_tpu_torch yet")
+        self._batches = batches
+        self.device = torch.device(device)
+        self._buffer_size = max(1, buffer_size)
+
+    def _to_device(self, batch: dict, slot: _PinnedSlot | None, stream) -> tuple[dict, object]:
+        if slot is None:
+            return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}, None
+        if slot.event is not None:
+            slot.event.synchronize()  # the slot's last copies have left its buffers
+        out = {}
+        with torch.cuda.stream(stream):
+            for key, array in batch.items():
+                out[key] = slot.stage(key, array).to(self.device, non_blocking=True)
+            slot.event = torch.cuda.Event()
+            slot.event.record(stream)
+        return out, slot.event
+
+    def __iter__(self) -> Iterator[dict]:
+        on_card = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if on_card else None
+        slots = [_PinnedSlot() for _ in range(self._buffer_size + 2)] if on_card else None
+        q: queue.Queue = queue.Queue(maxsize=self._buffer_size)
+        sentinel = object()
+        error: list[BaseException] = []
+        stop = threading.Event()
+
+        def producer() -> None:
+            try:
+                for i, batch in enumerate(self._batches):
+                    if stop.is_set():
+                        return
+                    q.put(self._to_device(batch, slots[i % len(slots)] if on_card else None, stream))
+            except BaseException as e:  # reaches the consumer after the batches before it
+                error.append(e)
+            finally:
+                q.put(sentinel)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                batch, event = item
+                if event is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(event)
+                    for t in batch.values():
+                        t.record_stream(current)
+                yield batch
+        finally:
+            stop.set()
+            while thread.is_alive():  # unblock a producer waiting on a full queue
+                try:
+                    q.get(timeout=0.05)
+                except queue.Empty:
+                    pass
+            thread.join()
+        if error:
+            raise error[0]
+
+
+def prefetch(batches: Iterable[dict], device: torch.device | str = "cuda", sharding=None,
+             buffer_size: int = 2) -> Iterator[dict]:
+    return iter(DevicePrefetcher(batches, device=device, sharding=sharding, buffer_size=buffer_size))

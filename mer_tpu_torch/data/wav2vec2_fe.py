@@ -13,8 +13,10 @@ long-sequence attention kernels K3 and K4. Batches are host numpy, int16 on the 
 own width); :func:`w2v_batch_to_inputs` makes the model's float inputs on the
 device.
 
-Single process; the native batch wav decoder is not ported (the stdlib
-reader of :mod:`mer_tpu_torch.data.audio_io` decodes).
+Single process. :meth:`Wav2Vec2FeatureDataset.waveform_batch` decodes a whole
+batch through the native decoder (:mod:`mer_tpu_torch.data.native_wavio`)
+unless ``MER_TPU_NATIVE=0``; the batcher reads clip by clip through the
+store (the stdlib reader of :mod:`mer_tpu_torch.data.audio_io`).
 """
 
 from __future__ import annotations
@@ -59,6 +61,30 @@ class Wav2Vec2FeatureDataset:
     def waveform(self, idx: int) -> np.ndarray:
         dia, utt = self.dia_utt[int(idx)]
         return self.store.get(dia, utt)
+
+    def waveform_batch(self, indices, width: int) -> tuple[np.ndarray, np.ndarray]:
+        """Rows ``indices`` decoded into a [n, width] float32 buffer, zero past
+        each clip, and their lengths (cut to ``width``), int32. One native
+        decode of the whole batch; a clip it rejects (a negative length code)
+        goes through the store, so a rate mismatch raises there. With
+        ``MER_TPU_NATIVE=0`` every clip goes through the store."""
+        from mer_tpu_torch.data import native_wavio
+
+        indices = np.asarray(indices)
+        if native_wavio.available():
+            paths = [self.store.path_for(*self.dia_utt[int(i)]) for i in indices]
+            out, lengths = native_wavio.decode_wav_batch(paths, width, expect_rate=self.sample_rate)
+            rejected = np.flatnonzero(lengths < 0)
+        else:
+            out = np.zeros((len(indices), width), np.float32)
+            lengths = np.zeros((len(indices),), np.int32)
+            rejected = np.arange(len(indices))
+        for k in rejected:
+            w = self.waveform(int(indices[k]))[:width]
+            out[k, : len(w)] = w
+            out[k, len(w):] = 0.0
+            lengths[k] = len(w)
+        return out, lengths
 
     def waveform_lengths(self) -> np.ndarray:
         """Clip lengths in samples (after the cut), from the WAV headers only;

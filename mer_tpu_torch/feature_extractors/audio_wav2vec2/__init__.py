@@ -8,8 +8,8 @@ They read the unchanged ``src/feature_extractors/audio_wav2vec2/config.yaml``
 (of its ``tpu:`` block only ``compute_dtype``, ``seed`` and, for training,
 ``batch_size_override``) and take ``--config``, ``--data-root``,
 ``--random-init``, ``--pretrained FILE``, ``--bf16`` / ``--f32``, ``--device``
-(``cuda`` unless ``--device cpu``; no card raises) and, for training,
-``--epochs``.
+(``cuda`` unless ``--device cpu``; no card raises), for training
+``--epochs`` and for the export ``--int8``.
 """
 
 from __future__ import annotations

@@ -6,9 +6,11 @@ pooling over the valid frames, and write
 pickle layout: the audio tables the fusion stage loads.
 
     python -m mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings --data-root DIR
-        [--config PATH] [--random-init | --pretrained FILE] [--bf16 | --f32] [--device cuda|cpu]
+        [--config PATH] [--random-init | --pretrained FILE] [--bf16 | --f32] [--int8] [--device cuda|cpu]
 
-Each split goes through in batches of 32 clips (the reference's export batch),
+``--int8`` embeds through the int8 serving engine
+(:class:`~mer_tpu_torch.serving.encoders.Wav2Vec2Int8`: K7 and K6 in f32, K1
+in bf16 on the card) over the model's f32 weights. Each split goes through in batches of 32 clips (the reference's export batch),
 padded to the 2 / 4 / 6 / 8 / 10 s ladder; on the card every batch launches K7
 once, K6 once and K1 once per encoder layer. The embeddings stay on the device
 until the split ends and are fetched once.
@@ -26,17 +28,28 @@ from mer_tpu_torch.feature_extractors.audio_wav2vec2 import build_model
 from mer_tpu_torch.feature_extractors.fe_common import export_embedding_table
 
 MODES = ("train", "val", "test")
+
+
+def int8_embed(model):
+    """The int8 engine's pooled embeddings over ``model``'s weights, quantized once."""
+    from mer_tpu_torch.serving import Wav2Vec2Int8, quantize_wav2vec2
+
+    qparams, server = quantize_wav2vec2(model), Wav2Vec2Int8(model)
+    print("int8 serving engine enabled")
+    return lambda waveforms, lengths: server.embed(qparams, waveforms, lengths)
 EXPORT_BATCH = 32
 
 
 @torch.no_grad()
-def export_split(model, dataset, batch_size: int = EXPORT_BATCH, seconds_buckets=SECONDS_BUCKETS):
+def export_split(model, dataset, batch_size: int = EXPORT_BATCH, seconds_buckets=SECONDS_BUCKETS, embed=None):
     """[N, H] float32 table of ``dataset`` in table order, batches padded to
-    the ``seconds_buckets`` ladder."""
+    the ``seconds_buckets`` ladder; ``embed`` (waveforms, lengths) -> [B, H]
+    replaces ``model.embed`` (the int8 engine)."""
     device = next(model.parameters()).device
+    embed = embed or model.embed
     rows, embeddings = [], []
     for batch in Wav2Vec2Batcher(dataset, batch_size, seconds_buckets=seconds_buckets):
-        embeddings.append(model.embed(*w2v_batch_to_inputs(batch, device)))
+        embeddings.append(embed(*w2v_batch_to_inputs(batch, device)))
         rows.append(batch["idx"][batch["emotion"] != -1])
     if not rows:
         return export_embedding_table([], 0, model.cfg.hidden_size)
@@ -48,11 +61,12 @@ def main(argv=None, save_dir: str = "embeddings/audio_wav2vec2") -> dict:
     """Returns ``{mode: [N, 768] table}``."""
     args, _, model = build_model(argv, "python -m mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings",
                                  need_checkpoint=False)
+    embed = int8_embed(model) if args.int8 else None
     tables = {}
     for mode in MODES:
         ds = Wav2Vec2FeatureDataset(mode, data_root=args.data_root)
         print(f"Saving {mode} embeddings...")
-        tables[mode] = export_split(model, ds)
+        tables[mode] = export_split(model, ds, embed=embed)
         out = os.path.join(os.path.abspath(save_dir), f"{mode}.pkl")
         save_embeddings(out, tables[mode])
         print(f"Saved {mode} embeddings to {out}")

@@ -4,9 +4,11 @@
 :func:`parse_args`, :func:`resolve_compute_dtype`, the model loaders
 :func:`load_wav2vec2_model` and :func:`load_text_model_and_tokenizer`,
 :func:`with_pretrained_backbone`, :func:`load_finetuned` and
-:func:`export_embedding_table`. ``--int8``, ``--pp``, ``--remat`` and
-``--zero1`` are parsed and refused: the serving engine, the pipeline, the
-rematerialisation and the sharded optimizer they select are not ported. The
+:func:`export_embedding_table`. ``--int8`` selects the int8 serving
+engine in the embedding exports (``serving/encoders.py``; the other entry
+points ignore it, as ``mer_tpu``'s do). ``--pp``, ``--remat`` and ``--zero1``
+are parsed and refused: the pipeline, the rematerialisation and the sharded
+optimizer they select are not ported. The
 encoders have one layout here, so ``--scan-layers`` has no counterpart, and the
 exports always loop over batches (``mer_tpu``'s ``--per-batch-export`` shape;
 its scan grouping exists to save jit dispatches).
@@ -32,7 +34,7 @@ from mer_tpu_torch.models.wav2vec2 import AudioERC, Wav2Vec2Config, audio_erc_fr
 from mer_tpu_torch.train.checkpoint import load_checkpoint
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_UNPORTED = {"int8": "the int8 serving engine", "pp": "pipeline parallelism",
+_UNPORTED = {"pp": "pipeline parallelism",
              "remat": "rematerialisation (a fine-tuning option)", "zero1": "the sharded optimizer state"}
 
 
@@ -53,7 +55,8 @@ def parse_args(argv=None, default_config: str | None = None, prog: str | None = 
     dtype.add_argument("--bf16", action="store_true", help="force bf16 compute over the f32 weights")
     dtype.add_argument("--f32", action="store_true", help="force float32 compute")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--int8", action="store_true", help="not ported")
+    p.add_argument("--int8", action="store_true",
+                   help="embedding export: the int8 serving engine (int8 weights and activations, int32 products)")
     p.add_argument("--pp", type=int, default=1, help="not ported")
     p.add_argument("--remat", action="store_true", help="not ported")
     p.add_argument("--zero1", action="store_true", help="not ported")

@@ -8,7 +8,7 @@ They read the unchanged ``src/feature_extractors/text/config.yaml`` (of its
 ``tpu:`` block only ``compute_dtype`` and ``seed``) and take ``--config``,
 ``--data-root``, ``--random-init``, ``--pretrained PATH``, ``--toy-tokenizer``,
 ``--variant``, ``--bf16`` / ``--f32``, ``--device`` (``cuda`` unless ``--device
-cpu``; no card raises) and, for training, ``--epochs``.
+cpu``; no card raises), for training ``--epochs`` and for the export ``--int8``.
 """
 
 from __future__ import annotations

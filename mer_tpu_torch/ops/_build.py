@@ -56,21 +56,27 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
-def build(name: str) -> bool:
-    """Build kernel ``name`` unless it is built already; True if it was built."""
-    final = library_path(name)
+def compile_library(command: list[str], source: str, final: str) -> bool:
+    """Compile ``source`` with ``command`` (a compiler and its flags) into the
+    shared library ``final`` unless it exists; True if it was built. A failed
+    compile raises with the compiler's output."""
     if os.path.exists(final):
         return False
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.makedirs(os.path.dirname(final), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(final))
     os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _source(name)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.run([*command, "-o", tmp, source], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{proc.stdout}")
+        raise RuntimeError(f"{os.path.basename(command[0])} failed for {os.path.basename(source)} "
+                           f"(rc {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, final)  # atomic: a reader never sees half a library
     return True
+
+
+def build(name: str) -> bool:
+    """Build kernel ``name`` unless it is built already; True if it was built."""
+    return compile_library([_nvcc(), *NVCC_FLAGS], _source(name), library_path(name))
 
 
 def load(name: str) -> ctypes.CDLL:

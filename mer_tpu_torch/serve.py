@@ -4,11 +4,12 @@ seeded random weights with ``--synthetic``, and run the
 dynamic micro-batching server against a stream of single-dialogue requests.
 
     python -m mer_tpu_torch.serve --synthetic --requests N [--max-batch 64]
-        [--max-wait-ms 5] [--device cuda|cpu]
+        [--max-wait-ms 5] [--int8] [--device cuda|cpu]
 
 The request stream is ``src/serve.py``'s: ``np.random.default_rng(1234)``,
 dialogue lengths Poisson(9.3) clipped to 1..33. The first ``--max-batch``
-requests warm a throwaway server before the timed run. Prints one
+requests warm a throwaway server before the timed run. ``--int8`` serves
+the int8 engine (``serving/quant.py``) over the f32 weights. Prints one
 ``online serving: {json}`` report line and returns the report.
 """
 
@@ -46,6 +47,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-batch", type=int, default=64)
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
     ap.add_argument("--requests", type=int, default=280, help="request count (MELD test = 280 dialogues)")
+    ap.add_argument("--int8", action="store_true", help="serve the int8 engine")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -56,8 +58,8 @@ def main(argv=None) -> dict:
         checkpoint = os.path.abspath(str(config.checkpoint.load_path))
         if not os.path.exists(checkpoint):
             raise FileNotFoundError(f"Checkpoint not found at {checkpoint}")
-    model = build_model(config, device, checkpoint=checkpoint)
-    predict = host_predict_fn(model, device)
+    model = build_model(config, device, checkpoint=checkpoint, dtype=torch.float32 if args.int8 else None)
+    predict = host_predict_fn(model, device, int8=args.int8)
     reqs = request_stream(args.requests, int(config.model.TEXT.embedding_size))
     server_args = dict(max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
                        length_buckets=length_buckets(config))
@@ -74,7 +76,7 @@ def main(argv=None) -> dict:
         stats = server.stats.snapshot()
 
     report = {
-        "mode": DTYPE_LABEL[compute_dtype(config)],
+        "mode": "int8" if args.int8 else DTYPE_LABEL[compute_dtype(config)],
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "dialogues_per_s": len(reqs) / dt,
         "utterances_per_s": n_utt / dt,

@@ -1,4 +1,5 @@
-"""Model set-up shared by the entry points: device, weights, predict."""
+"""Model set-up shared by the entry points: device, weights, predict (the
+model in its dtype, or the int8 engine over its f32 weights)."""
 
 from __future__ import annotations
 
@@ -23,22 +24,31 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_model(config, device: torch.device, checkpoint: str | None = None) -> M2FNet:
-    """M2FNet from ``config.model`` in eval mode on ``device``, cast to the
-    config's compute dtype; weights from a reference-layout checkpoint
+def build_model(config, device: torch.device, checkpoint: str | None = None,
+                dtype: torch.dtype | None = None) -> M2FNet:
+    """M2FNet from ``config.model`` in eval mode on ``device``, cast to
+    ``dtype`` (default: the config's compute dtype; the int8 engine
+    quantizes f32 weights); weights from a reference-layout checkpoint
     (strict load) or, without one, random weights from seed 0."""
     model = M2FNet.from_config(config.model)
     if checkpoint is not None:
         model.load_state_dict(load_reference_checkpoint(checkpoint), strict=True)
     else:
         init_random_(model, torch.Generator().manual_seed(0))
-    return model.to(device=device, dtype=compute_dtype(config)).eval()
+    return model.to(device=device, dtype=dtype or compute_dtype(config)).eval()
 
 
-def predict_fn(model: M2FNet):
+def predict_fn(model: M2FNet, int8: bool = False):
     """``(text, audio, padding_mask)`` device tensors -> argmax class [b, u].
     The embeddings stay f32: the model keeps them so across the encoder
-    skips and casts to its weights' dtype inside."""
+    skips and casts to its weights' dtype inside. ``int8``: the int8 engine
+    (:class:`~mer_tpu_torch.serving.quant.M2FNetInt8`) over the model's
+    weights, quantized once here."""
+    if int8:
+        from mer_tpu_torch.serving.quant import M2FNetInt8, quantize_m2fnet
+
+        qparams, server = quantize_m2fnet(model), M2FNetInt8(model)
+        return lambda text, audio, padding_mask: server.apply(qparams, text, audio, padding_mask).argmax(-1)
 
     def predict(text, audio, padding_mask):
         return model(text, audio, padding_mask).argmax(-1)
@@ -46,9 +56,9 @@ def predict_fn(model: M2FNet):
     return predict
 
 
-def host_predict_fn(model: M2FNet, device: torch.device):
+def host_predict_fn(model: M2FNet, device: torch.device, int8: bool = False):
     """:func:`predict_fn` over host numpy arrays, for the online server."""
-    predict = predict_fn(model)
+    predict = predict_fn(model, int8)
 
     def run(text: np.ndarray, audio: np.ndarray, padding_mask: np.ndarray) -> np.ndarray:
         with torch.inference_mode():

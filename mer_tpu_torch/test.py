@@ -6,11 +6,13 @@ Loads a reference-layout checkpoint (``torch.save({'epoch',
 batch-averaged metrics in ``src/test.py``'s format.
 
     python -m mer_tpu_torch.test [--synthetic] [--config PATH] [--data-root DIR]
-        [--checkpoint PATH] [--serving-batch N] [--device cuda|cpu]
+        [--checkpoint PATH] [--serving-batch N] [--int8] [--device cuda|cpu]
 
 ``--serving-batch N`` merges same-shape batches into batches of up to N
 dialogues; metrics are still computed per original batch, so the
-batch-averaged numbers are those of the unmerged loop.
+batch-averaged numbers are those of the unmerged loop. ``--int8`` predicts
+through the int8 engine (``serving/quant.py``) over the checkpoint's f32
+weights.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
 from mer_tpu_torch.core import CONFIG_PATH, compute_dtype, length_buckets, load_config
 from mer_tpu_torch.data import FusionBatcher, FusionDataset, SyntheticFusionDataset
@@ -58,6 +61,7 @@ def parse_args(argv=None):
                    help="reference-layout .pth (default: config checkpoint.load_path)")
     p.add_argument("--serving-batch", type=int, default=None,
                    help="merge same-shape batches into serving batches of up to N dialogues")
+    p.add_argument("--int8", action="store_true", help="predict through the int8 serving engine")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -73,8 +77,8 @@ def main(argv=None) -> dict:
     ckpt_path = os.path.abspath(args.checkpoint or str(config.checkpoint.load_path))
     if not os.path.exists(ckpt_path):
         raise FileNotFoundError(f"Checkpoint not found at {ckpt_path}")
-    model = build_model(config, device, checkpoint=ckpt_path)
-    predictor = BatchedPredictor(predict_fn(model), device)
+    model = build_model(config, device, checkpoint=ckpt_path, dtype=torch.float32 if args.int8 else None)
+    predictor = BatchedPredictor(predict_fn(model, int8=args.int8), device)
 
     batches = eval_batches(config, dataset)
     feed = [{k: b[k] for k in ("text", "audio", "padding_mask")} for b in batches]
@@ -88,7 +92,7 @@ def main(argv=None) -> dict:
     for b, pr in zip(batches, preds):
         emotion = np.asarray(b["emotion"])
         metrics.update(emotion, pr, mask=emotion != -1)
-    mode = f"{DTYPE_LABEL[compute_dtype(config)]}, {device.type}"
+    mode = f"{'int8' if args.int8 else DTYPE_LABEL[compute_dtype(config)]}, {device.type}"
     if args.serving_batch is not None:
         mode += f", serving_batch={args.serving_batch}"
     print(f"Accuracy=[{metrics.batch_averaged_accuracy * 100:.3f}%] "

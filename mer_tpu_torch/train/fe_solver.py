@@ -43,9 +43,10 @@ Where this differs from ``mer_tpu`` on purpose:
    is not part of the contract (``utils/rng.py``): the port reseeds both
    generators from (``tpu.seed``, micro-step) before every step, in both
    phases, as the fusion trainer does.
-3. Pipeline parallelism, rematerialisation, the sharded optimizer state, the
-   int8 engine, ``wandb`` and ``watch_norms`` are not ported; the entry points
-   refuse their flags.
+3. Pipeline parallelism, rematerialisation, the sharded optimizer state,
+   ``wandb`` and ``watch_norms`` are not ported; the entry points refuse their
+   flags. ``--int8`` selects the int8 engine of the exports alone (training
+   ignores it, as ``mer_tpu``'s does).
 """
 
 from __future__ import annotations

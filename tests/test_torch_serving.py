@@ -152,7 +152,9 @@ def test_port_imports_neither_jax_nor_mer_tpu():
             "mer_tpu_torch.feature_extractors.audio_wav2vec2.train, mer_tpu_torch.models.roberta, "
             "mer_tpu_torch.data.text_fe, mer_tpu_torch.core.text, mer_tpu_torch.feature_extractors.text.train, "
             "mer_tpu_torch.feature_extractors.text.test, mer_tpu_torch.feature_extractors.text.embeddings, "
-            "mer_tpu_torch.scripts.profile_w2v_conv; "
+            "mer_tpu_torch.scripts.profile_w2v_conv, mer_tpu_torch.ops.mulaw, mer_tpu_torch.data.native_wavio, "
+            "mer_tpu_torch.data.prefetch, mer_tpu_torch.pipelines.e2e, mer_tpu_torch.e2e_stream, "
+            "mer_tpu_torch.serving.quant, mer_tpu_torch.serving.encoders; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mer_tpu')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
