@@ -26,10 +26,11 @@ that two runs see the same tokens:
    all started together;
 3. hold each kernel against its plain PyTorch version on the card at the
    dialogue buckets (B=32), f32 and bf16, dropout off and on (K1 the
-   forward, K2 the backward), and read the kernels' dropout masks off
-   exactly; K5 at [32, 64, 47 and 3 clips, 1001 or 37 frames, 400 taps],
-   on the ``unfold`` view of reflect-padded clips and on materialised
-   frames; time kernel, plain version and library call (K5's: the
+   forward, K2 the backward), K1 bf16 and its plain version each against
+   an f64 witness over 16 seeds a shape (``rounding_witness``), and read
+   the kernels' dropout masks off exactly; K5 at [32, 64, 47 and 3 clips,
+   1001 or 37 frames, 400 taps], on the ``unfold`` view of reflect-padded
+   clips and on materialised frames; time kernel, plain version and library call (K5's: the
    torch.stft -> abs -> baddbmm -> log chain); K7 and K6 at [32, 16 and 2
    clips, every wave bucket 32,000 .. 160,000 samples] and at a ragged [2,
    40,005] (library: the F.conv1d + F.group_norm + F.gelu chain, and six
@@ -54,8 +55,7 @@ that two runs see the same tokens:
    64-key windows of v: K3's Hopper design in bf16, the 3xTF32 forward of
    both in f32); K3 also the same bits from two calls at every case; the
    kernels SDPA's f32 forward runs at [32, 12, 499, 499, 64] (the
-   profiler's names: the f32 yardstick of K1 and K3); then K1 at the mel
-   variant's fusion shapes [32, 6, S, S, 50];
+   profiler's names: the f32 yardstick of K1 and K3);
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -177,7 +177,10 @@ that two runs see the same tokens:
 Tolerances (kernel against plain version, same inputs, |err| <= atol +
 rtol |want|; every plain attention version runs on the inputs' own dtype and
 rounds P, and the backwards dS, to it as the kernels do, over other tiles): K1
-and K3 out f32 (2e-5, 0), bf16 (1e-2, 2**-8); lse 2e-5 in f32, 1e-3 in bf16.
+and K3 out f32 (2e-5, 0), in bf16 within the a priori bound (2^-7 + Sk
+2^-22) T + one ulp of the larger value, T = sum_j |P_ij D_ij v_jd| (both
+sides round P o D and the output to bf16: ``FWD_BF16_ELEMENTWISE``'s note); lse 2e-5 in f32,
+1e-3 in bf16.
 K2 and K4 f32 (1e-4, 1e-5), bf16 (2e-2, 2**-7). In bf16 every one of out, dq,
 dk, dv also within ``ATTENTION_BF16_REL`` of the plain version's largest
 |value| of that tensor, the tighter limit from 64 keys on (values of
@@ -231,16 +234,24 @@ DTYPE_NAMES = {0: "float32", 1: "bfloat16"}  # the kernels' dtype codes
 DTYPE_LABELS = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # (atol, rtol) per kernel output and dtype
 TOL = {
-    ("fwd", "float32"): (2e-5, 0.0), ("fwd", "bfloat16"): (1e-2, 2.0 ** -8),
+    ("fwd", "float32"): (2e-5, 0.0),
     ("lse", "float32"): (2e-5, 0.0), ("lse", "bfloat16"): (1e-3, 0.0),
     ("bwd", "float32"): (1e-4, 1e-5), ("bwd", "bfloat16"): (2e-2, 2.0 ** -7),
     ("logmel", "float32"): (1e-4, 1e-4),
     ("w2v_layer0_gn", "float32"): (1e-4, 1e-4), ("w2v_conv_tail", "float32"): (2e-5, 2e-5),
     ("w2v_gn_gelu", "float32"): (1e-4, 1e-4),
 }
+# K1 and K3 out in bf16: an a priori rounding bound in place of TOL. Each rounds P o D to bf16 before P V (relative
+# error <= 2^-8 a term; K1 and K3 P against the running max, the plain versions the normalised P), adds Sk terms
+# in f32 (<= Sk 2^-23 of their sum, the tensor cores truncating) and rounds its output to bf16 (half an ulp), so
+# against the exact result |err| <= (2^-8 + Sk 2^-23) T + ulp / 2, T = sum_j |P_ij D_ij v_jd|, and two such
+# results part by at most twice the first term plus one ulp of the larger. rounding_witness holds K1 and its plain
+# version to the first against an f64 witness, and counts the cases where they broke the elementwise limit this
+# replaced (FWD_BF16_ELEMENTWISE, TOL's form), which two correct roundings can break
+FWD_BF16_ELEMENTWISE = (1e-2, 2.0 ** -8)
 W2V_BF16_REL = 2e-2  # K6, K7 and K8 in bf16: |err| <= this x the plain version's largest value
-# K1-K4 in bf16 (out, dq, dk, dv; the seams too): within TOL and also |err| <= this x the plain version's largest
-# |value| of that tensor, the tighter limit from 64 keys on (values of 0.005-0.5 there, under TOL's bf16 atol). Both
+# K1-K4 in bf16 (out, dq, dk, dv; the seams too): within TOL (out: the rounding bound) and also |err| <= this x the
+# plain version's largest |value| of that tensor, the tighter limit from 64 keys on (values of 0.005-0.5 there). Both
 # sides round to bf16 last, so one or two ulps of the largest entry (2^-8 to 2^-7 of it) is the expected worst case
 # (measured 1.3e-3 to 6.8e-3); a kernel reading the wrong key tiles is off by 0.5-1.4 of it (phase 3b shows both)
 ATTENTION_BF16_REL = 2e-2
@@ -302,9 +313,14 @@ MEL_EPOCHS, MEL_BATCH = 3, 32
 MEL_SPLIT_DIALOGUES = {"train_sent_emo.csv": 100, "dev_sent_emo.csv": 20}  # the test split is MELD-shaped
 BUCKETS = (8, 16, 24, 33)
 # (B, H, Sq, Sk, Dh): dialogue buckets, dh 96 (768/8) and 50 (300/6), one Sq != Sk
-KERNEL_SHAPES = [(32, 8, s, s, dh) for dh in (96, 50) for s in BUCKETS] + [(32, 8, 24, 33, 96)]
-# the mel variant's fusion: 6 audio heads of 50 (checked after phase 3b, so that every earlier case keeps its seed)
+# the mel variant's fusion: 6 audio heads of 50
 MEL_FUSION_SHAPES = [(32, 6, s, s, 50) for s in BUCKETS]
+KERNEL_SHAPES = [(32, 8, s, s, dh) for dh in (96, 50) for s in BUCKETS] + [(32, 8, 24, 33, 96)] + MEL_FUSION_SHAPES
+# K1 bf16 and its plain version against an f64 witness: (shape, case index) of the case where the two once parted by
+# two ulps (dropout 0.4; its index in phase 3's list as it stands), then every dialogue shape at ROUNDING_SEEDS seeds
+ROUNDING_CASE = ((32, 8, 24, 33, 96), 53)
+ROUNDING_SEEDS = 16
+ROUNDING_RMS_RATIO = 1.1
 ONLINE_REQUESTS = (64, 280)  # one micro-batch at --max-batch 64; the MELD test split's dialogue count
 TRAIN_EPOCHS = 3
 # (kernel, (B, H, Sq, Sk, Dh), dtype name, dropout rate) -> launches, over the main paths' counted runs
@@ -388,13 +404,32 @@ def attention_inputs(shape, dtype, seed: int, fully_masked: bool = False, clips:
     return q, k, v, g, mask.cuda()
 
 
-def attention_errors(names, got, want, dtype: str) -> dict:
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """bf16's spacing at |x|: 2^(e - 7) for |x| in [2^e, 2^(e + 1))."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
+def sum_bound(plain_fn, q, k, v, mask, seed=None, rate: float = 0.0, sides: int = 2) -> torch.Tensor:
+    """The sums' part of a bf16 forward's rounding bound (``FWD_BF16_ELEMENTWISE``'s
+    note): ``sides`` x (2^-8 + Sk 2^-23) T, f32, with T = sum_j |P_ij D_ij v_jd|
+    from the plain version on |v| in f32 (P unrounded)."""
+    terms = plain_fn(q.float(), k.float(), v.float().abs(), mask, seed, rate)[0]
+    return sides * (2.0 ** -8 + k.shape[2] * 2.0 ** -23) * terms
+
+
+def attention_errors(names, got, want, dtype: str, sums: torch.Tensor | None = None) -> dict:
     """Excess over the limit (<= 0 passes) of each output of an attention
-    kernel: TOL, and in bf16 also ``ATTENTION_BF16_REL`` of the plain
-    version's largest |value| on out, dq, dk and dv."""
+    kernel: TOL, but a bf16 forward's out the rounding bound ``sums`` (from
+    :func:`sum_bound`) + one ulp of the larger value; in bf16 also
+    ``ATTENTION_BF16_REL`` of the plain version's largest |value| on out, dq,
+    dk and dv."""
     errs = {}
     for name, a, b in zip(names, got, want):
-        errs[name] = excess(a, b, ({"out": "fwd", "lse": "lse"}.get(name, "bwd"), dtype))
+        if name == "out" and dtype == "bfloat16":
+            a32, b32 = a.float(), b.float()
+            errs[name] = ((a32 - b32).abs() - sums - bf16_ulp(torch.maximum(a32.abs(), b32.abs()))).max().item()
+        else:
+            errs[name] = excess(a, b, ({"out": "fwd", "lse": "lse"}.get(name, "bwd"), dtype))
         if dtype == "bfloat16" and name != "lse":
             rel_excess = ((a.float() - b.float()).abs().max() - ATTENTION_BF16_REL * b.float().abs().max()).item()
             errs[name] = max(errs[name], rel_excess)
@@ -489,7 +524,9 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
     if kernel in ATTENTION_FWD:
         torch.cuda.synchronize()
         ref_out, ref_lse = plain_fn(q, k, v, mask, seed, rate)
-        errs = attention_errors(("out", "lse"), (out, lse), (ref_out, ref_lse), dtype)
+        sums = sum_bound(plain_fn, q, k, v, mask, seed, rate) if dtype == "bfloat16" else None
+        errs = attention_errors(("out", "lse"), (out, lse), (ref_out, ref_lse), dtype, sums)
+        del sums
         max_abs_err = (out.float() - ref_out.float()).abs().max().item()
         rel_err = {"out": max_abs_err / ref_out.float().abs().max().item()}
         del ref_out, ref_lse
@@ -522,6 +559,59 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
                              f"{' (a fully masked batch element)' if fully_masked else ''}: excess over tolerance "
                              f"{errs}, the same bits from two calls {same}")
     return row
+
+
+def rounding_witness(fa, seeds: int = ROUNDING_SEEDS) -> dict:
+    """K1 bf16 and its plain version, each against an f64 witness: the plain
+    version on the inputs' exact values in f64 (P unrounded). Over every
+    dialogue shape of phase 3, dropout off and on, ``seeds`` seeds each:
+    each one's RMS and largest error against the witness, its largest error
+    over its a priori bound (``sum_bound`` of one side + ulp / 2) as a
+    ratio, the largest ratio of the K1-plain gap to the bound of
+    ``attention_errors``, the largest gap in ulps of the plain value where
+    that is at least 1/4, and the cases where the gap broke the elementwise
+    limit the bound replaced. Then ``ROUNDING_CASE`` through
+    :func:`check_case`. Raises if K1 or the plain version breaks its bound
+    against the witness, or K1's RMS error is above ``ROUNDING_RMS_RATIO``
+    times the plain version's."""
+    atol, rtol = FWD_BF16_ELEMENTWISE
+    squares = {"k1": 0.0, "plain": 0.0}
+    summary = {"cases": 0, "elementwise_cases_over": 0, "elementwise_largest_excess": -float("inf"),
+               "gap_over_bound": 0.0, "ulps_apart": 0.0}
+    summary.update({f"{stat}_{name}": 0.0 for stat in ("largest", "over_bound") for name in squares})
+    n = 0
+    for shape in KERNEL_SHAPES:
+        for rate in (0.0, DROPOUT):
+            for i in range(seeds):
+                q, k, v, _, mask = attention_inputs(shape, torch.bfloat16, seed=i)
+                seed = dropout_seed(i, rate)
+                got = fa.flash_attention_forward(q, k, v, mask, seed, rate)[0].double()
+                plain = fa.flash_attention_reference(q, k, v, mask, seed, rate)[0].double()
+                exact = fa.flash_attention_reference(q.double(), k.double(), v.double(), mask, seed, rate)[0]
+                sums = sum_bound(fa.flash_attention_reference, q, k, v, mask, seed, rate, sides=1).double()
+                for name, x in (("k1", got), ("plain", plain)):
+                    err = (x - exact).abs()
+                    squares[name] += err.square().sum().item()
+                    bound = sums + bf16_ulp(x) / 2
+                    summary[f"largest_{name}"] = max(summary[f"largest_{name}"], err.max().item())
+                    summary[f"over_bound_{name}"] = max(summary[f"over_bound_{name}"], (err / bound).max().item())
+                gap = (got - plain).abs()
+                bound = 2 * sums + bf16_ulp(torch.maximum(got.abs(), plain.abs()))
+                summary["gap_over_bound"] = max(summary["gap_over_bound"], (gap / bound).max().item())
+                big = plain.abs() >= 0.25
+                summary["ulps_apart"] = max(summary["ulps_apart"], (gap[big] / bf16_ulp(plain[big])).max().item())
+                elementwise = (gap - atol - rtol * plain.abs()).max().item()
+                summary["elementwise_largest_excess"] = max(summary["elementwise_largest_excess"], elementwise)
+                summary["elementwise_cases_over"] += int(elementwise > 0)
+                summary["cases"] += 1
+                n += exact.numel()
+    summary.update({f"rms_{name}": (total / n) ** 0.5 for name, total in squares.items()})
+    log("rounding witness, K1 bf16 and its plain version against f64 " + json.dumps(summary))
+    row = check_case(fa, FWD, ROUNDING_CASE[0], "bfloat16", DROPOUT, ROUNDING_CASE[1], timed=False)
+    if summary["over_bound_k1"] > 1 or summary["over_bound_plain"] > 1 \
+            or summary["rms_k1"] > ROUNDING_RMS_RATIO * summary["rms_plain"]:
+        raise AssertionError(f"K1 bf16 or its plain version breaks its rounding bound against f64: {summary}")
+    return {**summary, "case": row}
 
 
 def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROPOUT, long: bool = False,
@@ -2111,14 +2201,17 @@ def check_seam(fa, kernel: str, shape, dtype: str, i: int) -> None:
     the kernel-vs-plain limits."""
     q, k, v, g, mask = attention_inputs(shape, DTYPES[dtype], seed=i, clips=True)
     out, lse = fa.flash_attention_forward(q, k, v, mask)
+    sums = None
     if kernel == FWD:
         names, got, want = ("out", "lse"), fa.flash_attention_stream(q, k, v, mask), (out, lse)
         what = "K1 | K3"
+        if dtype == "bfloat16":
+            sums = sum_bound(fa.flash_attention_stream_reference, q, k, v, mask)
     else:
         names, want = ("dq", "dk", "dv"), fa.flash_attention_backward(q, k, v, mask, out, lse, g)
         got, what = fa.flash_attention_tiled_backward(q, k, v, mask, out, lse, g), "K2 | K4"
     torch.cuda.synchronize()
-    errs = attention_errors(names, got, want, dtype)
+    errs = attention_errors(names, got, want, dtype, sums)
     diffs = {name: (a.float() - b.float()).abs().max().item() for name, a, b in zip(names, got, want)}
     largest = {name: b.float().abs().max().item() for name, b in zip(names, want)}
     log(f"seam {what} at {shape} {dtype}: max abs diff {json.dumps(diffs)}, largest |value| {json.dumps(largest)}, "
@@ -2443,6 +2536,7 @@ def main() -> None:
     cases += [(kernel, shape, dtype, rate) for shape in KERNEL_SHAPES if shape[-1] == 96 for dtype in DTYPES
               for kernel, rate in ((FWD, DROPOUT), (BWD, 0.0), (BWD, DROPOUT))]
     rows = [check_case(fa, *case, i) for i, case in enumerate(cases)]
+    rounding_witness(fa)
     for s in BUCKETS:
         check_dropout_masks(fa, 32, 8, s, s)
     rows += [check_mel_case(lk, (b, f, layout), len(rows) + i)
@@ -2466,8 +2560,6 @@ def main() -> None:
     t0 = time.perf_counter()
     rows += long_kernel_checks(fa, len(rows))
     log(f"phase 3b (K3, K4 against their plain versions) in {time.perf_counter() - t0:.1f} s")
-    rows += [check_case(fa, FWD, shape, dtype, 0.0, len(rows) + i)
-             for i, (shape, dtype) in enumerate((shape, dtype) for shape in MEL_FUSION_SHAPES for dtype in DTYPES)]
     log_sdpa_f32_kernels(card)
 
     # 4. offline evaluation, 5. online serving, 6. training: counts start at 0 for each path

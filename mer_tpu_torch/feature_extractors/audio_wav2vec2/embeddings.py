@@ -25,18 +25,10 @@ import torch
 from mer_tpu_torch.core import save_embeddings
 from mer_tpu_torch.data.wav2vec2_fe import SECONDS_BUCKETS, Wav2Vec2Batcher, Wav2Vec2FeatureDataset, w2v_batch_to_inputs
 from mer_tpu_torch.feature_extractors.audio_wav2vec2 import build_model
-from mer_tpu_torch.feature_extractors.fe_common import export_embedding_table
+from mer_tpu_torch.feature_extractors.fe_common import export_embedding_table, int8_embed
+from mer_tpu_torch.serving import Wav2Vec2Int8, quantize_wav2vec2
 
 MODES = ("train", "val", "test")
-
-
-def int8_embed(model):
-    """The int8 engine's pooled embeddings over ``model``'s weights, quantized once."""
-    from mer_tpu_torch.serving import Wav2Vec2Int8, quantize_wav2vec2
-
-    qparams, server = quantize_wav2vec2(model), Wav2Vec2Int8(model)
-    print("int8 serving engine enabled")
-    return lambda waveforms, lengths: server.embed(qparams, waveforms, lengths)
 EXPORT_BATCH = 32
 
 
@@ -61,7 +53,7 @@ def main(argv=None, save_dir: str = "embeddings/audio_wav2vec2") -> dict:
     """Returns ``{mode: [N, 768] table}``."""
     args, _, model = build_model(argv, "python -m mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings",
                                  need_checkpoint=False)
-    embed = int8_embed(model) if args.int8 else None
+    embed = int8_embed(model, quantize_wav2vec2, Wav2Vec2Int8) if args.int8 else None
     tables = {}
     for mode in MODES:
         ds = Wav2Vec2FeatureDataset(mode, data_root=args.data_root)

@@ -3,8 +3,8 @@
 
 :func:`parse_args`, :func:`resolve_compute_dtype`, the model loaders
 :func:`load_wav2vec2_model` and :func:`load_text_model_and_tokenizer`,
-:func:`with_pretrained_backbone`, :func:`load_finetuned` and
-:func:`export_embedding_table`. ``--int8`` selects the int8 serving
+:func:`with_pretrained_backbone`, :func:`load_finetuned`,
+:func:`export_embedding_table` and :func:`int8_embed`. ``--int8`` selects the int8 serving
 engine in the embedding exports (``serving/encoders.py``; the other entry
 points ignore it, as ``mer_tpu``'s do). ``--pp``, ``--remat`` and ``--zero1``
 are parsed and refused: the pipeline, the rematerialisation and the sharded
@@ -65,6 +65,14 @@ def parse_args(argv=None, default_config: str | None = None, prog: str | None = 
         if args.pp != 1 if flag == "pp" else getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {what} is not ported to mer_tpu_torch yet")
     return args
+
+
+def int8_embed(model, quantize, engine):
+    """A stand-in for ``model.embed`` through the int8 serving engine
+    ``engine(model)`` over ``quantize(model)``'s weights, quantized once."""
+    qparams, server = quantize(model), engine(model)
+    print("int8 serving engine enabled")
+    return lambda *inputs: server.embed(qparams, *inputs)
 
 
 def resolve_compute_dtype(args, config=None) -> torch.dtype:

@@ -25,19 +25,11 @@ import torch
 
 from mer_tpu_torch.core import save_embeddings
 from mer_tpu_torch.data.text_fe import TextBatcher, TextFeatureDataset, text_batch_to_inputs
-from mer_tpu_torch.feature_extractors.fe_common import export_embedding_table
+from mer_tpu_torch.feature_extractors.fe_common import export_embedding_table, int8_embed
 from mer_tpu_torch.feature_extractors.text import build_model
+from mer_tpu_torch.serving import RobertaInt8, quantize_roberta
 
 MODES = ("train", "val", "test")
-
-
-def int8_embed(model):
-    """The int8 engine's [CLS] embeddings over ``model``'s weights, quantized once."""
-    from mer_tpu_torch.serving import RobertaInt8, quantize_roberta
-
-    qparams, server = quantize_roberta(model), RobertaInt8(model)
-    print("int8 serving engine enabled")
-    return lambda ids, mask: server.embed(qparams, ids, mask)
 EXPORT_BATCH = 32
 
 
@@ -61,7 +53,7 @@ def main(argv=None, save_dir: str = "embeddings/text") -> dict:
     """Returns ``{mode: [N, 768] table}``."""
     args, _, model, tokenizer = build_model(argv, "python -m mer_tpu_torch.feature_extractors.text.embeddings",
                                             "checkpoint.save_path", need_checkpoint=False)
-    embed = int8_embed(model) if args.int8 else None
+    embed = int8_embed(model, quantize_roberta, RobertaInt8) if args.int8 else None
     tables = {}
     for mode in MODES:
         ds = TextFeatureDataset(mode, tokenizer, data_root=args.data_root)

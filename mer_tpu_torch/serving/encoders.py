@@ -11,6 +11,9 @@ wav2vec2's conv frontend and positional conv. The frontend runs in f32
 through the port's conv kernels (K7 then K6, f32 on the tensor cores in
 3xTF32, on the card; their plain versions on the CPU); the positional conv
 takes bf16-rounded operands and sums in f32; attention is bf16 (K1 on the card).
+Like :class:`~mer_tpu_torch.serving.quant.M2FNetInt8` these are forwards of
+their own over the quantized tree, not the float models with a quantized
+Linear swapped in (the reasons are in that module's docstring).
 """
 
 from __future__ import annotations

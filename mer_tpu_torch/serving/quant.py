@@ -23,6 +23,18 @@ module's weights in ``mer_tpu``'s layout (a Linear as ``{"kernel": [in, out],
 :func:`quantize_tree` replaces every ``kernel`` node by its int8 form. The
 engines are functional forwards over such a tree; :class:`M2FNetInt8` reads
 the architecture from the module the weights came from.
+
+Why a second forward beside the float modules' own, not a quantized Linear
+swapped into them: the engines keep ``mer_tpu``'s serving numerics, f32
+activations, residuals and LayerNorms between the int8 products and
+attention in bf16, where a float module runs one dtype through its whole
+forward (f32 attention is K1's f32 path, bf16 LayerNorm inputs in bf16).
+And the modules do not call a Linear child at every site: the fusion
+model's attention slices one packed ``in_proj_weight``, and RoBERTa's and
+wav2vec2's read each projection's weight in their forward to cast it to the
+forward's dtype. A swap would change those forwards and their numerics;
+the tree keeps the engines site for site with ``mer_tpu``'s (the tests
+hold the fusion engine's every site).
 """
 
 from __future__ import annotations
@@ -247,72 +259,36 @@ class calibration:
         global _CALIBRATION_SINK
         _CALIBRATION_SINK = None
         if self._id_to_path is not None:
-            items = list(self.sink.items())
-            self.sink.clear()
-            for key, amax in items:
-                if isinstance(key, tuple):  # a stacked site: (id, layer)
-                    path = self._id_to_path.get(key[0])
-                    self.sink[key if path is None else (path, key[1])] = amax
-                else:
-                    path = self._id_to_path.get(key)
-                    self.sink[key if path is None else path] = amax
+            for key in list(self.sink):
+                if key in self._id_to_path:
+                    self.sink[self._id_to_path[key]] = self.sink.pop(key)
         return False
-
-
-def _sink_site(key):
-    """The site of a sink key: a stacked key ((id | path, layer)) loses its layer."""
-    if isinstance(key, tuple) and len(key) == 2 and isinstance(key[1], int) and isinstance(key[0], (int, tuple)):
-        return key[0]
-    return key
 
 
 def apply_calibration(qparams: Any, sink: dict, headroom: float = 1.0, allow_partial: bool = False) -> Any:
     """A copy of ``qparams`` with a static per-tensor ``act_scale`` (headroom
-    x amax / 127) at every site the sink observed; a stacked site ([L, K, N]
-    kernels, sites keyed (site, layer)) gets an [L] tensor. Sites match by
-    path, else by node identity. A stacked site observed at some layers only,
-    or an observed site that matches nothing in the tree, raises unless
-    ``allow_partial``."""
+    x amax / 127) at every site the sink observed. Sites match by path, else
+    by node identity. An observed site that matches nothing in the tree
+    raises unless ``allow_partial``."""
     matched: set = set()
-    partial: list = []
-    scale_of = lambda amax: max(headroom * amax / 127.0, 1e-12)
-
-    def lookup(node, path, layer=None):
-        for site in (path, id(node)):
-            key = site if layer is None else (site, layer)
-            if key in sink:
-                return site, sink[key]
-        return None, None
 
     def rec(node, path):
         if not isinstance(node, dict):
             return node
         if "kernel_q" not in node:
             return {k: rec(v, path + (k,)) for k, v in node.items()}
-        if node["kernel_q"]["q"].dim() == 3:  # stacked [L, K, N]
-            hits = [lookup(node, path, layer=i) for i in range(node["kernel_q"]["q"].shape[0])]
-            matched.update(s for s, _ in hits if s is not None)
-            amaxes = [a for _, a in hits]
-            if any(a is None or a <= 0.0 for a in amaxes):
-                if any(a is not None and a > 0.0 for a in amaxes):
-                    partial.append(path)
-                return node
-            return {**node, "act_scale": torch.tensor([scale_of(a) for a in amaxes], dtype=torch.float32)}
-        site, amax = lookup(node, path)
-        if site is not None:
-            matched.add(site)
-        if amax is None or amax <= 0.0:
+        site = next((key for key in (path, id(node)) if key in sink), None)
+        if site is None:
             return node
-        return {**node, "act_scale": torch.tensor(scale_of(amax), dtype=torch.float32)}
+        matched.add(site)
+        if sink[site] <= 0.0:
+            return node
+        return {**node, "act_scale": torch.tensor(max(headroom * sink[site] / 127.0, 1e-12), dtype=torch.float32)}
 
     out = rec(qparams, ())
-    if partial and not allow_partial:
-        raise ValueError(f"stacked site(s) {sorted(map(str, partial))[:3]} were calibrated for only a subset of "
-                         "their layers: the whole stack would stay on dynamic quantization. Calibrate over every "
-                         "layer (a full forward), or pass allow_partial=True")
-    unmatched = {_sink_site(k) for k in sink} - matched
+    unmatched = set(sink) - matched
     if unmatched and not allow_partial:
-        raise ValueError(f"{len(unmatched)}/{len({_sink_site(k) for k in sink})} calibrated sites did not match "
+        raise ValueError(f"{len(unmatched)}/{len(sink)} calibrated sites did not match "
                          f"this tree (e.g. {sorted(map(str, unmatched))[:3]}): identity-keyed sites break when the "
                          "tree is rebuilt between calibrating and applying (pass the tree to calibration(qp) for "
                          "path keys); allow_partial=True accepts a partial bake")
