@@ -17,8 +17,9 @@ lowering probes P, and the text feature extractor's fine-tuning, evaluation
 and export at the full width and depth of RoBERTa-base (12 layers of 768, 12
 heads of 64, vocabulary 50,265; seeded random weights, the hash tokenizer),
 the end-to-end stream over both audio branches, both wires and the int8
-engines, and the int8 legs of offline evaluation and online serving, and
-fails on any fault. The script runs itself under ``PYTHONHASHSEED=0``, so
+engines, the int8 legs of offline evaluation and online serving, and data
+and tensor parallelism, ZeRO-1 and ring attention (two ranks on the card),
+and fails on any fault. The script runs itself under ``PYTHONHASHSEED=0``, so
 that two runs see the same tokens:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -155,6 +156,24 @@ that two runs see the same tokens:
    ``mer_tpu_torch.test --synthetic --int8`` (17 K1 a forward; its logits
    within 0.15 of the bf16 model's largest logit; utterances/s) and
    ``.serve --synthetic --int8 --requests 280`` (p50, p99);
+6m. parallelism: ``torchrun --nproc-per-node 1 -m mer_tpu_torch.train
+   --synthetic --epochs 1`` with ``tpu.zero1`` (one process: no group) against
+   the same epoch in this process, weights within 1e-6; two ranks of this
+   script (``--parallel-rank``) on the one card over gloo (NCCL takes one
+   rank a card), 3 fusion steps at the config's width, dropout 0, at dp 2
+   and tp 2 in f32 and bf16 and dp 2 with ZeRO-1 in f32, against the same
+   steps in one process: f32 losses within 1e-5, bf16 within 2e-2 of the
+   loss, weights within 2 x lr x 3 (Adam's rounding-noise rule), exactly 17
+   K1 and 17 K2 launches a step on each rank (counted: their tallies join
+   this process's), ZeRO-1's optimizer bytes a rank half of dp's; the ring
+   (``mer_tpu_torch.ops.ring_attention``) as a local ring at wav2vec2-base
+   width, [2, 12, 4500, 64] at sp 2 and 4 and [1, 12, 9000, 64] at sp 2, the
+   long clips' padding (a whole shard at sp 4), f32 and bf16, forward and
+   backward, against the plain full attention (f32 1e-4 of the largest
+   value; bf16 out within ``RING_BF16_SIDES`` x the sums' rounding bound + an
+   ulp, gradients ``ATTENTION_BF16_REL``), sp K1 or K3 and sp K4 launches a
+   ring step, its forward's ms beside one call on the whole sequence; and
+   whether the card sets aside L2 for persisting accesses (phase 3);
 7. hold each kernel against its plain version again at every shape that
    phases 4-6i gave it (recorded at each launch), in float32 and bfloat16
    (K5: float32, in both layouts), and K5 on pure tones and a silent clip:
@@ -323,6 +342,20 @@ ROUNDING_SEEDS = 16
 ROUNDING_RMS_RATIO = 1.1
 ONLINE_REQUESTS = (64, 280)  # one micro-batch at --max-batch 64; the MELD test split's dialogue count
 TRAIN_EPOCHS = 3
+# phase 6m: (name, dp, tp, tpu.zero1, compute dtype) of the two-rank fusion runs, each PARALLEL_STEPS steps
+PARALLEL_CASES = [("dp2_f32", 2, 1, False, "float32"), ("tp2_f32", 1, 2, False, "float32"),
+                  ("dp2_bf16", 2, 1, False, "bfloat16"), ("tp2_bf16", 1, 2, False, "bfloat16"),
+                  ("dp2_zero1_f32", 2, 1, True, "float32")]
+PARALLEL_STEPS = 3
+PARALLEL_F32_LOSS = 1e-5  # two-rank against one-process losses in f32: reduction order alone
+PARALLEL_BF16_LOSS_REL = 2e-2  # ... in bf16 (row-parallel sums rounded once more): W2V_BF16_REL's share of the loss
+# the ring on a local ring: ([B, H, S, Dh], sp) at wav2vec2-base width: K1 blocks of 2,250 and 1,125 keys, K3 of 4,500
+RING_CASES = [((2, 12, 4500, 64), 2), ((2, 12, 4500, 64), 4), ((1, 12, 9000, 64), 2)]
+RING_F32_REL = 1e-4  # ring against the plain full attention in f32, of the plain version's largest |value|
+# bf16 out: each block's out is K1's (within (2^-8 + n 2^-23) T_t + ulp / 2 of exact), rounded once more after the
+# merge; the block outs' half ulps weigh at most 2^-8 T, so against the plain version (within (2^-8 + S 2^-23) T +
+# ulp / 2) the ring stays within sum_bound(sides=RING_BF16_SIDES) + one ulp of the larger value
+RING_BF16_SIDES = 3
 # (kernel, (B, H, Sq, Sk, Dh), dtype name, dropout rate) -> launches, over the main paths' counted runs
 PATH_SHAPES: collections.Counter = collections.Counter()
 
@@ -851,12 +884,12 @@ def main_path_run():
         return patched
 
     # K5 (frames, clip stride, frame stride, B, F, n_fft, ...); K7 (dtype, 7 pointers, B, L, ...);
-    # K6 (dtype, 6 pointers, B, T0, plan, ...); K8 (dtype, 6 pointers, B, rows, valid rows, ...)
+    # K6 (dtype, 6 pointers, B, T0, plan, ...); K8 (dtype, 5 pointers, B, rows, valid rows, ...)
     mel_tallying = tallying_by(MEL, mel_kernel_fn, lambda a: (
         (a[3], a[4], "contiguous" if a[2] == a[5] else "unfold"), "float32"))
     l0_tallying = tallying_by(W2V0, l0_kernel_fn, lambda a: ((a[8], a[9]), DTYPE_NAMES[a[0]]))
     tail_tallying = tallying_by(W2V_TAIL, tail_kernel_fn, lambda a: ((a[7], a[8]), DTYPE_NAMES[a[0]]))
-    gn_tallying = tallying_by(GN, gn_kernel_fn, lambda a: ((a[7], a[8], a[9]), DTYPE_NAMES[a[0]]))
+    gn_tallying = tallying_by(GN, gn_kernel_fn, lambda a: ((a[6], a[7], a[8]), DTYPE_NAMES[a[0]]))
     # P (probe, x, w, out, T, C, stream)
     probe_tallying = tallying_by(PROBE, probe_kernel_fn, lambda a: ((a[4], a[5], probe_strided.PROBES[a[0]]),
                                                                     "float32"))
@@ -1460,6 +1493,21 @@ def check_w2v_limit_fails_shifted(wc, frontend) -> None:
         f"shifted input: error over the largest |value| {json.dumps(ratios)}")
     if not all((r > W2V_BF16_REL) == ("shifted" in name) for name, r in ratios.items()):
         raise AssertionError(f"K6's bf16 limit would pass a kernel reading the wrong frame: {ratios}")
+
+
+def log_l2_set_aside(wc, card: str) -> None:
+    """Whether the card lets a program set aside L2 for persisting accesses
+    (the premise of an access-policy window): the most it takes, then given back."""
+    import ctypes
+
+    from mer_tpu_torch.ops import _build
+
+    fn = getattr(_build.load(wc.GN_KERNEL), f"mer_{wc.GN_KERNEL}_l2_set_aside")
+    fn.argtypes, fn.restype = [ctypes.c_longlong], ctypes.c_longlong
+    most, back = fn(1 << 40), fn(0)
+    log(f"L2 set-aside for persisting accesses: {most} bytes taken (negative: a cudaError refusing it), {back} after "
+        f"giving it back, of {torch.cuda.get_device_properties(0).L2_cache_size} bytes of L2 ({card}); K8 runs "
+        "without it")
 
 
 @contextlib.contextmanager
@@ -2412,6 +2460,253 @@ def long_clip_parity(fa, wc, config, batch) -> None:
         raise AssertionError("the f32 long-clip step through K3 and K4 departs from the plain versions")
 
 
+# -- parallelism: dp, tp and ZeRO-1 over torch.distributed, ring attention (phase 6m) -----------------
+
+
+def parallel_config(tmp: str, name: str, dtype: str, zero1: bool, ckpt: str | None = None) -> str:
+    """``src/config.yaml`` at its width, dropout 0 (ranks would draw their own masks), ``dtype`` compute."""
+    import yaml
+
+    from mer_tpu_torch.core import CONFIG_PATH, load_config
+
+    config = load_config(CONFIG_PATH).override(model__dropout=0.0, tpu__compute_dtype=dtype, tpu__zero1=zero1)
+    if ckpt is not None:
+        config = config.override(checkpoint__save_path=ckpt, checkpoint__load_path=ckpt)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(config.to_dict(), f)
+    return path
+
+
+def parallel_steps(cfg_path: str, mesh=None):
+    """(losses, weights in the reference layout, optimizer bytes, launches) of
+    PARALLEL_STEPS fusion steps on the synthetic train split's first global
+    batches, seeded weights (the entry point's), this rank's part of ``mesh``."""
+    from mer_tpu_torch.core import length_buckets, load_config
+    from mer_tpu_torch.data import DeviceFusionBatcher, SyntheticFusionDataset
+    from mer_tpu_torch.models import M2FNet, init_random_
+    from mer_tpu_torch.parallel import full_state_dict, tensor_parallel_
+    from mer_tpu_torch.parallel.mesh import Mesh
+    from mer_tpu_torch.train import Solver
+
+    config, mesh = load_config(cfg_path), mesh or Mesh()
+    seed = int(config.get_path("tpu.seed", 0))
+    data = SyntheticFusionDataset(n_dialogues=200, seed=0, d_text=int(config.model.TEXT.embedding_size),
+                                  d_audio=int(config.model.AUDIO.embedding_size))
+    batches = list(DeviceFusionBatcher(data, batch_size=int(config.train.data_loader.batch_size), shuffle=True,
+                                       seed=seed, buckets=length_buckets(config), sort_by_length=True,
+                                       device="cuda"))[:PARALLEL_STEPS]
+    model = init_random_(M2FNet.from_config(config.model), torch.Generator().manual_seed(seed))
+    model = tensor_parallel_(model, mesh).cuda()
+    solver = Solver(model, config, mesh=mesh)
+    state = solver.init_state(PARALLEL_STEPS)
+    with main_path_run() as run:
+        losses = [solver.train_epoch(state, [b])[1] for b in batches]
+    opt = state.optimizer
+    nbytes = opt.moment_bytes() if hasattr(opt, "moment_bytes") else \
+        sum(v.numel() * v.element_size() for st in opt.state.values() for v in st.values() if torch.is_tensor(v))
+    weights = {k: v.float().cpu() for k, v in (full_state_dict(model, mesh) if mesh.size > 1
+                                               else model.state_dict()).items()}
+    return losses, weights, nbytes, run
+
+
+def parallel_rank(rank: int, port: str, workdir: str) -> None:
+    """One of the two ranks of phase 6m (``chip_smoke.py --parallel-rank``):
+    gloo on the one card, every PARALLEL_CASES case; each rank writes its
+    losses, launches, optimizer bytes and path shapes, rank 0 the weights."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    from mer_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
+                           device="cuda:0")
+    out = {}
+    for name, dp, tp, zero1, dtype in PARALLEL_CASES:
+        PATH_SHAPES.clear()
+        losses, weights, nbytes, run = parallel_steps(os.path.join(workdir, f"{dtype}_{zero1}.yaml"),
+                                                      make_mesh(dp=dp, tp=tp))
+        out[name] = {"losses": losses, "optimizer_bytes": nbytes, "launches": run,
+                     "shapes": [[k[0], list(k[1]), k[2], k[3], n] for k, n in PATH_SHAPES.items()]}
+        if rank == 0:
+            torch.save(weights, os.path.join(workdir, f"{name}.pt"))
+        dist.barrier()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def ring_inputs(shape, dtype, seed: int):
+    """q, k, v, g [B, H, S, Dh] at the main path's scale and the long clips'
+    padding: element 0 whole, element 1 (when B > 1) padded from 2/3 of S on
+    (a whole shard at sp = 4); element 0 of a one-clip batch pads its last
+    tenth."""
+    b, h, s, dh = shape
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = ((torch.randn(b, h, s, dh, generator=gen) / 3 ** 0.5).to("cuda", dtype) for _ in range(4))
+    mask = torch.zeros(b, s, dtype=torch.bool)
+    if b > 1:
+        mask[1, 2 * s // 3:] = True
+    else:
+        mask[0, s - s // 10:] = True
+    return q, k, v, g, mask.cuda()
+
+
+def ring_phase(fa, card: str) -> dict:
+    """Phase 6m's ring: the local ring (sp shards on the card) at wav2vec2-base
+    width, forward and backward, against the plain full attention; the
+    launches of each call (counted: a main path of this slice)."""
+    from mer_tpu_torch.ops import ring_attention as ra
+
+    launches = dict(ZERO)
+    for i, (shape, sp) in enumerate(RING_CASES):
+        b, h, s, dh = shape
+        blocks = s // sp
+        fwd = STREAM if blocks > fa.STREAM_THRESHOLD else FWD
+        for dtype_name, dtype in DTYPES.items():
+            q, k, v, g, mask = ring_inputs(shape, dtype, 600 + i)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            with main_path_run() as run:
+                out = ra.ring_attention(*leaves, key_padding_mask=mask, sp=sp)
+                out.backward(g)
+            torch.cuda.synchronize()
+            want_run = {**ZERO, fwd: sp * sp, backward_kernel(fa, blocks): sp * sp}
+            if run != want_run:
+                raise AssertionError(f"ring {shape} sp={sp} {dtype_name}: launches {run}, want {want_run} "
+                                     f"({sp} a ring step, {sp} steps)")
+            for name, n in run.items():
+                launches[name] += n
+            got = [out.detach(), *(t.grad for t in leaves)]
+            plain_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            plain = fa.flash_attention_reference(*plain_leaves, mask)[0]
+            plain.backward(g)
+            want = [plain.detach(), *(t.grad for t in plain_leaves)]
+            errs = {}
+            for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+                a32, w32 = a.float(), w.float()
+                if dtype_name == "float32":
+                    errs[name] = ((a32 - w32).abs().max() - RING_F32_REL * w32.abs().max()).item()
+                elif name == "out":  # K1's bf16 rounding bound, and the merge's rounding of each block out
+                    sums = sum_bound(fa.flash_attention_reference, q, k, v, mask, sides=RING_BF16_SIDES)
+                    errs[name] = ((a32 - w32).abs() - sums - bf16_ulp(torch.maximum(a32.abs(), w32.abs()))).max().item()
+                else:
+                    errs[name] = ((a32 - w32).abs().max() - ATTENTION_BF16_REL * w32.abs().max()).item()
+            with torch.no_grad():
+                ring_ms = device_ms(lambda: ra.ring_attention(q, k, v, key_padding_mask=mask, sp=sp), reps=3,
+                                    replays=3)
+                whole_ms = device_ms(lambda: fa.flash_attention_forward(q, k, v, mask), reps=3, replays=3)
+            whole = STREAM if s > fa.STREAM_THRESHOLD else FWD
+            log(f"ring {shape} sp={sp} {dtype_name}: per ring step {sp} {fwd} + {sp} "
+                f"{backward_kernel(fa, blocks)} (launches {run}); excess over the limit {json.dumps(errs)} "
+                f"(<= 0 passes); forward {ring_ms} ms a call against {whole} on the whole sequence {whole_ms} ms "
+                f"({card})")
+            if max(errs.values()) > 0:
+                raise AssertionError(f"ring {shape} sp={sp} {dtype_name} departs from the plain attention: {errs}")
+    return launches
+
+
+def parallel_phase(fa, card: str) -> dict:
+    """Phase 6m; returns the launches of the two-rank steps and the ring."""
+    from mer_tpu_torch import train as train_entry
+    from mer_tpu_torch.core import CONFIG_PATH, load_config
+    from mer_tpu_torch.train import load_checkpoint
+
+    t0 = time.perf_counter()
+    launches = dict(ZERO)
+    lr, steps = float(load_config(CONFIG_PATH).solver.lr), PARALLEL_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        # torchrun, one rank: tpu.zero1 with one dp rank is the single-process run
+        ckpts = {which: os.path.join(tmp, which, "m2fnet.ckpt") for which in ("torchrun", "single")}
+        torchrun = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+                                   "--master-port", str(free_port()), "-m", "mer_tpu_torch.train", "--synthetic",
+                                   "--epochs", "1", "--config",
+                                   parallel_config(tmp, "torchrun.yaml", "bfloat16", True, ckpts["torchrun"])],
+                                  cwd=REPO, capture_output=True, text=True, timeout=300)
+        if torchrun.returncode != 0:
+            raise AssertionError(f"torchrun --nproc-per-node 1 failed:\n{torchrun.stdout[-3000:]}\n"
+                                 f"{torchrun.stderr[-3000:]}")
+        train_entry.main(["--synthetic", "--epochs", "1", "--config",
+                          parallel_config(tmp, "single.yaml", "bfloat16", False, ckpts["single"])])
+        a, b = (load_checkpoint(ckpts[w])["model_state_dict"] for w in ("torchrun", "single"))
+        diff = max((a[n].float() - b[n].float()).abs().max().item() for n in a)
+        log(f"torchrun --nproc-per-node 1 (tpu.zero1, bf16, 1 epoch) against one process: weights max diff {diff} "
+            f"(tol 1e-6)")
+        if diff > 1e-6:
+            raise AssertionError("a one-rank torchrun run departs from the single-process run")
+
+        # two ranks on the one card over gloo: dp, tp, ZeRO-1 against the single-process steps
+        for dtype in DTYPES:
+            for zero1 in (False, True):
+                parallel_config(tmp, f"{dtype}_{zero1}.yaml", dtype, zero1)
+        port = str(free_port())
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r), port, tmp],
+                                  cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            single = {dtype: parallel_steps(os.path.join(tmp, f"{dtype}_False.yaml")) for dtype in DTYPES}
+            for *_, run in single.values():
+                for name, n in run.items():
+                    launches[name] += n
+            outputs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, text) in enumerate(zip(procs, outputs)):
+            if p.returncode != 0:
+                raise AssertionError(f"parallel rank {r} failed:\n{text[-4000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        per_step = attention_calls_per_forward(load_config(CONFIG_PATH))
+        for name, dp, tp, zero1, dtype in PARALLEL_CASES:
+            losses, weights, _, _ = single[dtype]
+            got = torch.load(os.path.join(tmp, f"{name}.pt"))
+            got_losses = ranks[0][name]["losses"]
+            loss_diff = max(abs(x - y) for x, y in zip(got_losses, losses))
+            key_bias = lambda n: n.endswith("in_proj_bias")
+            diffs = {n: (got[n] - weights[n]).abs() for n in weights}
+            blind = max(d[d.shape[0] // 3: 2 * d.shape[0] // 3].max().item() for n, d in diffs.items() if key_bias(n))
+            seen = torch.cat([torch.cat([d[: d.shape[0] // 3], d[2 * d.shape[0] // 3:]]) if key_bias(n) else d.flatten()
+                              for n, d in diffs.items()])
+            loss_tol = PARALLEL_F32_LOSS if dtype == "float32" else PARALLEL_BF16_LOSS_REL * max(map(abs, losses))
+            want_run = {**ZERO, FWD: per_step * steps, BWD: per_step * steps}
+            log(f"parallel {name} ({dtype}, 2 ranks over gloo on one card) against one process, {steps} steps: "
+                f"losses {got_losses} vs {losses}, max diff {loss_diff} (tol {loss_tol}); weights max diff "
+                f"{seen.max().item()} (tol {2 * lr * steps}), {int((seen > lr / 50).sum())} of {seen.numel()} beyond "
+                f"lr/50, key biases {blind}; launches a rank {[r[name]['launches'] for r in ranks]} (want {want_run}: "
+                f"{per_step} K1 + {per_step} K2 a step); optimizer bytes a rank "
+                f"{[r[name]['optimizer_bytes'] for r in ranks]}")
+            if not (loss_diff <= loss_tol and seen.max().item() <= 2 * lr * steps + 1e-6):
+                raise AssertionError(f"parallel {name} departs from the single-process steps")
+            for r in ranks:
+                if r[name]["launches"] != want_run:
+                    raise AssertionError(f"parallel {name}: launches {r[name]['launches']}, want {want_run}")
+                for kernel, shape, dtype_name, rate, n in r[name]["shapes"]:
+                    PATH_SHAPES[(kernel, tuple(shape), dtype_name, rate)] += n
+                    launches[kernel] += n
+        dp_bytes = ranks[0]["dp2_f32"]["optimizer_bytes"]
+        ratios = [r["dp2_zero1_f32"]["optimizer_bytes"] / dp_bytes for r in ranks]
+        log(f"ZeRO-1 at dp 2: optimizer bytes a rank {ratios} of dp-only's {dp_bytes}")
+        if not all(0.5 <= x <= 0.51 for x in ratios):
+            raise AssertionError(f"ZeRO-1 keeps {ratios} of the optimizer bytes a rank, want half")
+    # the ring, sp shards on the card
+    for name, n in ring_phase(fa, card).items():
+        launches[name] += n
+    log(f"phase 6m (parallel) in {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def log_sdpa_f32_kernels(card: str) -> None:
     """The kernels SDPA's f32 forward runs at the f32 export's [32, 12, 499, 499, 64] with a key mask, by name
     with their device us a call (a CUDA-only profile of three calls): the yardstick of K1 and K3 in f32."""
@@ -2553,6 +2848,7 @@ def main() -> None:
     for shape in GN_SHAPES:
         for dtype in DTYPES:
             rows.append(check_w2v_case(wc, frontend, GN, shape, dtype, len(rows)))
+    log_l2_set_aside(wc, card)
     rows += [check_case(fa, FWD, shape, dtype, 0.0, len(rows) + i)
              for i, (shape, dtype) in enumerate((shape, dtype) for shape in W2V_ATTENTION_SHAPES + TEXT_ATTENTION_SHAPES
                                                 for dtype in DTYPES)]
@@ -2609,6 +2905,9 @@ def main() -> None:
             for name, n in phase.items():
                 launches[name] += n
         log(f"phase 6l (e2e stream, int8 engines) in {time.perf_counter() - t0:.1f} s")
+        # 6m. dp, tp and ZeRO-1 on two ranks over gloo, torchrun, the ring on the card
+        for name, n in parallel_phase(fa, card).items():
+            launches[name] += n
     attention_bench_phase(card)
     probe_results, launches[PROBE] = probe_phase(card)
     del w2v_model  # its conv frontend serves phase 7
@@ -2697,4 +2996,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

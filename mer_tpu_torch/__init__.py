@@ -24,7 +24,8 @@ Layout (module names follow ``mer_tpu``'s):
                  from the card's crossover rows), the log-mel frontend
                  and its frames -> log-mel kernel K5, the wav2vec2 conv
                  frontend's kernels K7 (layer 0 + GroupNorm + GELU), K6
-                 (layers 1-6) and K8 (GroupNorm + GELU); kernels build from
+                 (layers 1-6) and K8 (GroupNorm + GELU); ring attention over
+                 the sp axis; kernels build from
                  ``csrc/`` at first use into ``_build/``; each has its plain
                  version
 - ``models``     M2FNet and its layers in the reference ``state_dict`` layout,
@@ -35,6 +36,11 @@ Layout (module names follow ``mer_tpu``'s):
 - ``mining``     online triplet mining (class-uniform pools, hard / semi-hard)
 - ``objectives`` cross-entropy, class weights, batch-averaged metrics, the
                  mel extractor's triplet / variance / covariance losses
+- ``parallel``   the (dp, tp, sp) mesh over ``torch.distributed``, Megatron
+                 tensor parallelism, data parallelism with the global
+                 batch's loss and ZeRO-1 (ring attention is
+                 ``ops/ring_attention.py``, process sharding
+                 ``data/process_sharding.py``)
 - ``pipelines``  the end-to-end stream (``e2e``): wavs and transcripts ->
                  embeddings on the device -> fusion, behind a prefetch thread
                  (``data/prefetch.py``) with the native wav decoder

@@ -16,6 +16,7 @@ import torch
 
 from mer_tpu_torch.core import dialogue_index, embeddings_path, get_text, load_embeddings, map_emotions
 from mer_tpu_torch.core.config import DEFAULT_LENGTH_BUCKETS
+from mer_tpu_torch.data.process_sharding import local_num_batches, resolve_process, shard_batches
 
 
 class FusionDataset:
@@ -117,8 +118,11 @@ class FusionBatcher:
         seed: int = 0,
         buckets: tuple[int, ...] = DEFAULT_LENGTH_BUCKETS,
         sort_by_length: bool = True,
+        process_index: int | None = None,
+        process_count: int | None = None,
     ):
         self.dataset = dataset
+        self.process_index, self.process_count = resolve_process(process_index, process_count)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.buckets = tuple(buckets)
@@ -128,14 +132,15 @@ class FusionBatcher:
         self._lengths = np.asarray([dataset[i]["emotion"].shape[0] for i in range(len(dataset))])
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        return local_num_batches(-(-len(self.dataset) // self.batch_size), self.process_index, self.process_count)
 
     def seek_epoch(self, epoch: int) -> None:
         """Shuffle state of a fresh batcher after ``epoch`` epochs."""
         self._rng = _seek(self._seed, epoch, self._lengths, self.batch_size, self.shuffle, self.sort_by_length)
 
     def __iter__(self):
-        for idxs in _epoch_batches(self._rng, self._lengths, self.batch_size, self.shuffle, self.sort_by_length):
+        batches = _epoch_batches(self._rng, self._lengths, self.batch_size, self.shuffle, self.sort_by_length)
+        for idxs in shard_batches(batches, self.process_index, self.process_count):
             yield collate_dialogues([self.dataset[int(i)] for i in idxs], self.batch_size, self.buckets)
 
 
@@ -176,8 +181,10 @@ class DeviceFusionBatcher:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  buckets: tuple[int, ...] = DEFAULT_LENGTH_BUCKETS, sort_by_length: bool = True,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", process_index: int | None = None,
+                 process_count: int | None = None):
         self.batch_size = batch_size
+        self.process_index, self.process_count = resolve_process(process_index, process_count)
         self.shuffle = shuffle
         self.buckets = tuple(buckets)
         self.sort_by_length = sort_by_length
@@ -197,14 +204,15 @@ class DeviceFusionBatcher:
         self._n = n
 
     def __len__(self) -> int:
-        return (self._n + self.batch_size - 1) // self.batch_size
+        return local_num_batches(-(-self._n // self.batch_size), self.process_index, self.process_count)
 
     def seek_epoch(self, epoch: int) -> None:
         """Shuffle state of a fresh batcher after ``epoch`` epochs."""
         self._rng = _seek(self._seed, epoch, self._lengths, self.batch_size, self.shuffle, self.sort_by_length)
 
     def __iter__(self):
-        for idxs in _epoch_batches(self._rng, self._lengths, self.batch_size, self.shuffle, self.sort_by_length):
+        batches = _epoch_batches(self._rng, self._lengths, self.batch_size, self.shuffle, self.sort_by_length)
+        for idxs in shard_batches(batches, self.process_index, self.process_count):
             bucket = pick_bucket(int(self._lengths[idxs].max()), self.buckets)
             rows = np.full(self.batch_size, self._n, np.int64)  # missing dialogues: the padding row
             rows[: len(idxs)] = idxs

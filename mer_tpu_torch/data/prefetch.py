@@ -14,7 +14,13 @@ last copy has completed. On the CPU the same thread hands over plain tensors,
 without streams.
 
 A producer exception reaches the consumer after the batches made before it.
-``sharding`` (placing each batch across a device mesh) is not ported.
+
+``sharding`` places each batch across the dp axis of a mesh, as
+``mer_tpu``'s ``jax.device_put`` onto a batch sharding does: a ``(group,
+dp_rank)`` pair (the dp process group, None for one rank, and this rank's
+place in it), with which the producer keeps the rank's rows of the batch
+(``parallel/mesh.py``'s ``dp_row_shard``: padded to a multiple of the group's
+size as ``pad_batch_to_dp`` pads) and copies only those to the device.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from mer_tpu_torch.parallel.mesh import dp_row_shard
 
 
 class _PinnedSlot:
@@ -52,15 +61,19 @@ class DevicePrefetcher:
     Args:
         batches: the host batches.
         device: where the tensors land.
-        sharding: not ported (raises unless None).
+        sharding: None, or ``(dp group, dp rank)``: yield this rank's row
+            shard of each batch.
         buffer_size: batches the producer may run ahead (2: double buffering).
     """
 
     def __init__(self, batches: Iterable[dict], device: torch.device | str = "cuda", sharding=None,
                  buffer_size: int = 2):
         if sharding is not None:
-            raise NotImplementedError("DevicePrefetcher(sharding=...): placing batches across a device mesh is "
-                                      "not ported to mer_tpu_torch yet")
+            group, rank = sharding
+            size = dist.get_world_size(group) if group is not None else 1
+            if not 0 <= rank < size:
+                raise ValueError(f"sharding: dp rank {rank} outside a group of {size}")
+            batches = (dp_row_shard(batch, size, rank) for batch in batches)
         self._batches = batches
         self.device = torch.device(device)
         self._buffer_size = max(1, buffer_size)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from mer_tpu_torch.core import get_text, get_utterance_with_context, map_emotions
+from mer_tpu_torch.data.process_sharding import local_num_batches, resolve_process, shard_batches
 
 TOKEN_BUCKETS = (64, 128, 256, 512)
 
@@ -127,15 +128,17 @@ class TextBatcher:
     filled by repeating its last row with ``emotion`` -1."""
 
     def __init__(self, dataset: TextFeatureDataset, batch_size: int, shuffle: bool = False, seed: int = 0,
-                 buckets: tuple[int, ...] = TOKEN_BUCKETS):
+                 buckets: tuple[int, ...] = TOKEN_BUCKETS, process_index: int | None = None,
+                 process_count: int | None = None):
         self.dataset = dataset
+        self.process_index, self.process_count = resolve_process(process_index, process_count)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.buckets = buckets
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        return local_num_batches(-(-len(self.dataset) // self.batch_size), self.process_index, self.process_count)
 
     def _bucket(self, longest: int) -> int:
         return next((b for b in self.buckets if longest <= b), self.buckets[-1])
@@ -146,7 +149,7 @@ class TextBatcher:
         if self.shuffle:
             self._rng.shuffle(order)
         tokenizer = self.dataset.tokenizer
-        for start in range(0, n, self.batch_size):
+        for start in shard_batches(range(0, n, self.batch_size), self.process_index, self.process_count):
             idx = order[start: start + self.batch_size]
             pad = self.batch_size - len(idx)
             full_idx = np.concatenate([idx, idx[-1:].repeat(pad)]) if pad else idx

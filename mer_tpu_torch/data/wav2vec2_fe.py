@@ -29,6 +29,7 @@ import torch
 from mer_tpu_torch.core import get_text, map_emotions
 from mer_tpu_torch.data.audio_io import WaveformStore
 from mer_tpu_torch.data.mel_fe import to_device, wav_dir_for
+from mer_tpu_torch.data.process_sharding import local_num_batches, resolve_process, shard_batches
 
 SAMPLE_RATE = 16000
 MAX_SECONDS = 10.0
@@ -120,15 +121,17 @@ class Wav2Vec2Batcher:
     width ladder in seconds (a clip longer than its last rung is cut to it)."""
 
     def __init__(self, dataset: Wav2Vec2FeatureDataset, batch_size: int, shuffle: bool = False, seed: int = 0,
-                 seconds_buckets: tuple[float, ...] = SECONDS_BUCKETS):
+                 seconds_buckets: tuple[float, ...] = SECONDS_BUCKETS, process_index: int | None = None,
+                 process_count: int | None = None):
         self.dataset = dataset
+        self.process_index, self.process_count = resolve_process(process_index, process_count)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.buckets = tuple(int(s * dataset.sample_rate) for s in seconds_buckets)
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        return local_num_batches(-(-len(self.dataset) // self.batch_size), self.process_index, self.process_count)
 
     def _bucket(self, longest: int) -> int:
         for b in self.buckets:
@@ -146,7 +149,7 @@ class Wav2Vec2Batcher:
         batches = [order[i: i + self.batch_size] for i in range(0, n, self.batch_size)]
         if self.shuffle:
             self._rng.shuffle(batches)
-        for idx in batches:
+        for idx in shard_batches(batches, self.process_index, self.process_count):
             pad = self.batch_size - len(idx)
             full_idx = np.concatenate([idx, idx[-1:].repeat(pad)]) if pad else idx
             waves = [self.dataset.waveform(j) for j in full_idx]

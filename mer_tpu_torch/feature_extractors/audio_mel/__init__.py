@@ -5,7 +5,10 @@
 
 Both read the unchanged ``src/feature_extractors/audio_mel/config_audio_mel.yaml``
 and take ``--config``, ``--data-root``, ``--epochs``, ``--bf16`` / ``--f32``
-and ``--device`` (``cuda`` unless ``--device cpu``; no card raises).
+and ``--device`` (``cuda`` unless ``--device cpu``; no card raises). Under
+``torchrun`` the training ranks share one model on the dp axis of the
+config's ``tpu.mesh`` (every rank by default), ``tpu.zero1`` sharding the
+Adam moments.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from mer_tpu_torch.core import load_config
 from mer_tpu_torch.data import MelFeatureDataset
 from mer_tpu_torch.models import mel_extractor_from_seed
+from mer_tpu_torch.parallel import initialize_distributed, local_device, mesh_from_config
 from mer_tpu_torch.serving.engine import resolve_device
 from mer_tpu_torch.train.mel_solver import MelSolver
 
@@ -41,8 +45,11 @@ def build_solver(args, train_mode: str = "train"):
     """(config, solver) for ``args``: the extractor with random weights from
     ``tpu.seed`` on the device, over ``train_mode`` and the validation split.
     In float32 TF32 is turned off, so f32 means f32 on the card."""
-    device = resolve_device(args.device)
+    resolve_device(args.device)
+    initialize_distributed(device=args.device)
+    device = local_device(args.device)
     config = load_config(args.config)
+    mesh = mesh_from_config(config)
     if args.epochs is not None:
         config = config.override(solver__epochs=args.epochs)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -54,4 +61,4 @@ def build_solver(args, train_mode: str = "train"):
                                                                          device=device)
     seed = int(config.get_path("tpu.seed", 0))
     model = mel_extractor_from_seed(seed).to(device)
-    return config, MelSolver(model, config, data_train, data_val, seed=seed, compute_dtype=dtype)
+    return config, MelSolver(model, config, data_train, data_val, seed=seed, compute_dtype=dtype, mesh=mesh)

@@ -7,8 +7,10 @@ is ``tpu.batch_size_override`` when the config sets it (the reference's 2 is a
 device-memory choice), else the loader's.
 
     python -m mer_tpu_torch.feature_extractors.audio_wav2vec2.train --data-root DIR [--epochs N]
-        [--config PATH] [--random-init | --pretrained FILE] [--bf16 | --f32] [--device cuda|cpu]
+        [--config PATH] [--random-init | --pretrained FILE] [--bf16 | --f32] [--device cuda|cpu] [--zero1]
 
+Under ``torchrun --nproc-per-node N`` the ranks train one model on a
+(dp, tp) mesh from the config's ``tpu.mesh`` (every rank on dp by default).
 On the card the frozen epochs and every validation batch run the conv frontend
 through K7 and K6 and the encoder through K1; the fine-tune epochs run the
 stock differentiable convolutions and K1 + K2.
@@ -21,12 +23,13 @@ from mer_tpu_torch.data.wav2vec2_fe import Wav2Vec2Batcher, Wav2Vec2FeatureDatas
 from mer_tpu_torch.feature_extractors.audio_wav2vec2 import W2V_CONFIG_PATH
 from mer_tpu_torch.feature_extractors.fe_common import (
     load_wav2vec2_model,
+    parallel_setup,
     parse_args,
     set_float32_exact,
     with_pretrained_backbone,
 )
 from mer_tpu_torch.objectives import balanced_class_weights
-from mer_tpu_torch.serving.engine import resolve_device
+from mer_tpu_torch.parallel import tensor_parallel_
 from mer_tpu_torch.train.fe_solver import FESolver
 
 
@@ -34,14 +37,13 @@ def main(argv=None):
     """Returns ``(state, history)``."""
     args = parse_args(argv, default_config=W2V_CONFIG_PATH,
                       prog="python -m mer_tpu_torch.feature_extractors.audio_wav2vec2.train")
-    device = resolve_device(args.device)
-    config = load_config(args.config)
+    config, mesh, device = parallel_setup(args, load_config(args.config))
     if args.epochs is not None:
         config = config.override(solver__epochs=args.epochs)
 
     model, pretrained = load_wav2vec2_model(args, config=config)
     set_float32_exact(model.dtype)
-    model = with_pretrained_backbone(model, pretrained).to(device)
+    model = tensor_parallel_(with_pretrained_backbone(model, pretrained), mesh).to(device)
 
     data_train = Wav2Vec2FeatureDataset("train", data_root=args.data_root)
     data_val = Wav2Vec2FeatureDataset("val", data_root=args.data_root)
@@ -53,7 +55,7 @@ def main(argv=None):
 
     class_weights = balanced_class_weights(data_train.get_labels()) if bool(config.solver.balance_classes) else None
     solver = FESolver(model, config, backbone_key="wav2vec2", batch_to_inputs=w2v_batch_to_inputs,
-                      class_weights=class_weights)
+                      class_weights=class_weights, mesh=mesh)
     print("Training...")
     state, history = solver.fit(dl_train, dl_val)
     print("Training complete")

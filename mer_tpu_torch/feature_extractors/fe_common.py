@@ -6,9 +6,11 @@
 :func:`with_pretrained_backbone`, :func:`load_finetuned`,
 :func:`export_embedding_table` and :func:`int8_embed`. ``--int8`` selects the int8 serving
 engine in the embedding exports (``serving/encoders.py``; the other entry
-points ignore it, as ``mer_tpu``'s do). ``--pp``, ``--remat`` and ``--zero1``
-are parsed and refused: the pipeline, the rematerialisation and the sharded
-optimizer they select are not ported. The
+points ignore it, as ``mer_tpu``'s do). ``--zero1`` sets ``tpu.zero1``: on
+a dp mesh each rank keeps its slice of the AdamW moments
+(:func:`parallel_setup` builds the mesh from ``tpu.mesh`` under ``torchrun``).
+``--pp`` and ``--remat`` are parsed and refused: the pipeline and the
+rematerialisation they select are not ported. The
 encoders have one layout here, so ``--scan-layers`` has no counterpart, and the
 exports always loop over batches (``mer_tpu``'s ``--per-batch-export`` shape;
 its scan grouping exists to save jit dispatches).
@@ -31,11 +33,12 @@ from mer_tpu_torch.data.text_fe import ToyWhitespaceTokenizer, load_roberta_toke
 from mer_tpu_torch.models.convert import read_torch_checkpoint
 from mer_tpu_torch.models.roberta import RobertaConfig, TextERC, text_erc_from_seed
 from mer_tpu_torch.models.wav2vec2 import AudioERC, Wav2Vec2Config, audio_erc_from_seed
+from mer_tpu_torch.parallel import initialize_distributed, local_device, mesh_from_config
+from mer_tpu_torch.serving.engine import resolve_device
 from mer_tpu_torch.train.checkpoint import load_checkpoint
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_UNPORTED = {"pp": "pipeline parallelism",
-             "remat": "rematerialisation (a fine-tuning option)", "zero1": "the sharded optimizer state"}
+_UNPORTED = {"pp": "pipeline parallelism", "remat": "rematerialisation (a fine-tuning option)"}
 
 
 def parse_args(argv=None, default_config: str | None = None, prog: str | None = None):
@@ -59,12 +62,25 @@ def parse_args(argv=None, default_config: str | None = None, prog: str | None = 
                    help="embedding export: the int8 serving engine (int8 weights and activations, int32 products)")
     p.add_argument("--pp", type=int, default=1, help="not ported")
     p.add_argument("--remat", action="store_true", help="not ported")
-    p.add_argument("--zero1", action="store_true", help="not ported")
+    p.add_argument("--zero1", action="store_true",
+                   help="training: ZeRO-1, each dp rank keeps its slice of the optimizer's moments (tpu.zero1)")
     args = p.parse_args(argv)
     for flag, what in _UNPORTED.items():
         if args.pp != 1 if flag == "pp" else getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {what} is not ported to mer_tpu_torch yet")
     return args
+
+
+def parallel_setup(args, config):
+    """(config, mesh, device) of a training entry point: the process group
+    under ``torchrun`` (one process: none), the mesh of ``tpu.mesh`` (dp =
+    -1 by default: every rank), this rank's ``cuda:LOCAL_RANK``, and
+    ``--zero1`` as ``tpu.zero1``."""
+    resolve_device(args.device)
+    initialize_distributed(device=args.device)
+    if args.zero1:
+        config = config.override(tpu__zero1=True)
+    return config, mesh_from_config(config), local_device(args.device)
 
 
 def int8_embed(model, quantize, engine):

@@ -6,7 +6,10 @@ context-window utterances with the two-phase freeze / fine-tune scheme of
 
     python -m mer_tpu_torch.feature_extractors.text.train --data-root DIR [--epochs N]
         [--config PATH] [--random-init | --pretrained PATH] [--toy-tokenizer] [--variant NAME]
-        [--bf16 | --f32] [--device cuda|cpu]
+        [--bf16 | --f32] [--device cuda|cpu] [--zero1]
+
+Under ``torchrun --nproc-per-node N`` the ranks train one model on a
+(dp, tp) mesh from the config's ``tpu.mesh`` (every rank on dp by default).
 """
 
 from __future__ import annotations
@@ -15,13 +18,14 @@ from mer_tpu_torch.core import load_config
 from mer_tpu_torch.data.text_fe import TextBatcher, TextFeatureDataset, text_batch_to_inputs
 from mer_tpu_torch.feature_extractors.fe_common import (
     load_text_model_and_tokenizer,
+    parallel_setup,
     parse_args,
     set_float32_exact,
     with_pretrained_backbone,
 )
 from mer_tpu_torch.feature_extractors.text import TEXT_CONFIG_PATH
 from mer_tpu_torch.objectives import balanced_class_weights
-from mer_tpu_torch.serving.engine import resolve_device
+from mer_tpu_torch.parallel import tensor_parallel_
 from mer_tpu_torch.train.fe_solver import FESolver
 
 
@@ -29,14 +33,13 @@ def main(argv=None):
     """Returns ``(state, history)``."""
     args = parse_args(argv, default_config=TEXT_CONFIG_PATH,
                       prog="python -m mer_tpu_torch.feature_extractors.text.train")
-    device = resolve_device(args.device)
-    config = load_config(args.config)
+    config, mesh, device = parallel_setup(args, load_config(args.config))
     if args.epochs is not None:
         config = config.override(solver__epochs=args.epochs)
 
     model, tokenizer, pretrained = load_text_model_and_tokenizer(args, config=config)
     set_float32_exact(model.dtype)
-    model = with_pretrained_backbone(model, pretrained).to(device)
+    model = tensor_parallel_(with_pretrained_backbone(model, pretrained), mesh).to(device)
 
     data_train = TextFeatureDataset("train", tokenizer, data_root=args.data_root)
     data_val = TextFeatureDataset("val", tokenizer, data_root=args.data_root)
@@ -48,7 +51,7 @@ def main(argv=None):
 
     class_weights = balanced_class_weights(data_train.get_labels()) if bool(config.solver.balance_classes) else None
     solver = FESolver(model, config, backbone_key="roberta", batch_to_inputs=text_batch_to_inputs,
-                      class_weights=class_weights)
+                      class_weights=class_weights, mesh=mesh)
     print("Training...")
     state, history = solver.fit(dl_train, dl_val)
     print("Training complete")

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mer_tpu_torch.ops.attention import dot_product_attention
+from mer_tpu_torch.parallel.tensor import copy_to_group
 
 
 class SeededAttention(nn.Module):
@@ -31,7 +32,12 @@ class SeededAttention(nn.Module):
 
 class MultiheadAttention(SeededAttention):
     """``torch.nn.MultiheadAttention`` parity (batch_first): packed
-    ``in_proj_weight`` [3D, D] / ``in_proj_bias`` [3D] and ``out_proj``."""
+    ``in_proj_weight`` [3D, D] / ``in_proj_bias`` [3D] and ``out_proj``.
+    Under tensor parallelism (``parallel.tensor_parallel_``) the in-projection
+    holds this rank's third of each of q, k and v, ``num_heads`` counts the
+    rank's heads and ``tp_group`` sums the inputs' gradients."""
+
+    tp_group = None
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -46,11 +52,11 @@ class MultiheadAttention(SeededAttention):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def _heads(self, x: torch.Tensor, which: int) -> torch.Tensor:
-        d = self.embed_dim
+        d = self.in_proj_weight.shape[0] // 3  # embed_dim / tp
         w = self.in_proj_weight[which * d : (which + 1) * d]
         b = self.in_proj_bias[which * d : (which + 1) * d]
         bsz, s, _ = x.shape
-        y = F.linear(x, w, b).view(bsz, s, self.num_heads, d // self.num_heads)
+        y = F.linear(copy_to_group(x, self.tp_group), w, b).view(bsz, s, self.num_heads, d // self.num_heads)
         return y.transpose(1, 2).contiguous()  # [B, H, S, Dh]
 
     def forward(self, query, key, value, key_padding_mask=None):
@@ -61,7 +67,7 @@ class MultiheadAttention(SeededAttention):
             dropout_rate=self.dropout if self.training else 0.0,
             generator=self.generator,
         )
-        return self.out_proj(out.transpose(1, 2).reshape(bsz, sq, self.embed_dim))
+        return self.out_proj(out.transpose(1, 2).reshape(bsz, sq, -1))
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -108,16 +108,16 @@ class RobertaSelfAttention(SeededAttention):
         self.query, self.key, self.value = (nn.Linear(h, h) for _ in range(3))
 
     def forward(self, hidden: torch.Tensor, key_padding_mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        b, s, h = hidden.shape
+        b, s, _ = hidden.shape
 
         def heads(layer):
-            return _linear(hidden, layer, dtype).view(b, s, self.num_heads, h // self.num_heads) \
-                .transpose(1, 2).contiguous()  # [B, H, S, Dh]
+            return _linear(hidden, layer, dtype).view(b, s, self.num_heads, -1) \
+                .transpose(1, 2).contiguous()  # [B, H, S, Dh] (H / tp heads under tp)
 
         out = dot_product_attention(heads(self.query), heads(self.key), heads(self.value),
                                     key_padding_mask=key_padding_mask,
                                     dropout_rate=self.dropout if self.training else 0.0, generator=self.generator)
-        return out.transpose(1, 2).reshape(b, s, h)
+        return out.transpose(1, 2).reshape(b, s, -1)
 
 
 class _DenseLayerNorm(nn.Module):

@@ -53,6 +53,7 @@ from torch import nn
 from mer_tpu_torch.models.layers import SeededAttention
 from mer_tpu_torch.ops import w2v_conv
 from mer_tpu_torch.ops.attention import dot_product_attention
+from mer_tpu_torch.parallel.tensor import tp_linear
 
 
 @dataclass(frozen=True)
@@ -85,7 +86,9 @@ class Wav2Vec2Config:
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    """``layer(x)`` on operands cast to ``dtype``; column- or row-parallel
+    where ``parallel.tensor_parallel_`` split it."""
+    return tp_linear(x, layer, dtype)
 
 
 def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -171,16 +174,16 @@ class _Attention(SeededAttention):
         self.q_proj, self.k_proj, self.v_proj, self.out_proj = (nn.Linear(h, h) for _ in range(4))
 
     def forward(self, hidden: torch.Tensor, key_padding_mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        b, s, h = hidden.shape
+        b, s, _ = hidden.shape
 
         def heads(layer):
-            return _linear(hidden, layer, dtype).view(b, s, self.num_heads, h // self.num_heads) \
-                .transpose(1, 2).contiguous()  # [B, H, S, Dh]
+            return _linear(hidden, layer, dtype).view(b, s, self.num_heads, -1) \
+                .transpose(1, 2).contiguous()  # [B, H, S, Dh] (H / tp heads under tp)
 
         out = dot_product_attention(heads(self.q_proj), heads(self.k_proj), heads(self.v_proj),
                                     key_padding_mask=key_padding_mask,
                                     dropout_rate=self.dropout if self.training else 0.0, generator=self.generator)
-        return _linear(out.transpose(1, 2).reshape(b, s, h), self.out_proj, dtype)
+        return _linear(out.transpose(1, 2).reshape(b, s, -1), self.out_proj, dtype)
 
 
 class _FeedForward(nn.Module):

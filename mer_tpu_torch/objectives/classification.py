@@ -30,6 +30,22 @@ def cross_entropy(
     """Mean cross-entropy over the positions whose label is not
     ``ignore_index``; ``logits`` [..., C], ``labels`` [...] integers,
     ``class_weights`` [C] or None."""
+    per, denom = cross_entropy_terms(logits, labels, label_smoothing=label_smoothing, class_weights=class_weights,
+                                     ignore_index=ignore_index)
+    return per / denom.clamp_min(1e-12)
+
+
+def cross_entropy_terms(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    label_smoothing: float = 0.0,
+    class_weights: torch.Tensor | None = None,
+    ignore_index: int = -1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The numerator ``sum_i l_i valid_i`` and the denominator
+    ``sum_i w[t_i] valid_i`` of :func:`cross_entropy`, f32 scalars: a data
+    parallel step sums the denominator over its ranks before dividing."""
     num_classes = logits.shape[-1]
     logp = torch.log_softmax(logits.float(), dim=-1)
     labels = labels.long()
@@ -43,8 +59,7 @@ def cross_entropy(
     if label_smoothing > 0.0:
         per = (1.0 - label_smoothing) * per - label_smoothing * (logp * w).sum(-1) / num_classes
     per = torch.where(valid, per, 0.0)
-    denom = torch.where(valid, wt, 0.0).sum()
-    return per.sum() / denom.clamp_min(1e-12)
+    return per.sum(), torch.where(valid, wt, 0.0).sum()
 
 
 def balanced_class_weights(labels: np.ndarray, num_classes: int = 7) -> np.ndarray:

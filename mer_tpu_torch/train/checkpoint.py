@@ -10,6 +10,12 @@ Writes are atomic (a temporary file, then ``os.replace``). The
 :class:`AsyncCheckpointer` copies the state to the host synchronously and
 writes it in a background thread, so an epoch never waits on the disk.
 
+On a mesh (``parallel/mesh.py``) every rank assembles the payload, a
+collective: the tp parts of the weights and moments gathered, ZeRO-1's
+moments gathered by the optimizer, an open accumulation window summed over
+dp; rank 0 alone writes it. The file is the single-process layout, so a run
+resumes from it at any world size.
+
 ``mer_tpu`` writes flax msgpack files, and ``src/config.yaml`` points both
 packages at ``checkpoints/m2fnet.ckpt``. Reading those files needs msgpack
 and flax, which the card's machine lacks, so :func:`load_checkpoint` raises
@@ -38,12 +44,21 @@ def _to_host(tree):
 
 
 def checkpoint_payload(*, epoch: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer, extra: dict,
-                       accumulated_grads: dict | None = None) -> dict:
-    """The host-side payload of one checkpoint (copies, safe to write later)."""
+                       accumulated_grads: dict | None = None, mesh=None) -> dict:
+    """The host-side payload of one checkpoint (copies, safe to write later);
+    on a ``mesh`` with more than one rank, the whole model's (a collective)."""
+    model_state, optimizer_state = model.state_dict(), optimizer.state_dict()
+    if mesh is not None and mesh.size > 1:
+        from mer_tpu_torch.parallel.tensor import all_reduce_f32, full_optimizer_state, full_state_dict, gather_tp
+
+        model_state = full_state_dict(model, mesh)
+        optimizer_state = full_optimizer_state(optimizer_state, [n for n, _ in model.named_parameters()], mesh)
+        accumulated_grads = {n: gather_tp(n, all_reduce_f32(g, mesh.dp_group) if mesh.dp > 1 else g, mesh)
+                             for n, g in (accumulated_grads or {}).items()}
     payload = {
         "epoch": int(epoch),
-        "model_state_dict": _to_host(model.state_dict()),
-        "optimizer_state_dict": _to_host(optimizer.state_dict()),
+        "model_state_dict": _to_host(model_state),
+        "optimizer_state_dict": _to_host(optimizer_state),
         "extra": dict(extra),
     }
     if accumulated_grads:
@@ -61,8 +76,15 @@ def write_checkpoint(path: str | os.PathLike, payload: dict) -> None:
 
 
 def save_checkpoint(path: str | os.PathLike, **kwargs) -> None:
-    """Write :func:`checkpoint_payload` ``(**kwargs)`` to ``path`` now."""
-    write_checkpoint(path, checkpoint_payload(**kwargs))
+    """Write :func:`checkpoint_payload` ``(**kwargs)`` to ``path`` now (on a
+    mesh: every rank assembles it, rank 0 writes)."""
+    payload = checkpoint_payload(**kwargs)
+    if _writes(kwargs.get("mesh")):
+        write_checkpoint(path, payload)
+
+
+def _writes(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
 
 
 load_checkpoint = read_torch_checkpoint  # tensors on the host; refuses files torch.save did not write
@@ -83,6 +105,8 @@ class AsyncCheckpointer:
     def save(self, path: str | os.PathLike, **kwargs) -> None:
         payload = checkpoint_payload(**kwargs)
         self.wait()
+        if not _writes(kwargs.get("mesh")):
+            return
 
         def write():
             try:

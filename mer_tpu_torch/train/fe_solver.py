@@ -43,10 +43,18 @@ Where this differs from ``mer_tpu`` on purpose:
    is not part of the contract (``utils/rng.py``): the port reseeds both
    generators from (``tpu.seed``, micro-step) before every step, in both
    phases, as the fusion trainer does.
-3. Pipeline parallelism, rematerialisation, the sharded optimizer state,
-   ``wandb`` and ``watch_norms`` are not ported; the entry points refuse their
-   flags. ``--int8`` selects the int8 engine of the exports alone (training
-   ignores it, as ``mer_tpu``'s does).
+3. Pipeline parallelism, rematerialisation, ``wandb`` and ``watch_norms``
+   are not ported; the entry points refuse their flags. ``--int8`` selects
+   the int8 engine of the exports alone (training ignores it, as
+   ``mer_tpu``'s does).
+
+On a mesh (``tpu.mesh``; dp = -1 by default, every rank) each rank takes its
+dp rows of every training batch (the batch size must divide dp, as
+``mer_tpu``'s batch sharding requires), the cross-entropy's denominator is
+summed over dp, the backbone is tp-split (``parallel/tensor.py``), both
+AdamW optimizers sum the gradients over dp and, under ``tpu.zero1``
+(``--zero1``), keep each rank's slice of their moments. Evaluation runs every
+batch whole on every rank; rank 0 writes the checkpoints (the whole model).
 """
 
 from __future__ import annotations
@@ -59,8 +67,11 @@ from typing import Callable
 import torch
 
 from mer_tpu_torch.models import set_attention_generator
-from mer_tpu_torch.objectives.classification import cross_entropy
+from mer_tpu_torch.objectives.classification import cross_entropy, cross_entropy_terms
 from mer_tpu_torch.objectives.metrics import BatchAveragedMetrics
+from mer_tpu_torch.parallel.data import barrier, data_parallel, global_ratio
+from mer_tpu_torch.parallel.mesh import Mesh, dp_row_shard, shard_params
+from mer_tpu_torch.parallel.tensor import full_state_dict
 from mer_tpu_torch.train.checkpoint import load_checkpoint, write_checkpoint
 from mer_tpu_torch.train.solver import TrainState, accumulate_and_step, adamw, constant_with_warmup
 from mer_tpu_torch.utils import RunLogger, seed_dropout, seed_step
@@ -90,11 +101,15 @@ class FESolver:
         backbone_key: the submodule that freezes (``"roberta"`` /
             ``"wav2vec2"``); evaluation alone does not need it.
         class_weights: optional [C] class weights of the cross-entropy.
+        mesh: this rank's place in a dp/tp mesh, the model already tp-split
+            on it; None for one process.
     """
 
     def __init__(self, model: torch.nn.Module, config, *, batch_to_inputs: Callable[..., tuple],
-                 backbone_key: str | None = None, class_weights=None):
+                 backbone_key: str | None = None, class_weights=None, mesh: Mesh | None = None):
         self.model = model
+        self.mesh = mesh or Mesh()
+        self.zero1 = bool(config.get_path("tpu.zero1", False)) and self.mesh.dp > 1
         self.config = config
         self.batch_to_inputs = batch_to_inputs
         self.backbone_key = backbone_key
@@ -102,6 +117,7 @@ class FESolver:
         self.logger = RunLogger()
         cw = None if class_weights is None else torch.as_tensor(class_weights, device=self.device)
         self.loss_fn = partial(cross_entropy, label_smoothing=0.0, class_weights=cw, ignore_index=-1)
+        self.loss_terms = partial(cross_entropy_terms, label_smoothing=0.0, class_weights=cw, ignore_index=-1)
         self.seed = int(config.get_path("tpu.seed", 0))
         self._attention_generator = seed_dropout(self.seed, config.get_path("tpu.dropout_prng", None))
         set_attention_generator(model, self._attention_generator)
@@ -134,8 +150,11 @@ class FESolver:
             "frozen": lambda n: self.frozen_lr,
             "finetune": constant_with_warmup(self.finetune_lr, self.warmup_epochs * updates_per_epoch),
         }
-        return FEState(self.model, adamw(head, self.frozen_lr, self.frozen_wd),
-                       adamw(self.model.parameters(), self.finetune_lr, self.finetune_wd))
+        frozen = data_parallel(lambda groups: adamw(groups, self.frozen_lr, self.frozen_wd), [{"params": head}],
+                               self.mesh, self.zero1, self.model)
+        finetune = data_parallel(lambda groups: adamw(groups, self.finetune_lr, self.finetune_wd),
+                                 [{"params": list(self.model.parameters())}], self.mesh, self.zero1, self.model)
+        return FEState(self.model, frozen, finetune)
 
     # -- loops -------------------------------------------------------------------
 
@@ -154,12 +173,17 @@ class FESolver:
         state.model.train()
         losses = []
         for batch in batcher:
-            seed_step(self.seed, state.micro_step, self._attention_generator)
-            loss = self.loss_fn(state.model(*self.batch_to_inputs(batch, self.device)), self._labels(batch))
+            seed_step(self.seed, state.micro_step, self._attention_generator, self.mesh.dp_rank, self.mesh.tp_rank)
+            if self.mesh.dp > 1:
+                if len(batch["emotion"]) % self.mesh.dp:
+                    raise ValueError(f"a batch of {len(batch['emotion'])} does not divide dp={self.mesh.dp}")
+                batch = dp_row_shard(batch, self.mesh.dp, self.mesh.dp_rank)
+            logits = state.model(*self.batch_to_inputs(batch, self.device))
+            loss, global_loss = global_ratio(*self.loss_terms(logits, self._labels(batch)), self.mesh)
             loss.backward()
             accumulate_and_step(train_state, self.grad_accum, self._schedules[phase])
             state.micro_step += 1
-            losses.append(loss.detach())
+            losses.append(global_loss)
         getattr(state.model, self.backbone_key).requires_grad_(True)
         return state, (torch.stack(losses).sum().item() / len(losses) if losses else 0.0)
 
@@ -182,9 +206,12 @@ class FESolver:
         return total / len(losses), metrics
 
     def _save(self, path: str, epoch: int) -> None:
-        """Model parameters only (text/train.py:165-169)."""
-        write_checkpoint(path, {"epoch": int(epoch), "model_state_dict": {
-            k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}})
+        """Model parameters only (text/train.py:165-169); on a mesh the whole
+        model's, written by rank 0."""
+        state = self.model.state_dict() if self.mesh.size == 1 else full_state_dict(self.model, self.mesh)
+        if self.mesh.rank == 0:
+            write_checkpoint(path, {"epoch": int(epoch), "model_state_dict": {
+                k: v.detach().to("cpu", copy=True) for k, v in state.items()}})
 
     def fit(self, train_batcher, val_batcher, state: FEState | None = None) -> tuple[FEState, dict]:
         solver_cfg, ckpt_cfg = self.config.solver, self.config.checkpoint
@@ -227,12 +254,15 @@ class FESolver:
             patience_counter += 1
             if patience_counter >= patience:
                 self.logger.print(f"Early stopping: patience {patience} reached")
+                barrier(self.mesh)  # rank 0 wrote best_path
                 if restore_best and os.path.exists(best_path):
                     best = load_checkpoint(best_path)
-                    self.model.load_state_dict(best["model_state_dict"], strict=True)
+                    self.model.load_state_dict(shard_params(best["model_state_dict"], self.mesh), strict=True)
                     if save_ckpt:
                         self._save(save_path, best["epoch"])
-                    os.remove(best_path)
+                    barrier(self.mesh)
+                    if self.mesh.rank == 0:
+                        os.remove(best_path)
                     self.logger.print(f"Best model at epoch {best['epoch']} restored")
                 break
         return state, history

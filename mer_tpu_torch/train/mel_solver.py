@@ -18,8 +18,18 @@ As in ``mer_tpu``:
 - the loss and the mining distances are f32 even under bf16 autocast;
 - the epoch's loss is fetched from the device once, at its end.
 
-Not ported, and refused if configured: ``solver.async_mining``,
-``tpu.zero1`` and a device mesh. The per-epoch visualisation is not ported.
+On a mesh (``tpu.mesh``, dp = -1 by default: every rank) every rank mines
+the same triplets with its replica of the model (the miners' samplers are
+seeded), takes its dp rows of the [3B] batch (3B must divide dp), and the
+loss, whose triplet, variance and covariance terms span the batch, sees the
+whole batch's embeddings (``parallel/data.py::gather_rows``); the Adam step
+sums the gradients over dp and, under ``tpu.zero1``, keeps each rank's slice
+of the moments. The ResNet has no tp splits, so tp ranks are replicas. A
+BatchNorm in train mode (``bn_mode: train``) would see the rank's rows alone
+and is refused on a dp mesh. Rank 0 writes the checkpoints.
+
+Not ported, and refused if configured: ``solver.async_mining``. The
+per-epoch visualisation is not ported.
 """
 
 from __future__ import annotations
@@ -33,8 +43,11 @@ import torch
 
 from mer_tpu_torch.mining import TripletMiner
 from mer_tpu_torch.objectives import make_embedding_loss
+from mer_tpu_torch.parallel.data import barrier, data_parallel, gather_rows
+from mer_tpu_torch.parallel.mesh import Mesh
 from mer_tpu_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
-from mer_tpu_torch.train.solver import TrainState, accumulate_and_step, grad_accum_steps, optimizer_from_config
+from mer_tpu_torch.train.solver import (TrainState, accumulate_and_step, grad_accum_steps, optimizer_from_config,
+                                       schedule_from_config)
 from mer_tpu_torch.utils import RunLogger
 
 
@@ -45,13 +58,17 @@ class MelSolver:
         data_train, data_val: :class:`~mer_tpu_torch.data.MelFeatureDataset`.
         seed: seeds the miners' samplers (train ``seed``, validation ``seed + 1``).
         compute_dtype: float32, or bfloat16 for autocast over the f32 weights.
+        mesh: this rank's place in a dp mesh; None for one process.
     """
 
     def __init__(self, model: torch.nn.Module, config, data_train, data_val, seed: int = 0,
-                 compute_dtype: torch.dtype = torch.float32):
-        for key in ("solver.async_mining", "tpu.zero1", "tpu.mesh"):
-            if config.get_path(key, None):
-                raise NotImplementedError(f"{key} is not ported to the PyTorch mel solver; unset it")
+                 compute_dtype: torch.dtype = torch.float32, mesh: Mesh | None = None):
+        if config.get_path("solver.async_mining", None):
+            raise NotImplementedError("solver.async_mining is not ported to the PyTorch mel solver; unset it")
+        self.mesh = mesh or Mesh()
+        if self.mesh.dp > 1 and getattr(model, "bn_mode", "eval") == "train":
+            raise NotImplementedError("bn_mode 'train' on a dp mesh: BatchNorm would see a rank's rows alone")
+        self.zero1 = bool(config.get_path("tpu.zero1", False)) and self.mesh.dp > 1
         self.model = model
         self.config = config
         self.data_train = data_train
@@ -88,8 +105,10 @@ class MelSolver:
             if ds.device_cache is None:
                 ds.build_device_cache()
         steps_per_epoch = len(self.data_train) // self.batch_size
-        optimizer, self._schedule = optimizer_from_config(self.config.solver, self.model.parameters(),
-                                                          steps_per_epoch)
+        self._schedule = schedule_from_config(self.config.solver, steps_per_epoch)
+        make = lambda groups: optimizer_from_config(self.config.solver, groups, steps_per_epoch)[0]
+        optimizer = data_parallel(make, [{"params": list(self.model.parameters())}], self.mesh, self.zero1,
+                                  self.model)
         return TrainState(self.model, optimizer)
 
     def _miner(self, dataset) -> TripletMiner:
@@ -110,9 +129,15 @@ class MelSolver:
         return dataset.spectrogram_batch(np.concatenate([a, p, n]))
 
     def _loss(self, spectrograms: torch.Tensor) -> torch.Tensor:
+        """The loss of [3B, ...]; on a dp mesh each rank embeds its rows and
+        the loss sees every rank's."""
+        if self.mesh.dp > 1:
+            if spectrograms.shape[0] % self.mesh.dp:
+                raise ValueError(f"{spectrograms.shape[0]} triplet rows do not divide dp={self.mesh.dp}")
+            spectrograms = spectrograms.chunk(self.mesh.dp)[self.mesh.dp_rank]
         with self._autocast():
             emb = self.model(spectrograms)  # f32 out
-        return self.loss_fn(*emb.float().chunk(3))  # f32, outside autocast
+        return self.loss_fn(*gather_rows(emb.float(), self.mesh).chunk(3))  # f32, outside autocast
 
     # -- epochs ------------------------------------------------------------------
 
@@ -173,7 +198,7 @@ class MelSolver:
         writer = AsyncCheckpointer()
 
         def snapshot(epoch: int) -> dict:
-            return dict(epoch=epoch, model=state.model, optimizer=state.optimizer,
+            return dict(epoch=epoch, model=state.model, optimizer=state.optimizer, mesh=self.mesh,
                         extra={"step": state.step, "min_loss_val": min_loss_val, "patience_counter": patience_counter})
 
         for epoch in range(start_epoch, epochs):
@@ -200,6 +225,7 @@ class MelSolver:
             if patience_counter >= patience:
                 self.logger.print(f"Early stopping: patience {patience} reached")
                 writer.wait()
+                barrier(self.mesh)  # rank 0 wrote best_path
                 if restore_best and os.path.exists(best_path):
                     best = load_checkpoint(best_path)
                     state.model.load_state_dict(best["model_state_dict"], strict=True)

@@ -11,8 +11,16 @@ on the device (:class:`~mer_tpu_torch.data.DeviceFusionBatcher`), builds
 M2FNet with f32 weights drawn from ``tpu.seed`` and trains it with
 :class:`~mer_tpu_torch.train.Solver`: CE (ignore_index=-1,
 label_smoothing=0.1), per-epoch validation, checkpoints, early stopping.
-Of the ``tpu:`` block it reads ``length_buckets``, ``compute_dtype`` and
-``seed`` (and checks ``dropout_prng``, which has no meaning on CUDA).
+Of the ``tpu:`` block it reads ``length_buckets``, ``compute_dtype``,
+``seed``, ``mesh`` and ``zero1`` (and checks ``dropout_prng``, which has no
+meaning on CUDA).
+
+Under ``torchrun`` each rank takes ``cuda:LOCAL_RANK`` and a place in the
+(dp, tp) mesh of ``tpu.mesh`` (dp = -1: every rank left); every rank builds
+the same batches (one host's ranks share one batch list, nodes take
+round-robin slices of it) and the same seeded weights, then keeps its tp part:
+
+    torchrun --nproc-per-node 2 -m mer_tpu_torch.train --synthetic [--config <tpu.mesh: {dp: 1, tp: 2}>]
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from mer_tpu_torch.core import CONFIG_PATH, length_buckets, load_config
 from mer_tpu_torch.data import DeviceFusionBatcher, FusionDataset, SyntheticFusionDataset
 from mer_tpu_torch.models import M2FNet, init_random_
 from mer_tpu_torch.objectives import balanced_class_weights
+from mer_tpu_torch.parallel import initialize_distributed, local_device, mesh_from_config, tensor_parallel_
 from mer_tpu_torch.serving.engine import resolve_device
 from mer_tpu_torch.train.solver import Solver
 
@@ -43,8 +52,11 @@ def parse_args(argv=None):
 
 def build(args) -> tuple:
     """(config, batchers, solver) for ``args``."""
-    device = resolve_device(args.device)
+    resolve_device(args.device)
+    initialize_distributed(device=args.device)
+    device = local_device(args.device)
     config = load_config(args.config)
+    mesh = mesh_from_config(config)
     if args.epochs is not None:
         config = config.override(solver__epochs=args.epochs)
     seed = int(config.get_path("tpu.seed", 0))
@@ -70,11 +82,12 @@ def build(args) -> tuple:
                                              buckets=length_buckets(config), sort_by_length=bool(loader.shuffle),
                                              device=device)
 
-    model = init_random_(M2FNet.from_config(config.model), torch.Generator().manual_seed(seed)).to(device)
+    model = init_random_(M2FNet.from_config(config.model), torch.Generator().manual_seed(seed))
+    model = tensor_parallel_(model, mesh).to(device)
     class_weights = None
     if bool(config.solver.balance_classes):
         class_weights = balanced_class_weights(datasets["train"].get_labels())
-    return config, batchers, Solver(model, config, class_weights=class_weights)
+    return config, batchers, Solver(model, config, class_weights=class_weights, mesh=mesh)
 
 
 def main(argv=None):

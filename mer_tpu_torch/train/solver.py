@@ -19,7 +19,14 @@
   (src/train.py:186-210), and resume of the optimizer, the step, the best
   validation loss and the patience counter; a resumed run replays the
   uninterrupted run's dropout masks (seeded per step) and, through the
-  batcher's ``seek_epoch``, its shuffle.
+  batcher's ``seek_epoch``, its shuffle;
+- on a mesh (``tpu.mesh``, ``parallel/mesh.py``) the step ``mer_tpu`` jits
+  over it: every rank takes its dp row shard of the global batch, the
+  cross-entropy's denominator is summed over dp before the division (so the
+  summed gradients are the global batch's loss's), the model is tp-split
+  (``parallel/tensor.py``), and ``tpu.zero1`` keeps each dp rank's slice of
+  the Adam moments (``parallel/data.py``). Evaluation runs the whole batch on
+  every rank. Rank 0 writes the checkpoints, in the single-process layout.
 """
 
 from __future__ import annotations
@@ -36,6 +43,10 @@ import torch
 from mer_tpu_torch.core import compute_dtype
 from mer_tpu_torch.models import set_attention_generator
 from mer_tpu_torch.objectives import BatchAveragedMetrics, cross_entropy
+from mer_tpu_torch.objectives.classification import cross_entropy_terms
+from mer_tpu_torch.parallel.data import barrier, data_parallel, global_ratio
+from mer_tpu_torch.parallel.mesh import Mesh, dp_row_shard, shard_params, tp_slice
+from mer_tpu_torch.parallel.tensor import shard_optimizer_state
 from mer_tpu_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
 from mer_tpu_torch.utils import RunLogger, seed_dropout, seed_step
 
@@ -132,10 +143,15 @@ class Solver:
             so a resumed run replays the dropout masks of an uninterrupted one.
         class_weights: optional [C] class weights of the reference CE
             (ignore_index=-1, label_smoothing=0.1).
+        mesh: this rank's place in a dp/tp mesh (``parallel.mesh_from_config``),
+            the model already tp-split on it (``parallel.tensor_parallel_``);
+            None for one process.
     """
 
-    def __init__(self, model: torch.nn.Module, config, *, class_weights=None):
+    def __init__(self, model: torch.nn.Module, config, *, class_weights=None, mesh: Mesh | None = None):
         self.model = model
+        self.mesh = mesh or Mesh()
+        self.zero1 = bool(config.get_path("tpu.zero1", False)) and self.mesh.dp > 1
         self.config = config
         self.device = next(model.parameters()).device
         self.logger = RunLogger()
@@ -143,15 +159,19 @@ class Solver:
         self.accum = grad_accum_steps(config.solver)
         cw = None if class_weights is None else torch.as_tensor(class_weights, device=self.device)
         self.loss_fn = partial(cross_entropy, label_smoothing=0.1, class_weights=cw, ignore_index=-1)
+        self.loss_terms = partial(cross_entropy_terms, label_smoothing=0.1, class_weights=cw, ignore_index=-1)
         self.seed = int(config.get_path("tpu.seed", 0))
         self._attention_generator = seed_dropout(self.seed, config.get_path("tpu.dropout_prng", None))
         set_attention_generator(model, self._attention_generator)
         self._schedule: Callable[[int], float] | None = None
 
     def init_state(self, steps_per_epoch: int) -> TrainState:
-        """The optimizer over the model's current parameters, at step 0."""
-        optimizer, self._schedule = optimizer_from_config(self.config.solver, self.model.parameters(),
-                                                          steps_per_epoch)
+        """The optimizer over the model's current parameters, at step 0 (on
+        a dp mesh: gradients summed over dp, ZeRO-1 under ``tpu.zero1``)."""
+        self._schedule = schedule_from_config(self.config.solver, steps_per_epoch)
+        make = lambda groups: optimizer_from_config(self.config.solver, groups, steps_per_epoch)[0]
+        optimizer = data_parallel(make, [{"params": list(self.model.parameters())}], self.mesh, self.zero1,
+                                  self.model)
         return TrainState(self.model, optimizer)
 
     def _autocast(self):
@@ -159,13 +179,13 @@ class Solver:
             return contextlib.nullcontext()
         return torch.autocast(self.device.type, dtype=self.compute_dtype)
 
-    def _forward(self, model, batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(loss, logits, labels) of one batch, a dict of numpy arrays or
-        device tensors."""
+    def _logits(self, model, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(logits, labels) of one batch, a dict of numpy arrays or device
+        tensors."""
         t = {k: torch.as_tensor(batch[k]).to(self.device) for k in ("text", "audio", "padding_mask", "emotion")}
         with self._autocast():
             logits = model(t["text"], t["audio"], t["padding_mask"])
-        return self.loss_fn(logits, t["emotion"]), logits, t["emotion"]
+        return logits, t["emotion"]
 
     # -- epochs ---------------------------------------------------------------
 
@@ -174,11 +194,13 @@ class Solver:
         state.model.train()
         total, batches = torch.zeros((), device=self.device), 0
         for batch in batcher:
-            seed_step(self.seed, state.step, self._attention_generator)
-            loss, _, _ = self._forward(state.model, batch)
+            seed_step(self.seed, state.step, self._attention_generator, self.mesh.dp_rank, self.mesh.tp_rank)
+            if self.mesh.dp > 1:
+                batch = dp_row_shard(batch, self.mesh.dp, self.mesh.dp_rank)
+            loss, global_loss = global_ratio(*self.loss_terms(*self._logits(state.model, batch)), self.mesh)
             loss.backward()
             accumulate_and_step(state, self.accum, self._schedule)
-            total += loss.detach()
+            total += global_loss
             batches += 1
         return state, total.item() / max(batches, 1)
 
@@ -188,7 +210,8 @@ class Solver:
         metrics = BatchAveragedMetrics()
         total, batches = 0.0, 0
         for batch in batcher:
-            loss, logits, emotion = self._forward(model, batch)
+            logits, emotion = self._logits(model, batch)
+            loss = self.loss_fn(logits, emotion)
             emotion = emotion.cpu().numpy()
             metrics.update(emotion, logits.argmax(-1).cpu().numpy(), mask=emotion != -1)
             total += loss.item()
@@ -216,11 +239,13 @@ class Solver:
         load_path = os.path.abspath(str(ckpt_cfg.get("load_path", save_path)))
         if bool(ckpt_cfg.get("load_checkpoint", False)) and os.path.exists(load_path):
             restored = load_checkpoint(load_path)
-            state.model.load_state_dict(restored["model_state_dict"], strict=True)
-            state.optimizer.load_state_dict(restored["optimizer_state_dict"])
+            names = [n for n, _ in state.model.named_parameters()]
+            state.model.load_state_dict(shard_params(restored["model_state_dict"], self.mesh), strict=True)
+            state.optimizer.load_state_dict(shard_optimizer_state(restored["optimizer_state_dict"], names, self.mesh))
             for name, grad in restored.get("accumulated_grads", {}).items():
                 param = state.model.get_parameter(name)
-                param.grad = grad.to(param.device, param.dtype)
+                grad = tp_slice(name, grad, self.mesh.tp_rank, self.mesh.tp)  # the dp sum, held by dp rank 0
+                param.grad = (grad if self.mesh.dp_rank == 0 else torch.zeros_like(grad)).to(param.device, param.dtype)
             extra = restored["extra"]
             state.step = int(extra.get("step", 0))
             start_epoch = int(restored["epoch"]) + 1
@@ -237,7 +262,7 @@ class Solver:
             return dict(epoch=epoch, model=state.model, optimizer=state.optimizer,
                         extra={"step": state.step, "min_loss_val": min_loss_val,
                                "patience_counter": patience_counter},
-                        accumulated_grads=pending)
+                        accumulated_grads=pending, mesh=self.mesh)
 
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
@@ -262,12 +287,15 @@ class Solver:
             if patience_counter >= patience:
                 self.logger.print(f"Early stopping: patience {patience} reached")
                 writer.wait()  # best_path fully on disk
+                barrier(self.mesh)  # ... for every rank: rank 0 wrote it
                 if restore_best and os.path.exists(best_path):
                     best = load_checkpoint(best_path)
-                    state.model.load_state_dict(best["model_state_dict"], strict=True)
+                    state.model.load_state_dict(shard_params(best["model_state_dict"], self.mesh), strict=True)
                     if save_ckpt:
                         save_checkpoint(save_path, **{**snapshot(epoch), "epoch": best["epoch"]})
-                    os.remove(best_path)
+                    barrier(self.mesh)
+                    if self.mesh.rank == 0:
+                        os.remove(best_path)
                     self.logger.print(f"Best model at epoch {best['epoch']} restored")
                 break
 

@@ -36,9 +36,17 @@ def seed_dropout(seed: int, dropout_prng: str | None = None) -> torch.Generator:
     return generator
 
 
-def seed_step(seed: int, step: int, attention_generator: torch.Generator) -> None:
+def seed_step(seed: int, step: int, attention_generator: torch.Generator, dp_rank: int = 0,
+              tp_rank: int = 0) -> None:
     """Seed the global generators (``nn.Dropout``) and the attention-dropout
-    generator for training step ``step`` of a run seeded with ``seed``."""
-    global_seed, attention_seed = np.random.SeedSequence([seed, step]).generate_state(2, np.uint64)
-    torch.manual_seed(int(global_seed))
-    attention_generator.manual_seed(int(attention_seed))
+    generator for training step ``step`` of a run seeded with ``seed``.
+
+    Under data and tensor parallelism every rank draws masks of its own: the
+    global generators from its dp rank (the tp ranks of one dp rank hold
+    replicated activations, which must be dropped alike), the attention
+    generator from its dp and tp ranks (a tp rank's heads are its own). Rank
+    (0, 0) draws the single-process run's masks."""
+    words = lambda *ranks: np.random.SeedSequence([seed, step, *ranks] if any(ranks) else [seed, step]) \
+        .generate_state(2, np.uint64)
+    torch.manual_seed(int(words(dp_rank)[0]))
+    attention_generator.manual_seed(int(words(dp_rank, tp_rank)[1]))

@@ -1,7 +1,8 @@
 """The host -> device prefetcher (``mer_tpu_torch/data/prefetch.py``).
 
 On the CPU: order and values, a producer's exception after the batches made
-before it, a consumer that stops early, the unported ``sharding``. On a card
+before it, a consumer that stops early, ``sharding`` at one dp rank and a
+rank outside its group (two ranks: ``tests/test_torch_parallel.py``). On a card
 (the ``cuda`` marker): 64 batches through the pinned slots while the
 consumer's stream is kept busy, every batch's checksum, taken on the
 consumer's stream and the batch then dropped, equal to the host batch's. A
@@ -48,8 +49,12 @@ def test_early_stop_and_sharding():
     it = prefetch(iter(_batches(9)), device="cpu", buffer_size=1)
     next(it)
     it.close()  # the producer is unblocked and joined
-    with pytest.raises(NotImplementedError, match="sharding"):
-        DevicePrefetcher(_batches(1), device="cpu", sharding=object())
+    batch = {"x": np.arange(10).reshape(5, 2), "m": np.arange(5) % 2 == 0}
+    (whole,) = DevicePrefetcher([batch], device="cpu", sharding=(None, 0))  # one dp rank: the whole batch
+    for k in batch:
+        np.testing.assert_array_equal(whole[k].numpy(), batch[k])
+    with pytest.raises(ValueError, match="dp rank 1 outside a group of 1"):
+        DevicePrefetcher([batch], device="cpu", sharding=(None, 1))
 
 
 @pytest.mark.cuda

@@ -243,7 +243,7 @@ def test_entry_without_a_card_raises(fe, monkeypatch, entry):
         entry.main(["--config", fe["config"], "--data-root", fe["root"], "--random-init"])
 
 
-@pytest.mark.parametrize("flag", [["--pp", "2"], ["--remat"], ["--zero1"]])
+@pytest.mark.parametrize("flag", [["--pp", "2"], ["--remat"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         fe_common.parse_args(["--random-init", *flag])
