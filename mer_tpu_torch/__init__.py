@@ -57,7 +57,9 @@ Layout (module names follow ``mer_tpu``'s):
 - ``scripts``    profile and probe entry points on the card:
                  ``profile_w2v_conv`` (the conv frontend's variants),
                  ``bench_attention`` (K1-K4 against SDPA at the workload's
-                 shapes), ``probe_strided`` (the lowering probes P)
+                 shapes), ``probe_strided`` (the lowering probes P),
+                 ``parallel_check`` (dp x tp, ZeRO-1 and the sp ring on four
+                 ranks against one process)
 - ``utils``      dropout generators, console logging
 - ``test``, ``serve``, ``e2e_stream``  entry points (``python -m
                  mer_tpu_torch.test`` / ``.serve`` / ``.e2e_stream``); every
