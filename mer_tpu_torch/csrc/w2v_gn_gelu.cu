@@ -15,62 +15,31 @@
 // kernel's pad rows, which its caller slices off). The output is rounded to x's
 // dtype once, after the GELU.
 //
-// Layout: x, out [B, T, 512], contiguous; gamma, beta [512] f32. Scratch (f32
-// words): partial, per sub-grid [2][G][2][512] (each block's sum and sum of
-// squares of a clip, two clips in flight); stats, per sub-grid [2][2][512]
-// (mean and rstd x gamma of a clip, two in flight); then per sub-grid two
-// counters 128 bytes apart, which the entry zeroes on the stream before the
-// launch. Any T.
+// Layout: x, out [B, T, 512], contiguous; gamma, beta [512] f32. Scratch:
+// partial [B, n_tiles, 2, 512] f32 (per-tile sum and sum of squares), stats
+// [B, 2, 512] f32 (mean, rstd). Any T: the ragged last tile is masked here,
+// where the TPU wrapper pads the wave so that T divides its 1,024-row blocks.
 //
-// Bound. The function's own count is one read of x and one write of out: at
-// [32, 31999, 512] bf16 2 x 1.05 GB / 3.35 TB/s = 0.63 ms (f32 twice that).
-// GroupNorm needs every valid row of a clip before the first can be
-// normalised, so a clip's rows are wanted twice; the design keeps most of them
-// on the chip in between instead of reading them again.
+// Design. No product, 3 passes over x: bound by bytes. GroupNorm needs every
+// valid row of a clip before the first can be normalised, and blocks run in no
+// order, so:
 //
-// Design: one persistent grid, a block of 1,024 threads on every SM (a
-// cooperative launch: all resident, or it fails rather than deadlock), cut into
-// `split` sub-grids (blocks s, s + split, ...; split <= 4 divides the grid and
-// is at most the clip count) that take clips s, s + split, ... each, so that
-// one sub-grid's wait for its clip's statistics overlaps the others' rows. In
-// a sub-grid of G blocks, block j takes rows [j T / G, (j + 1) T / G) of its
-// clips, a thread 4 channels (16 bytes of f32, 8 of bf16) of every 8th row.
-// A thread keeps its first K rows of the clip in hand in shared memory (K =
-// 24 bf16 or 12 f32 rows: the 195 KB the SM has beside the reduction
-// buffer), slots private to the thread, so no barrier guards them. A
-// sub-grid walks its clips one phase a clip b:
+//   pass 1 (stats):   a block of 256 threads takes one (clip, tile of 128 rows).
+//                     A thread owns one 16-byte run of channels (4 f32 or 8
+//                     bf16) and walks every 2nd (f32) or 4th (bf16) row of the
+//                     tile, so a warp reads 512 consecutive bytes; the row
+//                     groups are then added in a fixed order through shared
+//                     memory and the tile's sums go to its own slot of
+//                     `partial`. No atomics.
+//   finalize:         one thread per (clip, channel) adds the tiles' partials in
+//                     tile order, in f64, and writes mean and rstd: the same
+//                     bits every run.
+//   pass 2 (apply):   the same walk: one 16-byte load, normalise, erff GELU,
+//                     one 16-byte store.
 //
-//   finalize:   its blocks 0-15 wait for the G arrivals of clip b (counter
-//               0); warp w of block k adds the G partials of channel 32 k + w
-//               in f64, lane-strided and then by a butterfly of shuffles (the
-//               same order every run: the same bits), writes mean and rstd x
-//               gamma (f64 -> f32), and the block arrives on counter 1.
-//   wait:       every block waits for the finalizers (acquire loads).
-//   rows:       batch by batch, the loads of the sub-grid's next clip's rows
-//               are issued first; meanwhile clip b's rows are normalised from
-//               their slots (past them, read again from global memory with
-//               last-use loads, ld.global.cs), gelu(fma(x - mean, rstd gamma,
-//               beta)) with erff, one streaming store (st.global.cs) a row;
-//               then the next clip's rows are added into the statistics (rows
-//               < t_valid; f32, x^2 by fma) and take the slots clip b's rows
-//               just left.
-//   publish:    the block's 8 row groups are added in a fixed order through
-//               shared memory into its slot of partial; the block arrives on
-//               counter 0.
-//
-// A sub-grid's first clip's rows are loaded and added before its first phase;
-// every clip's rows enter the statistics in row order. A clip is read once
-// from HBM but for the rows past a thread's slots, read again the next phase
-// (from L2 where they are still there).
-//
-// Each sub-grid has its own counters, whose targets grow by G and the
-// finalizer count a clip, so they need no reset. A block writes its next
-// clip's partial only after the finalizers of this clip are done, and the
-// finalizers write the next clip's stats only after every block of the
-// sub-grid has finished this phase, so two buffers of each suffice.
-//
-// No float atomics: two calls on one card give the same bits. The partition
-// depends on G, so cards with other SM counts round differently.
+// Bound. x is read twice and written once; the function's own count is one read
+// and one write: at [32, 31999, 512] bf16 2 x 1.05 GB / 3.35 TB/s = 0.63 ms
+// (f32 twice that), against which this design's third pass adds a half.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,59 +48,44 @@
 
 namespace {
 
-constexpr int kC = 512;  // channels
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kN = 4;                       // channels a thread
-constexpr int kLanes = kC / kN;             // threads across a row: 128
-constexpr int kGroups = kThreads / kLanes;  // rows in flight a block: 8
-constexpr int kFinalizers = kC / kWarps;    // blocks whose warps finalize a channel each: 16
-constexpr int kMaxGrid = 32 * 8;            // partials a finalizing lane holds at once: 8
-constexpr int kMaxSplit = 4;                // sub-grids at most (GN_MAX_SPLIT in ops/w2v_conv.py)
-constexpr int kCounterStride = 32;          // words between the two counters (128 bytes)
-constexpr int kRedBytes = kGroups * 2 * kC * 4;  // the block reduction's shared memory
-constexpr int kSmemBytes = 227 * 1024;           // all of an SM's shared memory a block can have
-template <typename T>
-constexpr int kBatch = sizeof(T) == 2 ? 4 : 2;   // rows a thread has in flight (registers: 64 a thread)
+constexpr int kC = 512;        // channels
+constexpr int kThreads = 256;
+constexpr int kTileT = 128;    // rows per block
 
 template <typename T>
-struct Vec;  // 4 channels: one load and one store a row
+struct Vec;  // one 16-byte run of channels
 
 template <>
 struct Vec<float> {
-  using Raw = uint4;
-  static __device__ __forceinline__ Raw load_cg(const float* p) { return __ldcg(reinterpret_cast<const uint4*>(p)); }
-  static __device__ __forceinline__ Raw load_cs(const float* p) { return __ldcs(reinterpret_cast<const uint4*>(p)); }
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&v)[kN]) {
-    v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
-    v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 r = *reinterpret_cast<const float4*>(p);
+    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
   }
-  static __device__ __forceinline__ void store_cs(float* p, const float (&v)[kN]) {
-    __stcs(reinterpret_cast<uint4*>(p),
-           make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]), __float_as_uint(v[3])));
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
 };
 
 template <>
 struct Vec<__nv_bfloat16> {
-  using Raw = uint2;
-  static __device__ __forceinline__ Raw load_cg(const __nv_bfloat16* p) {
-    return __ldcg(reinterpret_cast<const uint2*>(p));
-  }
-  static __device__ __forceinline__ Raw load_cs(const __nv_bfloat16* p) {
-    return __ldcs(reinterpret_cast<const uint2*>(p));
-  }
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&v)[kN]) {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
   }
-  static __device__ __forceinline__ void store_cs(__nv_bfloat16* p, const float (&v)[kN]) {
-    uint2 r;
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
+    uint4 r;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-    h[0] = __floats2bfloat162_rn(v[0], v[1]);
-    h[1] = __floats2bfloat162_rn(v[2], v[3]);
-    __stcs(reinterpret_cast<uint2*>(p), r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = r;
   }
 };
 
@@ -139,265 +93,122 @@ __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752440f));
 }
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// thread 0 of the block: publish the block's writes, then count one arrival
-__device__ __forceinline__ void arrive(unsigned* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-  }
-}
-
-// the whole block waits until `counter` reaches `target`
-__device__ __forceinline__ void wait_for(const unsigned* counter, unsigned target) {
-  if (threadIdx.x == 0) {
-    while (ld_acquire(counter) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-template <typename T, int kSplit>
-__global__ void __launch_bounds__(kThreads, 1)
-w2v_gn_gelu_persistent(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-                       float* partial, float* stats, unsigned* counters, T* __restrict__ out, int B, int rows,
-                       int t_valid, float eps, int slots) {
-  using Raw = typename Vec<T>::Raw;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float(*red)[2][kC] = reinterpret_cast<float(*)[2][kC]>(smem);
-  Raw* slot = reinterpret_cast<Raw*>(smem + kRedBytes) + threadIdx.x;  // slot k at slot[k * kThreads]
-  const int lane = threadIdx.x % kLanes, group = threadIdx.x / kLanes, c = lane * kN;
-  // sub-grid `sub` of kSplit (blocks sub, sub + kSplit, ...) takes clips sub, sub + kSplit, ...
-  const int sub = blockIdx.x % kSplit, G = gridDim.x / kSplit, j = blockIdx.x / kSplit;
-  const int finalizers = G < kFinalizers ? G : kFinalizers;
-  const int lo = (int)((long long)rows * j / G), hi = (int)((long long)rows * (j + 1) / G);
-  partial += (size_t)sub * 2 * G * 2 * kC;
-  stats += sub * 2 * 2 * kC;
-  counters += sub * 2 * kCounterStride;
-  if (sub >= B) return;
-  const int n = (hi - lo - group + kGroups - 1) / kGroups;  // this thread's rows: lo + group + k kGroups, k < n
-  unsigned* arrived = counters;                     // blocks whose partial of a clip is written
-  unsigned* finalized = counters + kCounterStride;  // finalizer blocks done with a clip
-  const size_t clip = (size_t)rows * kC;
-  float shift[kN], sum[kN], sq[kN];
+// grid (n_tiles, B): per-tile sum and sum of squares over the rows < t_valid.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+w2v_gn_stats_kernel(const T* __restrict__ x, int rows, int t_valid, float* __restrict__ partial) {
+  constexpr int kN = Vec<T>::kN;
+  constexpr int kLanes = kC / kN;            // threads across a row: 128 or 64
+  constexpr int kGroups = kThreads / kLanes; // rows in flight: 2 or 4
+  __shared__ float red_s[kGroups][2][kC];
+  const int lane = threadIdx.x % kLanes, group = threadIdx.x / kLanes;
+  const int t0 = blockIdx.x * kTileT;
+  const int t1 = min(t0 + kTileT, t_valid);
+  const T* src = x + ((size_t)blockIdx.y * rows) * kC + lane * kN;
+  float sum[kN], sq[kN], v[kN];
 #pragma unroll
-  for (int i = 0; i < kN; ++i) shift[i] = beta[c + i];
-
-  auto row = [&](int k) { return lo + group + k * kGroups; };
-  auto add = [&](const Raw& r, int k) {  // a row into the statistics, when it is a valid one
-    if (row(k) >= t_valid) return;
-    float v[kN];
-    Vec<T>::unpack(r, v);
+  for (int i = 0; i < kN; ++i) sum[i] = sq[i] = 0.f;
+  for (int t = t0 + group; t < t1; t += kGroups) {
+    Vec<T>::load(src + (size_t)t * kC, v);
 #pragma unroll
     for (int i = 0; i < kN; ++i) {
       sum[i] += v[i];
       sq[i] = fmaf(v[i], v[i], sq[i]);
     }
-  };
-  auto publish = [&](int b) {  // the block's row groups added in group order into its slot of partial
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      red[group][0][c + i] = sum[i];
-      red[group][1][c + i] = sq[i];
-      sum[i] = sq[i] = 0.f;
-    }
-    __syncthreads();
-    float* mine = partial + ((size_t)(b & 1) * G + j) * 2 * kC;
-    for (int i = threadIdx.x; i < 2 * kC; i += kThreads) {
-      float acc = 0.f;
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g) acc += red[g][i / kC][i % kC];
-      mine[i] = acc;
-    }
-    arrive(arrived);
-  };
-
-  constexpr int kB = kBatch<T>;
-  const int kept = n < slots ? n : slots;  // this thread's rows that live in its slots
-  // clip 0: load, add, keep
-#pragma unroll
-  for (int i = 0; i < kN; ++i) sum[i] = sq[i] = 0.f;
-  for (int k0 = 0; k0 < n; k0 += kB) {
-    Raw r[kB];
-#pragma unroll
-    for (int u = 0; u < kB; ++u)
-      if (k0 + u < n) r[u] = Vec<T>::load_cg(x + (size_t)sub * clip + (size_t)row(k0 + u) * kC + c);
-#pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      if (k0 + u >= n) break;
-      add(r[u], k0 + u);
-      if (k0 + u < kept) slot[(size_t)(k0 + u) * kThreads] = r[u];
-    }
   }
-  publish(0);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    red_s[group][0][lane * kN + i] = sum[i];
+    red_s[group][1][lane * kN + i] = sq[i];
+  }
+  __syncthreads();
+  float* slot = partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * kC;
+  for (int i = threadIdx.x; i < 2 * kC; i += kThreads) {
+    float acc = 0.f;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) acc += red_s[g][i / kC][i % kC];
+    slot[i] = acc;
+  }
+}
 
-  for (int i_b = 0, b = sub; b < B; ++i_b, b += kSplit) {
-    const bool next = b + kSplit < B;
-    float* st_b = stats + (i_b & 1) * 2 * kC;
-    if (j < finalizers) {  // clip b's mean and rstd x gamma, warp w: channels 32 j + w, then every 32 finalizers
-      wait_for(arrived, (unsigned)G * (i_b + 1));
-      const float* part = partial + (size_t)(i_b & 1) * G * 2 * kC;
-      const int l32 = threadIdx.x % 32;
-      for (int ch = j * kWarps + threadIdx.x / 32; ch < kC; ch += finalizers * kWarps) {
-        float ps[kMaxGrid / 32], pq[kMaxGrid / 32];
+// grid B, block 512: thread c of clip b sums the tiles' partials in tile order.
+__global__ void __launch_bounds__(kC)
+w2v_gn_finalize_kernel(const float* __restrict__ partial, int n_tiles, int t_valid, float eps,
+                       float* __restrict__ stats) {
+  const int c = threadIdx.x;
+  const float* p = partial + (size_t)blockIdx.x * n_tiles * 2 * kC + c;
+  double sum = 0.0, sq = 0.0;
+  for (int i = 0; i < n_tiles; ++i) {
+    sum += (double)p[(size_t)i * 2 * kC];
+    sq += (double)p[(size_t)i * 2 * kC + kC];
+  }
+  const double mean = sum / t_valid;
+  const double var = fmax(sq / t_valid - mean * mean, 0.0);
+  stats[(size_t)blockIdx.x * 2 * kC + c] = (float)mean;
+  stats[(size_t)blockIdx.x * 2 * kC + kC + c] = (float)(1.0 / sqrt(var + (double)eps));
+}
+
+// grid (n_tiles, B): normalise, GELU and store every row < rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+w2v_gn_apply_kernel(const T* __restrict__ x, int rows, const float* __restrict__ stats,
+                    const float* __restrict__ gamma, const float* __restrict__ beta, T* __restrict__ out) {
+  constexpr int kN = Vec<T>::kN;
+  constexpr int kLanes = kC / kN;
+  constexpr int kGroups = kThreads / kLanes;
+  const int lane = threadIdx.x % kLanes, group = threadIdx.x / kLanes;
+  const int c = lane * kN;
+  const float* st = stats + (size_t)blockIdx.y * 2 * kC;
+  float mean[kN], rstd[kN], g[kN], b[kN], v[kN];
 #pragma unroll
-        for (int i = 0; i < kMaxGrid / 32; ++i)
-          if (l32 + 32 * i < G) {
-            ps[i] = __ldcg(part + (size_t)(l32 + 32 * i) * 2 * kC + ch);
-            pq[i] = __ldcg(part + (size_t)(l32 + 32 * i) * 2 * kC + kC + ch);
-          }
-        double s = 0.0, q = 0.0;
+  for (int i = 0; i < kN; ++i) {
+    mean[i] = st[c + i];
+    rstd[i] = st[kC + c + i];
+    g[i] = gamma[c + i];
+    b[i] = beta[c + i];
+  }
+  const int t0 = blockIdx.x * kTileT;
+  const int t1 = min(t0 + kTileT, rows);
+  const size_t base = ((size_t)blockIdx.y * rows) * kC + c;
+  for (int t = t0 + group; t < t1; t += kGroups) {
+    Vec<T>::load(x + base + (size_t)t * kC, v);
 #pragma unroll
-        for (int i = 0; i < kMaxGrid / 32; ++i)
-          if (l32 + 32 * i < G) {
-            s += (double)ps[i];
-            q += (double)pq[i];
-          }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-          q += __shfl_xor_sync(0xffffffffu, q, off);
-        }
-        if (l32 == 0) {
-          const double mean = s / t_valid;
-          const double var = fmax(q / t_valid - mean * mean, 0.0);
-          st_b[ch] = (float)mean;
-          st_b[kC + ch] = (float)(1.0 / sqrt(var + (double)eps) * gamma[ch]);
-        }
-      }
-      arrive(finalized);
-    }
-    const T* src = x + (size_t)b * clip + c;
-    T* dst = out + (size_t)b * clip + c;
-    wait_for(finalized, (unsigned)finalizers * (i_b + 1));
-    float mean[kN], scale[kN];
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      mean[i] = __ldcg(st_b + c + i);
-      scale[i] = __ldcg(st_b + kC + c + i);
-    }
-    // clip b's rows: from the slots (clip b + 1's rows taking them as they leave) or, past them, from global memory
-    for (int k0 = 0; k0 < n; k0 += kB) {
-      Raw nx[kB];
-      if (next) {
-#pragma unroll
-        for (int u = 0; u < kB; ++u)
-          if (k0 + u < n) nx[u] = Vec<T>::load_cg(src + kSplit * clip + (size_t)row(k0 + u) * kC);
-      }
-#pragma unroll
-      for (int u = 0; u < kB; ++u) {
-        const int k = k0 + u;
-        if (k >= n) break;
-        const Raw r = k < kept ? slot[(size_t)k * kThreads] : Vec<T>::load_cs(src + (size_t)row(k) * kC);
-        float v[kN];
-        Vec<T>::unpack(r, v);
-#pragma unroll
-        for (int i = 0; i < kN; ++i) v[i] = gelu_exact(fmaf(v[i] - mean[i], scale[i], shift[i]));
-        Vec<T>::store_cs(dst + (size_t)row(k) * kC, v);
-      }
-      if (next) {
-#pragma unroll
-        for (int u = 0; u < kB; ++u) {
-          const int k = k0 + u;
-          if (k >= n) break;
-          add(nx[u], k);
-          if (k < kept) slot[(size_t)k * kThreads] = nx[u];
-        }
-      }
-    }
-    if (next) publish(i_b + 1);
+    for (int i = 0; i < kN; ++i) v[i] = gelu_exact(fmaf((v[i] - mean[i]) * rstd[i], g[i], b[i]));
+    Vec<T>::store(out + base + (size_t)t * kC, v);
   }
 }
 
 template <typename T>
-int slots_for() {
-  return (kSmemBytes - kRedBytes) / (kThreads * (int)sizeof(typename Vec<T>::Raw));
-}
-
-template <typename T, int kSplit>
-int launch(const void* x, const float* gamma, const float* beta, float* scratch, void* out, int B, int rows,
-           int t_valid, int blocks, float eps, cudaStream_t stream) {
-  auto kernel = w2v_gn_gelu_persistent<T, kSplit>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmemBytes);
+int launch(const void* x, const float* gamma, const float* beta, float* partial, float* stats, void* out, int B,
+           int rows, int t_valid, int n_tiles, float eps, cudaStream_t stream) {
+  const dim3 grid(n_tiles, B);
+  w2v_gn_stats_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), rows, t_valid, partial);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks > sms * per_sm || blocks > kMaxGrid) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  float* partial = scratch;
-  float* stats = partial + (size_t)2 * blocks * 2 * kC;
-  unsigned* counters = reinterpret_cast<unsigned*>(stats + (size_t)kSplit * 2 * 2 * kC);
-  err = cudaMemsetAsync(counters, 0, (size_t)kSplit * 2 * kCounterStride * sizeof(unsigned), stream);
+  w2v_gn_finalize_kernel<<<B, kC, 0, stream>>>(partial, n_tiles, t_valid, eps, stats);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeCooperative;
-  attr.val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), gamma, beta, partial, stats,
-                                             counters, static_cast<T*>(out), B, rows, t_valid, eps, slots_for<T>()));
+  w2v_gn_apply_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), rows, stats, gamma, beta,
+                                                        static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The grid: one block on every SM of the current device (one takes an SM's shared memory), at most kMaxGrid.
-// Negative: a cudaError_t.
-extern "C" int mer_w2v_gn_gelu_blocks(void) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return sms < kMaxGrid ? sms : kMaxGrid;
-}
-
-// dtype 0 = float32, 1 = bfloat16 (x, out); gamma, beta f32; scratch of 2 x blocks x 1,024 + split x (2,048 + 64)
-// f32 words (partials, then each sub-grid's stats, then its counters). `blocks` is the grid
-// (mer_w2v_gn_gelu_blocks), `split` the sub-grids (1-4, a divisor of it). Returns the cudaError_t of the first call
-// that failed, or 0.
-extern "C" int mer_w2v_gn_gelu(int dtype, const void* x, const void* gamma, const void* beta, void* scratch,
-                               void* out, int B, int rows, int t_valid, int blocks, int split, float eps,
+// dtype 0 = float32, 1 = bfloat16 (x, out); gamma, beta, partial, stats f32.
+// n_tiles must be ceil(rows / 128), the tiling `partial` was sized for. Returns
+// the cudaError_t of the first launch that failed, or 0.
+extern "C" int mer_w2v_gn_gelu(int dtype, const void* x, const void* gamma, const void* beta, void* partial,
+                               void* stats, void* out, int B, int rows, int t_valid, int n_tiles, float eps,
                                void* stream) {
-  if (B <= 0 || rows <= 0 || t_valid <= 0 || t_valid > rows || blocks <= 0 || split < 1 || split > kMaxSplit ||
-      blocks % split || (dtype != 0 && dtype != 1))
+  if (B <= 0 || B > 65535 || rows <= 0 || t_valid <= 0 || t_valid > rows ||
+      n_tiles != (rows + kTileT - 1) / kTileT || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
-  float* sc = static_cast<float*>(scratch);
-#define MER_GN_LAUNCH(S)                                                                            \
-  return dtype == 0 ? launch<float, S>(x, g, b, sc, out, B, rows, t_valid, blocks, eps, s) \
-                    : launch<__nv_bfloat16, S>(x, g, b, sc, out, B, rows, t_valid, blocks, eps, s);
-  switch (split) {
-    case 1: MER_GN_LAUNCH(1)
-    case 2: MER_GN_LAUNCH(2)
-    case 3: MER_GN_LAUNCH(3)
-    default: MER_GN_LAUNCH(4)
-  }
-#undef MER_GN_LAUNCH
-}
-
-// Set aside min(`bytes`, the card's largest) of L2 for persisting accesses (cudaLimitPersistingL2CacheSize; 0 gives
-// it back): the size set, or a negative cudaError_t if the card's driver refused.
-extern "C" long long mer_w2v_gn_gelu_l2_set_aside(long long bytes) {
-  int device = 0, most = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxPersistingL2CacheSize, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, static_cast<size_t>(bytes < most ? bytes : most));
-  size_t got = 0;
-  if (err == cudaSuccess) err = cudaDeviceGetLimit(&got, cudaLimitPersistingL2CacheSize);
-  return err != cudaSuccess ? -static_cast<long long>(err) : static_cast<long long>(got);
+  float* p = static_cast<float*>(partial);
+  float* st = static_cast<float*>(stats);
+  return dtype == 0 ? launch<float>(x, g, b, p, st, out, B, rows, t_valid, n_tiles, eps, s)
+                    : launch<__nv_bfloat16>(x, g, b, p, st, out, B, rows, t_valid, n_tiles, eps, s);
 }

@@ -74,8 +74,8 @@ CHANNELS = 512
 L0_TAPS, L0_STRIDE = 10, 5
 TAIL_TAPS = (3, 3, 3, 3, 2, 2)
 TAIL_STRIDES = (2, 2, 2, 2, 2, 2)
+_GN_TILE = 128  # rows per block of K8's passes (kTileT in the source)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-GN_MAX_SPLIT = 4  # K8's sub-grids at most (see gn_split)
 SMS = 132  # streaming multiprocessors of the H100 SXM: a grid of fewer blocks leaves some idle
 L0_TILES = (256, 128, 64, 32)  # K7's frames per block, by preference
 L0_BLOCKS_PER_SM = 2  # K7's apply blocks resident per SM (256 threads of 128 registers)
@@ -406,41 +406,9 @@ conv_stack_fused.launches = 0
 def _gn_kernel_fn():
     fn = getattr(_build.load(GN_KERNEL), f"mer_{GN_KERNEL}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
-
-
-_gn_grids: dict[int, int] = {}
-
-
-def gn_blocks(device: torch.device) -> int:
-    """K8's persistent grid on ``device``: a block on every SM (one takes an
-    SM's shared memory)."""
-    index = torch.cuda.current_device() if device.index is None else device.index
-    if index not in _gn_grids:
-        grid = getattr(_build.load(GN_KERNEL), f"mer_{GN_KERNEL}_blocks")
-        grid.argtypes, grid.restype = [], ctypes.c_int
-        with torch.cuda.device(index):
-            blocks = grid()
-        if blocks <= 0:
-            raise RuntimeError(f"{GN_KERNEL}: no grid (cudaError {-blocks})")
-        _gn_grids[index] = blocks
-    return _gn_grids[index]
-
-
-def gn_split(clips: int, blocks: int) -> int:
-    """K8's sub-grids: the most, up to ``GN_MAX_SPLIT`` and ``clips``, that
-    divide the grid. Each takes every split-th clip, so one sub-grid's wait
-    for its clip's statistics overlaps the others' rows."""
-    return max(s for s in range(1, min(clips, GN_MAX_SPLIT) + 1) if blocks % s == 0)
-
-
-def gn_scratch_words(blocks: int, split: int) -> int:
-    """f32 words of K8's scratch (``mer_w2v_gn_gelu_scratch`` in the source):
-    two clips' partials a block, and a sub-grid's two clips' statistics and
-    two counters 128 bytes apart."""
-    return 2 * blocks * 2 * CHANNELS + split * (2 * 2 * CHANNELS + 2 * 32)
 
 
 def gn_gelu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, t_valid: int, eps: float = 1e-5) -> torch.Tensor:
@@ -448,9 +416,7 @@ def gn_gelu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, t_valid: i
     over the rows ``< t_valid`` + exact GELU, [B, T, 512] in x's dtype: kernel
     K8 for CUDA tensors, the plain version for CPU tensors. Rows ``>= t_valid``
     stay out of the statistics and are still written. ``gn_gelu.launches``
-    counts kernel launches (one per call: one persistent grid whose sub-grids
-    walk alternate clips, each clip's normalising pass beside the statistics
-    of the sub-grid's next clip)."""
+    counts kernel launches (one per call: the stats, finalize and apply grids)."""
     if x.dim() != 3 or not 0 < t_valid <= x.shape[1]:
         raise ValueError(f"expected x [B, T, C] and 0 < t_valid <= T; got {tuple(x.shape)}, t_valid {t_valid}")
     if not _on_card("GroupNorm + GELU", x, scale, bias):
@@ -465,13 +431,13 @@ def gn_gelu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, t_valid: i
     if b == 0:
         return out
     gamma, beta = (p.detach().float().contiguous() for p in (scale, bias))
-    blocks = gn_blocks(x.device)
-    split = gn_split(b, blocks)
-    scratch = torch.empty(gn_scratch_words(blocks, split), dtype=torch.float32, device=x.device)
+    n_tiles = -(-rows // _GN_TILE)
+    partial = torch.empty((b, n_tiles, 2, CHANNELS), dtype=torch.float32, device=x.device)
+    stats = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _gn_kernel_fn()(_DTYPE_CODE[x.dtype], x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                             scratch.data_ptr(), out.data_ptr(), b, rows, int(t_valid), blocks, split, float(eps),
-                             torch.cuda.current_stream(x.device).cuda_stream)
+                             partial.data_ptr(), stats.data_ptr(), out.data_ptr(), b, rows, int(t_valid), n_tiles,
+                             float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{GN_KERNEL} launch failed: cudaError {rc} at x {tuple(x.shape)} {x.dtype}")
     gn_gelu.launches += 1

@@ -7,25 +7,29 @@ CPU) and runs, on a world of 4:
 
 1. three fusion steps (the config's width, dropout 0, f32) on a dp 2 x tp 2
    mesh and on dp 4 with ZeRO-1, against the same three steps that rank 0
-   ran alone first on its card: the losses within 1e-5, the weights within
-   2 x lr x 3 (Adam moves a weight whose gradient is rounding noise by up to
-   the learning rate a step), ZeRO-1's optimizer bytes a rank a quarter of
-   one process's (up to 10% more: the tensors no axis of which divides by 4,
-   and the step counters, stay whole);
+   ran alone first on its card: the losses within ``F32_TOL``, the weights
+   by :func:`weight_check` (within ``F32_TOL`` but for a share of strays
+   where Adam turned a near-zero gradient's step around), ZeRO-1's
+   optimizer bytes a rank a quarter of one process's (up to 10% more: the
+   tensors no axis of which divides by 4, and the step counters, stay
+   whole);
 2. ring attention over an sp group of 4 (``batch_isend_irecv`` hops) at
    wav2vec2-base width, [2, 12, 4500, 64] with padding that fills a shard,
    f32 and bf16, forward and backward, against the plain full attention on
-   rank 0: f32 within 1e-4 of the largest value, bf16 out within 3 x the
-   sums' rounding bound + an ulp and the gradients within 2e-2 of the
-   largest value (``chip_smoke.py``'s ring limits).
+   rank 0 (:func:`ring_errors`, the limits of ``chip_smoke.py``'s phase 6m).
 
 Rank 0 prints one JSON line a check and the card's name and power limit;
 any check that fails raises on every rank (the results are broadcast).
+
+``chip_smoke.py``'s phase 6m runs the same steps (:func:`fusion_steps`),
+weight rule and ring comparison on one card, two ranks over gloo and a
+local ring; the CPU tests hold the weight rule against planted faults.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -44,10 +48,40 @@ from mer_tpu_torch.train import Solver
 
 STEPS = 3
 RING_SHAPE = (2, 12, 4500, 64)
+F32_TOL = 1e-5  # two ranks against one process in f32, losses and weights: reduction order alone
+# weights beyond F32_TOL that a correct run may have, a share of those held, by compute dtype. Adam moves a weight
+# whose gradient is near 0 at some step by up to the learning rate either way, so a change of rounding (tp's
+# row-parallel sums; bf16) turns a few steps around. chip_smoke.py's phase 6m on an H100 (two ranks, the config's
+# width, lr 5e-5): f32 dp 2 0 of 86.2 M weights, tp 2 3,765 (4.4e-5); bf16 dp 2 1.5e-3, tp 2 3.1e-3. A rank that
+# skips a step or a wrong gradient moves most weights by more than F32_TOL (the CPU tests plant both)
+STRAY_SHARE = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+RING_F32_REL = 1e-4  # ring against the plain full attention in f32, of the plain version's largest |value|
+# bf16 out: each block's out is K1's (within (2^-8 + n 2^-23) T_t + ulp / 2 of exact), rounded once more after the
+# merge; the block outs' half ulps weigh at most 2^-8 T, so against the plain version (within (2^-8 + S 2^-23) T +
+# ulp / 2) the ring stays within sum_bound(sides=RING_BF16_SIDES) + one ulp of the larger value
+RING_BF16_SIDES = 3
+RING_BF16_REL = 2e-2  # bf16 gradients, of the plain version's largest |value| (chip_smoke's ATTENTION_BF16_REL)
 
 
-def fusion_steps(config, mesh: Mesh, device: torch.device):
-    """(losses, whole weights on the host, optimizer bytes) of STEPS steps."""
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """bf16's spacing at |x|: 2^(e - 7) for |x| in [2^e, 2^(e + 1))."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
+def sum_bound(plain_fn, q, k, v, mask, seed=None, rate: float = 0.0, sides: int = 2) -> torch.Tensor:
+    """The sums' part of a bf16 attention forward's rounding bound
+    (``chip_smoke.py``'s ``FWD_BF16_ELEMENTWISE`` note): ``sides`` x (2^-8 +
+    Sk 2^-23) T, f32, with T = sum_j |P_ij D_ij v_jd| from the plain version
+    on |v| in f32 (P unrounded)."""
+    terms = plain_fn(q.float(), k.float(), v.float().abs(), mask, seed, rate)[0]
+    return sides * (2.0 ** -8 + k.shape[2] * 2.0 ** -23) * terms
+
+
+def fusion_steps(config, mesh: Mesh, device, count=contextlib.nullcontext):
+    """STEPS fusion steps on the synthetic train split's first global batches
+    from the seeded weights, this rank's part of ``mesh``: (losses, whole
+    weights on the host, optimizer bytes a rank, what ``count()`` yielded
+    around the steps)."""
     seed = int(config.get_path("tpu.seed", 0))
     data = SyntheticFusionDataset(n_dialogues=200, seed=0, d_text=int(config.model.TEXT.embedding_size),
                                   d_audio=int(config.model.AUDIO.embedding_size))
@@ -57,16 +91,69 @@ def fusion_steps(config, mesh: Mesh, device: torch.device):
     model = init_random_(M2FNet.from_config(config.model), torch.Generator().manual_seed(seed))
     solver = Solver(tensor_parallel_(model, mesh).to(device), config, mesh=mesh)
     state = solver.init_state(STEPS)
-    losses = [solver.train_epoch(state, [b])[1] for b in batches]
+    with count() as counted:
+        losses = [solver.train_epoch(state, [b])[1] for b in batches]
     opt = state.optimizer
     nbytes = opt.moment_bytes() if hasattr(opt, "moment_bytes") else \
         sum(v.numel() * v.element_size() for st in opt.state.values() for v in st.values() if torch.is_tensor(v))
     weights = full_state_dict(model, mesh) if mesh.size > 1 else model.state_dict()
-    return losses, {k: v.float().cpu() for k, v in weights.items()}, nbytes
+    return losses, {k: v.float().cpu() for k, v in weights.items()}, nbytes, counted
+
+
+def softmax_blind(name: str) -> bool:
+    """``nn.MultiheadAttention``'s packed q, k, v bias: its middle third, the
+    key bias, moves every score of a query by the same amount, which softmax
+    takes out, so its gradient is zero to rounding."""
+    return name.endswith("in_proj_bias")
+
+
+def weight_check(got: dict, want: dict, stray_share: float, tol: float = F32_TOL) -> dict:
+    """Weights after the steps (``got``) against the one-process run's
+    (``want``): every weight but the key biases (:func:`softmax_blind`)
+    within ``tol``, but for at most ``stray_share`` of them (see
+    ``STRAY_SHARE``). Returns ``excess`` (the weights beyond ``tol`` less
+    those allowed: <= 0 passes), their count and the number held, the
+    largest difference and the three leaves with the most weights beyond."""
+    beyond, held, max_diff = {}, 0, 0.0
+    for name, w in want.items():
+        d = (got[name].float() - w.float()).abs()
+        if softmax_blind(name):
+            third = d.shape[0] // 3
+            d = torch.cat([d[:third], d[2 * third:]])
+        beyond[name], held, max_diff = int((d > tol).sum()), held + d.numel(), max(max_diff, d.max().item())
+    strays = sum(beyond.values())
+    worst = sorted((n for n in beyond if beyond[n]), key=lambda n: -beyond[n])[:3]
+    return {"excess": strays - stray_share * held, "beyond_tol": strays, "held": held, "max_diff": max_diff,
+            "worst_leaves": {n: beyond[n] for n in worst}}
+
+
+def ring_errors(got, q, k, v, g, mask) -> dict:
+    """Excess over the limit (<= 0 passes) of the ring's out, dq, dk and dv
+    (``got``, whole sequences) against the plain full attention on the same
+    q, k, v, output gradient g and key padding mask: f32 within
+    ``RING_F32_REL`` of the plain version's largest |value|; bf16 out within
+    ``RING_BF16_SIDES`` x the sums' rounding bound + one ulp of the larger
+    value, the gradients within ``RING_BF16_REL`` of the largest |value|."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    plain = fa.flash_attention_reference(*leaves, mask)[0]
+    plain.backward(g)
+    want = [plain.detach(), *(t.grad for t in leaves)]
+    errs = {}
+    for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+        a32, w32 = a.float(), w.float()
+        if q.dtype == torch.float32:
+            errs[name] = ((a32 - w32).abs().max() - RING_F32_REL * w32.abs().max()).item()
+        elif name == "out":
+            sums = sum_bound(fa.flash_attention_reference, q, k, v, mask, sides=RING_BF16_SIDES)
+            errs[name] = ((a32 - w32).abs() - sums - bf16_ulp(torch.maximum(a32.abs(), w32.abs()))).max().item()
+        else:
+            errs[name] = ((a32 - w32).abs().max() - RING_BF16_REL * w32.abs().max()).item()
+    return errs
 
 
 def ring_case(dtype: torch.dtype, device: torch.device, mesh: Mesh) -> dict:
-    """The sp ring against the plain full attention (on the whole sequence, rank 0)."""
+    """The ring over ``mesh``'s sp group against the plain full attention
+    (on the whole sequence, every rank): :func:`ring_errors`."""
     b, h, s, dh = RING_SHAPE
     gen = torch.Generator().manual_seed(7)
     q, k, v, g = ((torch.randn(b, h, s, dh, generator=gen) / 3 ** 0.5).to(device, dtype) for _ in range(4))
@@ -83,23 +170,7 @@ def ring_case(dtype: torch.dtype, device: torch.device, mesh: Mesh) -> dict:
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t.contiguous(), group=mesh.sp_group)
         got.append(torch.cat(parts, 2))
-    plain_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    plain = fa.flash_attention_reference(*plain_leaves, mask)[0]
-    plain.backward(g)
-    want = [plain.detach(), *(x.grad for x in plain_leaves)]
-    excess = {}
-    for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
-        a, w = a.float(), w.float()
-        if dtype == torch.float32:
-            excess[name] = ((a - w).abs().max() - 1e-4 * w.abs().max()).item()
-        elif name == "out":
-            terms = fa.flash_attention_reference(q.float(), k.float(), v.float().abs(), mask)[0]
-            bound = 3 * (2.0 ** -8 + s * 2.0 ** -23) * terms
-            ulp = torch.ldexp(torch.ones_like(a), torch.frexp(torch.maximum(a.abs(), w.abs()))[1] - 8)
-            excess[name] = ((a - w).abs() - bound - ulp).max().item()
-        else:
-            excess[name] = ((a - w).abs().max() - 2e-2 * w.abs().max()).item()
-    return excess
+    return ring_errors(got, q, k, v, g, mask)
 
 
 def main(argv=None) -> None:
@@ -117,19 +188,18 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", str(device.index)],
         capture_output=True, text=True, check=True).stdout.strip()
     base = load_config(args.config).override(model__dropout=0.0, tpu__compute_dtype="float32")
-    lr = float(base.solver.lr)
     single = fusion_steps(base, Mesh(), device) if rank == 0 else None
     failed = []
     for name, (dp, tp, zero1) in {"dp2_tp2": (2, 2, False), "dp4_zero1": (4, 1, True)}.items():
-        losses, weights, nbytes = fusion_steps(base.override(tpu__zero1=zero1), make_mesh(dp=dp, tp=tp), device)
+        losses, weights, nbytes, _ = fusion_steps(base.override(tpu__zero1=zero1), make_mesh(dp=dp, tp=tp), device)
         if rank == 0:
-            want_losses, want_weights, one_bytes = single
+            want_losses, want_weights, one_bytes, _ = single
             loss_diff = max(abs(a - b) for a, b in zip(losses, want_losses))
-            weight_diff = max((weights[n] - want_weights[n]).abs().max().item() for n in want_weights)
+            weights_held = weight_check(weights, want_weights, STRAY_SHARE[torch.float32])
             share = nbytes / one_bytes
-            ok = loss_diff <= 1e-5 and weight_diff <= 2 * lr * STEPS + 1e-6 and (not zero1 or 1 / dp <= share <= 1.1 / dp)
+            ok = loss_diff <= F32_TOL and weights_held["excess"] <= 0 and (not zero1 or 1 / dp <= share <= 1.1 / dp)
             print(json.dumps({"check": f"fusion {name}", "ok": ok, "losses": losses, "one_process": want_losses,
-                              "loss_diff": loss_diff, "weight_diff": weight_diff,
+                              "loss_diff": loss_diff, "weights": weights_held,
                               "optimizer_bytes_share": share, "card": card}), flush=True)
             if not ok:
                 failed.append(name)

@@ -24,6 +24,8 @@
   ZeRO-1, and the mel extractor's ``MelSolver`` at dp = 2 with ZeRO-1 (a loss
   over the whole batch's embeddings), against the same steps in one process
   of the port: losses within 1e-5, weights within 1e-5 (key biases excepted);
+- the weight rule of the card's checks (``parallel_check.weight_check``)
+  passes those runs and fails a rank that never stepped and the DDP mean;
 - ZeRO-1 keeps about half the optimizer bytes a rank, and its checkpoint,
   written after two steps, resumes in one process into the third step of
   the two-rank run; ``DevicePrefetcher(sharding=...)`` yields each rank's
@@ -65,6 +67,7 @@ from mer_tpu_torch.data.text_fe import TextBatcher, ToyWhitespaceTokenizer
 from mer_tpu_torch.data.wav2vec2_fe import Wav2Vec2Batcher
 from mer_tpu_torch.models import M2FNet, audio_state_dict_from_jax, state_dict_from_jax, text_state_dict_from_jax
 from mer_tpu_torch.parallel import mesh
+from mer_tpu_torch.scripts import parallel_check
 from mer_tpu_torch.train import Solver, load_checkpoint
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -449,6 +452,37 @@ def test_ddp_mean_of_rank_means_misses_mer_tpu(fusion_runs):
     misses = {n: np.abs(g - fusion_runs["want"]["grads"][n].numpy()).max() for n, g in got["grads"].items()}
     assert max(misses.values()) > 100 * TOL
     assert np.abs(got["losses"][1:] - want["losses"][1:]).max() > TOL
+
+
+def _port_tensors(tree: dict) -> dict:
+    return {k: torch.as_tensor(np.asarray(v)) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("case", ["dp2", "tp2", "dp2_zero1"])
+def test_card_weight_rule_passes_the_two_rank_steps(fusion_runs, case):
+    """``parallel_check.weight_check`` (the rule the card's phase 6m and the
+    four-card check hold the weights to) on the two-rank runs against
+    ``mer_tpu``'s mesh steps."""
+    want = fusion_runs["want"]
+    held = parallel_check.weight_check(_port_tensors(fusion_runs["got"][case]["params"]), want[case]["params"],
+                                       parallel_check.STRAY_SHARE[torch.float32], TOL)
+    assert held["excess"] <= 0, held
+
+
+@pytest.mark.parametrize("fault", ["no_step", "ddp_mean"])
+def test_card_weight_rule_fails_planted_faults(fusion_runs, fault):
+    """The same rule on a rank that never stepped (the weights it started
+    from) and on DDP's mean of rank means (a wrong gradient): both far
+    beyond it, even at the bf16 allowance."""
+    want = fusion_runs["want"]
+    if fault == "no_step":
+        start = np.load(os.path.join(fusion_runs["workdir"], "fusion_inputs.npz"))
+        got = {k[2:]: start[k] for k in start.files if k.startswith("w.")}
+    else:
+        got = fusion_runs["got"]["dp2_mean"]["params"]
+    held = parallel_check.weight_check(_port_tensors(got), want["dp2"]["params"],
+                                       parallel_check.STRAY_SHARE[torch.bfloat16], TOL)
+    assert held["beyond_tol"] > 0.1 * held["held"], held  # ten times the looser (bf16) allowance, at least
 
 
 def test_zero1_keeps_half_the_optimizer_bytes(fusion_runs):

@@ -157,7 +157,7 @@ def test_port_imports_neither_jax_nor_mer_tpu():
             "mer_tpu_torch.serving.quant, mer_tpu_torch.serving.encoders, mer_tpu_torch.parallel, "
             "mer_tpu_torch.parallel.mesh, mer_tpu_torch.parallel.tensor, mer_tpu_torch.parallel.data, "
             "mer_tpu_torch.data.process_sharding, mer_tpu_torch.ops.ring_attention, "
-            "mer_tpu_torch.scripts.parallel_check; "
+            "mer_tpu_torch.scripts.parallel_check, mer_tpu_torch.scripts.probe_gn_designs; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mer_tpu')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
