@@ -65,7 +65,7 @@ that two runs see the same tokens:
 5. online serving: ``mer_tpu_torch.serve.main(--synthetic --requests N)``,
    N = 64 (one micro-batch) and N = 280 (a burst of the test split's
    dialogue count, several micro-batches);
-6. training: ``mer_tpu_torch.train.main(--synthetic --epochs 3)`` with the
+6. training: ``mer_tpu_torch.train.main(--synthetic --epochs 2)`` with the
    checkpoints in a temporary directory: 17 K1 (dropout 0.4) and 17 K2
    launches per step, 17 K1 launches per validation batch, finite losses,
    the last epoch's train loss below the first, and a checkpoint that
@@ -75,7 +75,7 @@ that two runs see the same tokens:
    its kernel breakdown;
 6b. mel training: a synthetic MELD root from ``mer_tpu_torch.data.synthetic``
    (100 train and 20 dev dialogues; the test split MELD-shaped, 2,608
-   clips), ``mer_tpu_torch.feature_extractors.audio_mel.train`` for 3 epochs
+   clips), ``mer_tpu_torch.feature_extractors.audio_mel.train`` for 2 epochs
    at batch 32 (hard mining from pools of 96, one [96, 3, 1001, 128] f32
    forward a step): one K5 launch per cache chunk of 64 and none in a step,
    finite losses, a checkpoint; triplet clips per second and one step's
@@ -177,6 +177,24 @@ that two runs see the same tokens:
    within 3 x the sums' rounding bound + an ulp, gradients 2e-2 of the
    largest value), sp K1 or K3 and sp K4 launches a ring step, its
    forward's ms beside one call on the whole sequence;
+6n. parallelism part 2: two ranks of this script (``--parallel-rank ...
+   pp``) on the card over gloo run GPipe at pp 2 (``--pp``,
+   ``parallel_check.fe_pp_steps``): 3 RoBERTa-base text fine-tune steps
+   (batches of 16 at the 256 bucket, 4 microbatches) and 2 wav2vec2-base
+   steps under ``--remat full`` (batches of 4 of 1.5-3 s, 2 microbatches),
+   bf16, dropout on, against the same steps in this process with the same
+   per-(layer, microbatch) seeds: losses within 2e-2 of the loss, weights by
+   ``parallel_check.weight_check``, and a rank's launches a step exactly
+   L / pp x M K1 and K4 (twice the K1 under remat); one f32 text step with
+   dropout on under ``--remat full`` and ``dots`` against none, the
+   gradients to the bit (a tensor whose plain gradient does not repeat
+   between two plain steps, atomic sums, within 4 x that spread), K1 twice
+   a layer; one mel epoch with
+   ``solver.async_mining`` against the same epoch mined synchronously with
+   the weights one step stale (the same indices, losses within 1e-5 of the
+   loss); one mel training epoch (the entry point) at
+   ``AUDIO.augmentation_factor`` 2: the native batch decode, ``random_augment``
+   on the card, two K5 launches a step and one a validation cache chunk;
 7. hold each kernel against its plain version again at every shape that
    phases 4-6i gave it (recorded at each launch), in float32 and bfloat16
    (K5: float32, in both layouts), and K5 on pure tones and a silent clip:
@@ -230,6 +248,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import functools
 import itertools
 import json
@@ -331,7 +350,7 @@ INT8_ENCODER_REL, INT8_FUSION_REL = 0.25, 0.15  # int8 against bf16, of the larg
 # K5: (clips, frames): the export batch, the cache chunk, a ragged chunk, a short clip
 MEL_SHAPES = [(32, 1001), (64, 1001), (47, 1001), (3, 37)]
 MEL_LAYOUTS = ("unfold", "contiguous")  # the strided view of the padded waveforms, or materialised frames
-MEL_EPOCHS, MEL_BATCH = 3, 32
+MEL_EPOCHS, MEL_BATCH = 2, 32
 MEL_SPLIT_DIALOGUES = {"train_sent_emo.csv": 100, "dev_sent_emo.csv": 20}  # the test split is MELD-shaped
 BUCKETS = (8, 16, 24, 33)
 # (B, H, Sq, Sk, Dh): dialogue buckets, dh 96 (768/8) and 50 (300/6), one Sq != Sk
@@ -344,11 +363,15 @@ ROUNDING_CASE = ((32, 8, 24, 33, 96), 53)
 ROUNDING_SEEDS = 16
 ROUNDING_RMS_RATIO = 1.1
 ONLINE_REQUESTS = (64, 280)  # one micro-batch at --max-batch 64; the MELD test split's dialogue count
-TRAIN_EPOCHS = 3
+TRAIN_EPOCHS = 2
 # phase 6m: (name, dp, tp, tpu.zero1, compute dtype) of the two-rank fusion runs, each parallel_check.STEPS steps
 PARALLEL_CASES = [("dp2_f32", 2, 1, False, "float32"), ("tp2_f32", 1, 2, False, "float32"),
                   ("dp2_bf16", 2, 1, False, "bfloat16"), ("tp2_bf16", 1, 2, False, "bfloat16"),
                   ("dp2_zero1_f32", 2, 1, True, "float32")]
+# phase 6n: (name, kind, remat) of the two-rank pp 2 runs (parallel_check.PP_RUNS: steps, batch, microbatches)
+PP_CASES = [("text_pp2", "text", False), ("w2v_pp2_remat", "wav2vec2", "full")]
+PP_LAYERS = 12  # RoBERTa-base's and wav2vec2-base's encoder layers
+REMAT_SPREAD = 4.0  # remat vs plain on a tensor whose plain f32 gradient itself does not repeat (atomic sums)
 PARALLEL_BF16_LOSS_REL = 2e-2  # two-rank against one-process losses in bf16 (row-parallel sums rounded once more)
 # the ring on a local ring: ([B, H, S, Dh], sp) at wav2vec2-base width: K1 blocks of 2,250 and 1,125 keys, K3 of 4,500
 RING_CASES = [((2, 12, 4500, 64), 2), ((2, 12, 4500, 64), 4), ((1, 12, 9000, 64), 2)]
@@ -2464,9 +2487,10 @@ def parallel_steps(cfg_path: str, mesh=None):
     return parallel_check.fusion_steps(load_config(cfg_path), mesh or Mesh(), "cuda", main_path_run)
 
 
-def parallel_rank(rank: int, port: str, workdir: str) -> None:
-    """One of the two ranks of phase 6m (``chip_smoke.py --parallel-rank``):
-    gloo on the one card, every PARALLEL_CASES case; each rank writes its
+def parallel_rank(rank: int, port: str, workdir: str, job: str = "fusion") -> None:
+    """One of the two ranks of phase 6m or 6n (``chip_smoke.py
+    --parallel-rank R PORT DIR [pp]``): gloo on the one card, every
+    PARALLEL_CASES case (6m) or PP_CASES case (6n); each rank writes its
     losses, launches, optimizer bytes and path shapes, rank 0 the weights."""
     sys.path.insert(0, REPO)
     import torch.distributed as dist
@@ -2477,6 +2501,22 @@ def parallel_rank(rank: int, port: str, workdir: str) -> None:
     initialize_distributed(init_method=f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
                            device="cuda:0")
     out = {}
+    if job == "pp":
+        from mer_tpu_torch.scripts import parallel_check
+
+        for name, kind, remat in PP_CASES:
+            PATH_SHAPES.clear()
+            losses, weights, seconds, run = parallel_check.fe_pp_steps(
+                kind, make_mesh(pp=2), torch.device("cuda"), torch.bfloat16, remat=remat, count=main_path_run)
+            out[name] = {"losses": losses, "seconds": seconds, "launches": run,
+                         "shapes": [[k[0], list(k[1]), k[2], k[3], n] for k, n in PATH_SHAPES.items()]}
+            if rank == 0:
+                torch.save(weights, os.path.join(workdir, f"{name}.pt"))
+            dist.barrier()
+        with open(os.path.join(workdir, f"pp_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+        return
     for name, dp, tp, zero1, dtype in PARALLEL_CASES:
         PATH_SHAPES.clear()
         losses, weights, nbytes, run = parallel_steps(os.path.join(workdir, f"{dtype}_{zero1}.yaml"),
@@ -2635,6 +2675,200 @@ def parallel_phase(fa, card: str) -> dict:
         launches[name] += n
     log(f"phase 6m (parallel) in {time.perf_counter() - t0:.1f} s ({card})")
     return launches
+
+
+def pipeline_phase(fa, card: str) -> dict:
+    """Phase 6n's GPipe and remat legs; returns their launches."""
+    from mer_tpu_torch.parallel.mesh import Mesh
+    from mer_tpu_torch.scripts import parallel_check
+
+    t0 = time.perf_counter()
+    launches = dict(ZERO)
+    with tempfile.TemporaryDirectory() as tmp:
+        port = str(free_port())
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r), port, tmp,
+                                   "pp"], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            single = {}
+            for name, kind, _ in PP_CASES:  # one process, pp 1, no remat: the same microbatches and seeds
+                single[name] = parallel_check.fe_pp_steps(kind, Mesh(), torch.device("cuda"), torch.bfloat16,
+                                                          count=main_path_run)
+                for kernel, n in single[name][3].items():
+                    launches[kernel] += n
+            outputs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, text) in enumerate(zip(procs, outputs)):
+            if p.returncode != 0:
+                raise AssertionError(f"pipeline rank {r} failed:\n{text[-4000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"pp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for name, kind, remat in PP_CASES:
+            steps, batch, m = parallel_check.PP_RUNS[kind]
+            losses, weights, one_seconds, one_run = single[name]
+            got = ranks[0][name]["losses"]
+            loss_diff = max(abs(x - y) for x, y in zip(got, losses))
+            loss_tol = PARALLEL_BF16_LOSS_REL * max(map(abs, losses))
+            held = parallel_check.weight_check(torch.load(os.path.join(tmp, f"{name}.pt")), weights,
+                                               parallel_check.STRAY_SHARE[torch.bfloat16])
+            per_rank = PP_LAYERS // 2 * m * steps  # L / pp layers x M microbatches a step
+            want_run = {**ZERO, FWD: per_rank * (2 if remat else 1), TILED: per_rank}
+            want_single = {**ZERO, FWD: PP_LAYERS * m * steps, TILED: PP_LAYERS * m * steps}
+            log(f"pipeline {name} (pp 2, {m} microbatches of {batch // m}, remat {remat}, bf16, dropout on; 2 ranks "
+                f"over gloo on one card) against one process, {steps} steps: losses {got} vs {losses}, max diff "
+                f"{loss_diff} (tol {loss_tol}); weights {json.dumps(held)}; launches a rank "
+                f"{[r[name]['launches'] for r in ranks]} (want {want_run}), one process {one_run} (want "
+                f"{want_single}); step s rank 0 {ranks[0][name]['seconds']}, one process {one_seconds} (both ranks "
+                f"and this process share the card: no speed) ({card})")
+            if not (loss_diff <= loss_tol and held["excess"] <= 0):
+                raise AssertionError(f"pipeline {name} departs from the single-process steps")
+            if one_run != want_single or any(r[name]["launches"] != want_run for r in ranks):
+                raise AssertionError(f"pipeline {name}: launches {[r[name]['launches'] for r in ranks]}, "
+                                     f"one process {one_run}")
+            for r in ranks:
+                for kernel, shape, dtype_name, rate, n in r[name]["shapes"]:
+                    PATH_SHAPES[(kernel, tuple(shape), dtype_name, rate)] += n
+                    launches[kernel] += n
+
+    for kernel, n in remat_phase(card).items():
+        launches[kernel] += n
+    log(f"phase 6n (pipeline, remat) in {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
+def remat_phase(card: str) -> dict:
+    """Phase 6n's remat leg: ``--remat`` (full, dots) against none in one
+    process, one f32 RoBERTa-base text step with dropout on; the gradients
+    to the bit, the plain step run twice to show the card's own repeatability;
+    returns the launches."""
+    from mer_tpu_torch.data.text_fe import text_batch_to_inputs
+    from mer_tpu_torch.models import set_attention_generator
+    from mer_tpu_torch.models.roberta import text_erc_from_seed
+    from mer_tpu_torch.objectives.classification import cross_entropy
+    from mer_tpu_torch.scripts import parallel_check
+    from mer_tpu_torch.utils import seed_dropout, seed_step
+
+    launches = dict(ZERO)
+    batch = parallel_check.fe_pp_batches("text")[0]
+    grads, runs = {}, {}
+    for policy in ("plain", "plain again", "full", "dots"):
+        remat = policy not in ("plain", "plain again")
+        model = text_erc_from_seed(0, dtype=torch.float32).cuda().train().set_remat(remat, policy if remat else None)
+        generator = seed_dropout(0)
+        set_attention_generator(model, generator)
+        seed_step(0, 1, generator)
+        with main_path_run() as run:
+            loss = cross_entropy(model(*text_batch_to_inputs(batch, "cuda")),
+                                 torch.from_numpy(batch["emotion"]).long().cuda())
+            loss.backward()
+        grads[policy] = {n: p.grad for n, p in model.named_parameters()}
+        runs[policy] = run
+        for kernel, n in run.items():
+            launches[kernel] += n
+        del model, loss
+    differing = {policy: {n: (grads[policy][n] - g).abs().max().item() for n, g in grads["plain"].items()
+                          if not torch.equal(grads[policy][n], g)} for policy in ("plain again", "full", "dots")}
+    # a tensor whose plain gradient does not repeat (atomic sums: the token-type table's one row gathers every
+    # token) is held within REMAT_SPREAD x the plain runs' own difference; every other one to the bit
+    spread = differing["plain again"]
+    beyond = {p: {n: d for n, d in differing[p].items() if not d <= REMAT_SPREAD * spread.get(n, 0.0)}
+              for p in ("full", "dots")}
+    want = {p: {**ZERO, FWD: PP_LAYERS * (2 if p in ("full", "dots") else 1), TILED: PP_LAYERS} for p in runs}
+    log(f"remat f32 text step [16, 256], dropout on: tensors whose gradient differs from the plain step's, with the "
+        f"largest difference: {json.dumps(differing)} (of {len(grads['plain'])}); beyond the bit, or for a tensor the "
+        f"plain step does not repeat beyond {REMAT_SPREAD} x its plain-vs-plain difference: {json.dumps(beyond)}; "
+        f"launches {runs} (want {want}: K1 once more a layer in the recompute) ({card})")
+    if any(beyond.values()) or runs != want:
+        raise AssertionError(f"remat departs from plain: {beyond}, launches {runs}")
+    return launches
+
+
+def mel_async_augment_phase(lk, card: str, root: str, cfg: str, tmp: str) -> int:
+    """Phase 6n's mel legs (async mining, augmentation); returns K5's launches."""
+    import yaml
+
+    from mer_tpu_torch.core import load_config
+    from mer_tpu_torch.data import MelFeatureDataset
+    from mer_tpu_torch.feature_extractors.audio_mel import build_solver, parse_args
+    from mer_tpu_torch.feature_extractors.audio_mel import train as mel_train
+
+    t0 = time.perf_counter()
+    argv = ["--config", cfg, "--data-root", root]
+    torch.backends.cudnn.deterministic = True  # the two epochs below compare to the loss
+    try:
+        results = []
+        for asynchronous in (True, False):
+            config, solver = build_solver(parse_args(argv))
+            solver.async_mining = asynchronous
+            state = solver.init_state()
+            steps = len(solver.data_train) // MEL_BATCH
+            mined = []
+            miner = solver._miner(solver.data_train)
+            mine = miner.mine
+            miner.mine = lambda *a, **k: (lambda out: (mined.append(np.concatenate(out)), out)[1])(mine(*a, **k))
+            t1 = time.perf_counter()
+            if asynchronous:
+                losses = [loss.item() for loss in solver._train_steps_async(state, steps)]
+            else:
+                stale, losses = copy.deepcopy(solver.model).eval(), []
+                solver._mining_model = stale
+                for _ in range(steps):
+                    a, p, n = solver._miner(solver.data_train).mine(MEL_BATCH, solver.mining_type)
+                    spec = solver.data_train.spectrogram_batch(np.concatenate([a, p, n]))
+                    stale.load_state_dict(solver.model.state_dict())  # the weights before this step's update
+                    losses.append(solver.train_step(state, spec).item())
+            results.append((losses, mined, time.perf_counter() - t1))
+            del solver, state
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (a_losses, a_mined, a_s), (s_losses, s_mined, s_s) = results
+    same = all(np.array_equal(x, y) for x, y in zip(a_mined, s_mined)) and len(a_mined) == len(s_mined) == steps
+    diff = max(abs(x - y) for x, y in zip(a_losses, s_losses))
+    log(f"mel async mining, one epoch of {steps} steps: mined indices equal to the one-step-stale synchronous "
+        f"epoch's {same}; losses {a_losses} vs {s_losses}, max diff {diff} (tol 1e-5 of the loss); {a_s} s async, "
+        f"{s_s} s synchronous ({card})")
+    if not (same and diff <= 1e-5 * max(map(abs, s_losses))):
+        raise AssertionError("async mining departs from the stale-weights synchronous epoch")
+
+    # one training epoch at augmentation_factor 2 through the entry point
+    aug_cfg = os.path.join(tmp, "mel_aug.yaml")
+    ckpt = os.path.join(tmp, "ckpt_aug", "checkpoint.ckpt")
+    with open(aug_cfg, "w") as f:
+        yaml.safe_dump(load_config(cfg).override(AUDIO__augmentation_factor=2, checkpoint__save_path=ckpt,
+                                                 checkpoint__load_path=ckpt).to_dict(), f)
+    augmented = collections.Counter()
+    augment = MelFeatureDataset.augment
+
+    def counting(self, audio, lengths, generator):
+        out = augment(self, audio, lengths, generator)
+        augmented["batches"] += 1
+        augmented["rows"] += int((out[2] > 0).sum())
+        augmented["clips"] += audio.shape[0]
+        if audio.device.type != "cuda":
+            raise AssertionError("random_augment ran off the card")
+        return out
+
+    t1 = time.perf_counter()
+    with mock.patch.object(MelFeatureDataset, "augment", counting), main_path_run() as run:
+        _, history = mel_train.main(["--config", aug_cfg, "--data-root", root, "--epochs", "1"])
+    seconds = time.perf_counter() - t1
+    config, solver = build_solver(parse_args(["--config", aug_cfg, "--data-root", root]))
+    steps, n_val = len(solver.data_train) // MEL_BATCH, len(solver.data_val)
+    want = {**ZERO, MEL: 2 * steps + math.ceil(n_val / 64)}
+    log(f"mel augmented epoch (factor 2): {steps} steps, {augmented['rows']} of {augmented['clips']} triplet clips "
+        f"augmented over {augmented['batches']} batches, losses {json.dumps(history)}, {seconds} s; launches {run} "
+        f"(want {want}: K5 for each step's mining pool and triplet batch, one a validation cache chunk) ({card})")
+    losses = history["loss_values"] + history["val_loss_values"]
+    if run != want or augmented["batches"] != steps or not 0 < augmented["rows"] < augmented["clips"] \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"augmented mel epoch: launches {run}, want {want}; augmented {dict(augmented)}")
+    log(f"phase 6n (mel async mining, augmentation) in {time.perf_counter() - t0:.1f} s ({card})")
+    return run[MEL]
 
 
 def free_port() -> int:
@@ -2845,6 +3079,10 @@ def main() -> None:
         # 6m. dp, tp and ZeRO-1 on two ranks over gloo, torchrun, the ring on the card
         for name, n in parallel_phase(fa, card).items():
             launches[name] += n
+        # 6n. GPipe at pp 2 on two ranks over gloo, remat, the mel extractor's async mining and augmentation
+        for name, n in pipeline_phase(fa, card).items():
+            launches[name] += n
+        launches[MEL] += mel_async_augment_phase(lk, card, root, cfg, tmp)
     attention_bench_phase(card)
     probe_results, launches[PROBE] = probe_phase(card)
     del w2v_model  # its conv frontend serves phase 7
@@ -2934,6 +3172,6 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
-        parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4], *sys.argv[5:6])
     else:
         main()

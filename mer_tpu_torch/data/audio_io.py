@@ -2,8 +2,8 @@
 
 MELD's wavs, as ``scripts/mp4towav.py`` writes them, are mono 16 kHz PCM16,
 which the stdlib ``wave`` module reads. Decoding stays on the host; the
-log-mel frontend runs on the device. Resampling is not ported: a file at
-another rate raises.
+log-mel frontend runs on the device. A file at another rate is resampled
+(``ops/resample.py``) unless the store is told not to, as ``mer_tpu``'s.
 """
 
 from __future__ import annotations
@@ -49,12 +49,15 @@ def save_wav(path: str | os.PathLike, waveform: np.ndarray, sample_rate: int) ->
 class WaveformStore:
     """MELD utterance wavs by (dialogue_id, utterance_id), LRU-cached, cut to
     ``max_seconds`` (the reference's check and truncation,
-    audio_mel/dataset.py:146-153)."""
+    audio_mel/dataset.py:146-153); a file at another rate is resampled to
+    ``sample_rate``, or raises with ``resample_if_needed=False``."""
 
-    def __init__(self, audio_dir: str, sample_rate: int = 16000, max_seconds: float = 10.0):
+    def __init__(self, audio_dir: str, sample_rate: int = 16000, max_seconds: float = 10.0,
+                 resample_if_needed: bool = True):
         self.audio_dir = os.path.abspath(audio_dir)
         self.sample_rate = sample_rate
         self.max_samples = int(max_seconds * sample_rate)
+        self.resample_if_needed = resample_if_needed
         self._load = lru_cache(maxsize=2048)(self._load_uncached)
 
     def path_for(self, dialogue_id: int, utterance_id: int) -> str:
@@ -64,8 +67,11 @@ class WaveformStore:
         path = self.path_for(dialogue_id, utterance_id)
         wav, sr = load_wav(path)
         if sr != self.sample_rate:
-            raise ValueError(f"{path}: sample rate {sr} Hz, expected {self.sample_rate} Hz (the port does not "
-                             "resample; convert the file first, e.g. with scripts/mp4towav.py)")
+            if not self.resample_if_needed:
+                raise ValueError(f"{path}: sample rate {sr} Hz, expected {self.sample_rate} Hz")
+            from mer_tpu_torch.ops.resample import resample
+
+            wav = resample(wav, sr, self.sample_rate)
         return wav[: self.max_samples].astype(np.float32)
 
     def get(self, dialogue_id: int, utterance_id: int) -> np.ndarray:

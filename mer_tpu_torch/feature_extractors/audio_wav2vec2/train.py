@@ -8,9 +8,12 @@ device-memory choice), else the loader's.
 
     python -m mer_tpu_torch.feature_extractors.audio_wav2vec2.train --data-root DIR [--epochs N]
         [--config PATH] [--random-init | --pretrained FILE] [--bf16 | --f32] [--device cuda|cpu] [--zero1]
+        [--pp P [--pp-microbatches M]] [--remat [--remat-policy full|dots|dots_no_batch]]
 
 Under ``torchrun --nproc-per-node N`` the ranks train one model on a
-(dp, tp) mesh from the config's ``tpu.mesh`` (every rank on dp by default).
+(dp, tp) mesh from the config's ``tpu.mesh`` (every rank on dp by default),
+or with ``--pp P`` on P pipeline stages of the encoder's layers and N / P dp
+ranks.
 On the card the frozen epochs and every validation batch run the conv frontend
 through K7 and K6 and the encoder through K1; the fine-tune epochs run the
 stock differentiable convolutions and K1 + K2.
@@ -22,6 +25,7 @@ from mer_tpu_torch.core import load_config
 from mer_tpu_torch.data.wav2vec2_fe import Wav2Vec2Batcher, Wav2Vec2FeatureDataset, w2v_batch_to_inputs
 from mer_tpu_torch.feature_extractors.audio_wav2vec2 import W2V_CONFIG_PATH
 from mer_tpu_torch.feature_extractors.fe_common import (
+    build_pp,
     load_wav2vec2_model,
     parallel_setup,
     parse_args,
@@ -43,7 +47,9 @@ def main(argv=None):
 
     model, pretrained = load_wav2vec2_model(args, config=config)
     set_float32_exact(model.dtype)
-    model = tensor_parallel_(with_pretrained_backbone(model, pretrained), mesh).to(device)
+    model = with_pretrained_backbone(model, pretrained)
+    pp_logits_fn = build_pp(args, model, mesh, config)
+    model = tensor_parallel_(model, mesh).to(device)
 
     data_train = Wav2Vec2FeatureDataset("train", data_root=args.data_root)
     data_val = Wav2Vec2FeatureDataset("val", data_root=args.data_root)
@@ -55,7 +61,7 @@ def main(argv=None):
 
     class_weights = balanced_class_weights(data_train.get_labels()) if bool(config.solver.balance_classes) else None
     solver = FESolver(model, config, backbone_key="wav2vec2", batch_to_inputs=w2v_batch_to_inputs,
-                      class_weights=class_weights, mesh=mesh)
+                      class_weights=class_weights, mesh=mesh, pp_logits_fn=pp_logits_fn)
     print("Training...")
     state, history = solver.fit(dl_train, dl_val)
     print("Training complete")

@@ -9,8 +9,11 @@ engine in the embedding exports (``serving/encoders.py``; the other entry
 points ignore it, as ``mer_tpu``'s do). ``--zero1`` sets ``tpu.zero1``: on
 a dp mesh each rank keeps its slice of the AdamW moments
 (:func:`parallel_setup` builds the mesh from ``tpu.mesh`` under ``torchrun``).
-``--pp`` and ``--remat`` are parsed and refused: the pipeline and the
-rematerialisation they select are not ported. The
+``--pp N`` (training) pipelines the encoder's layers over N stages of the
+ranks, the rest dp (:func:`parallel_setup`, :func:`build_pp`;
+``--pp-microbatches`` M, default N); ``--remat`` recomputes each encoder
+layer in the backward, ``--remat-policy`` says what it keeps
+(``utils/remat.py``), with or without ``--pp``. The
 encoders have one layout here, so ``--scan-layers`` has no counterpart, and the
 exports always loop over batches (``mer_tpu``'s ``--per-batch-export`` shape;
 its scan grouping exists to save jit dispatches).
@@ -36,9 +39,9 @@ from mer_tpu_torch.models.wav2vec2 import AudioERC, Wav2Vec2Config, audio_erc_fr
 from mer_tpu_torch.parallel import initialize_distributed, local_device, mesh_from_config
 from mer_tpu_torch.serving.engine import resolve_device
 from mer_tpu_torch.train.checkpoint import load_checkpoint
+from mer_tpu_torch.utils.remat import REMAT_POLICIES
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_UNPORTED = {"pp": "pipeline parallelism", "remat": "rematerialisation (a fine-tuning option)"}
 
 
 def parse_args(argv=None, default_config: str | None = None, prog: str | None = None):
@@ -60,27 +63,82 @@ def parse_args(argv=None, default_config: str | None = None, prog: str | None = 
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--int8", action="store_true",
                    help="embedding export: the int8 serving engine (int8 weights and activations, int32 products)")
-    p.add_argument("--pp", type=int, default=1, help="not ported")
-    p.add_argument("--remat", action="store_true", help="not ported")
+    p.add_argument("--pp", type=int, default=1,
+                   help="training: pipeline stages of the 12-layer encoder (GPipe over a (dp, pp) mesh of the ranks, "
+                        "parallel/pipeline.py); the remaining ranks become dp; tpu.zero1 and tpu.mesh's tp are "
+                        "ignored under it")
+    p.add_argument("--pp-microbatches", type=int, default=None, help="microbatches per pipeline round (default: pp)")
+    p.add_argument("--remat-policy", default=None, choices=list(REMAT_POLICIES),
+                   help="with --remat: what the backward keeps (utils/remat.py; 'dots*' keep the matrix products' "
+                        "outputs and recompute the elementwise chain)")
+    p.add_argument("--remat", action="store_true",
+                   help="training: recompute each encoder layer in the backward (activation memory of about one "
+                        "layer for one more forward)")
     p.add_argument("--zero1", action="store_true",
                    help="training: ZeRO-1, each dp rank keeps its slice of the optimizer's moments (tpu.zero1)")
-    args = p.parse_args(argv)
-    for flag, what in _UNPORTED.items():
-        if args.pp != 1 if flag == "pp" else getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what} is not ported to mer_tpu_torch yet")
-    return args
+    return p.parse_args(argv)
 
 
 def parallel_setup(args, config):
     """(config, mesh, device) of a training entry point: the process group
     under ``torchrun`` (one process: none), the mesh of ``tpu.mesh`` (dp =
-    -1 by default: every rank), this rank's ``cuda:LOCAL_RANK``, and
-    ``--zero1`` as ``tpu.zero1``."""
+    -1 by default: every rank) or, under ``--pp N``, a (dp, pp) mesh whose
+    dp takes the ranks the stages leave, this rank's ``cuda:LOCAL_RANK``,
+    and ``--zero1`` as ``tpu.zero1``."""
     resolve_device(args.device)
     initialize_distributed(device=args.device)
     if args.zero1:
         config = config.override(tpu__zero1=True)
-    return config, mesh_from_config(config), local_device(args.device)
+    pp = int(getattr(args, "pp", 1) or 1)
+    if pp <= 1:
+        return config, mesh_from_config(config), local_device(args.device)
+    from mer_tpu_torch.parallel.pipeline import make_pp_mesh
+
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    if world % pp:
+        raise ValueError(f"--pp {pp} does not divide the {world} available devices")
+    return config, make_pp_mesh(pp=pp, dp=world // pp), local_device(args.device)
+
+
+def remat_value(args) -> bool | str:
+    """``--remat`` as ``pipeline_apply`` takes it: False, True (recompute
+    everything) or a selective policy's name."""
+    policy = getattr(args, "remat_policy", None)
+    if not getattr(args, "remat", False):
+        return False
+    return policy if policy and policy != "full" else True
+
+
+def build_pp(args, model, mesh, config=None):
+    """``--pp N``: the pipelined logits function of ``model`` (``(*inputs,
+    seed=None) -> logits``, ``parallel/pp_forward.py``) over ``mesh``'s pp
+    group, after dropping the layers other stages own; None when pp <= 1."""
+    if mesh.pp <= 1:
+        return None
+    from mer_tpu_torch.parallel.pipeline import keep_stage_layers_
+    from mer_tpu_torch.parallel.pp_forward import stack_of
+
+    keep_stage_layers_(stack_of(model)[0], mesh)
+    mb = getattr(args, "pp_microbatches", None)
+    ignored = []
+    if config is not None and config.get_path("tpu.zero1", False):
+        ignored.append("tpu.zero1")
+    if config is not None and int((config.get_path("tpu.mesh", {}) or {}).get("tp", 1)) > 1:
+        ignored.append("tpu.mesh's tp")
+    print(f"Pipeline parallelism: pp={mesh.pp} dp={mesh.dp} (microbatches={mb if mb is not None else mesh.pp})"
+          + (f"; ignored under --pp: {', '.join(ignored)}" if ignored else ""))
+    return pipelined_logits(model, mesh, mb, remat_value(args))
+
+
+def pipelined_logits(model, mesh, microbatches: int | None = None, remat: bool | str = False):
+    """``(*inputs, seed=None) -> logits`` of ``model`` (TextERC or AudioERC)
+    through ``parallel/pp_forward.py`` over ``mesh``'s pp group (at pp 1:
+    the same microbatches and dropout seeds in one process)."""
+    from mer_tpu_torch.parallel.pp_forward import audio_erc_logits_pp, text_erc_logits_pp
+
+    forward = text_erc_logits_pp if isinstance(model, TextERC) else audio_erc_logits_pp
+    return lambda *inputs, seed=None: forward(model, mesh, *inputs, seed=seed, microbatches=microbatches,
+                                              remat=remat)
 
 
 def int8_embed(model, quantize, engine):
@@ -129,6 +187,7 @@ def load_wav2vec2_model(args, variant: str = "facebook/wav2vec2-base", config=No
     resolved compute dtype. Without ``--random-init`` the pretrained backbone
     must be a local ``--pretrained`` file; nothing is downloaded."""
     model = audio_erc_from_seed(_seed(config), Wav2Vec2Config.base(), resolve_compute_dtype(args, config))
+    model.set_remat(getattr(args, "remat", False), getattr(args, "remat_policy", None))
     return model, _pretrained_state_dict(args, variant, "audio_wav2vec2/model.py:9")
 
 
@@ -144,6 +203,7 @@ def load_text_model_and_tokenizer(args, variant: str | None = None, config=None)
                or "roberta-base")
     cfg = RobertaConfig.large() if "large" in variant else RobertaConfig.base()
     model = text_erc_from_seed(_seed(config), cfg, resolve_compute_dtype(args, config))
+    model.set_remat(getattr(args, "remat", False), getattr(args, "remat_policy", None))
     tokenizer = (ToyWhitespaceTokenizer(vocab_size=cfg.vocab_size) if args.toy_tokenizer
                  else load_roberta_tokenizer(args.pretrained or variant))
     return model, tokenizer, _pretrained_state_dict(args, variant, "text/model.py:16")

@@ -6,10 +6,13 @@ context-window utterances with the two-phase freeze / fine-tune scheme of
 
     python -m mer_tpu_torch.feature_extractors.text.train --data-root DIR [--epochs N]
         [--config PATH] [--random-init | --pretrained PATH] [--toy-tokenizer] [--variant NAME]
-        [--bf16 | --f32] [--device cuda|cpu] [--zero1]
+        [--bf16 | --f32] [--device cuda|cpu] [--zero1] [--pp P [--pp-microbatches M]]
+        [--remat [--remat-policy full|dots|dots_no_batch]]
 
 Under ``torchrun --nproc-per-node N`` the ranks train one model on a
-(dp, tp) mesh from the config's ``tpu.mesh`` (every rank on dp by default).
+(dp, tp) mesh from the config's ``tpu.mesh`` (every rank on dp by default),
+or with ``--pp P`` on P pipeline stages of RoBERTa's layers and N / P dp
+ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 from mer_tpu_torch.core import load_config
 from mer_tpu_torch.data.text_fe import TextBatcher, TextFeatureDataset, text_batch_to_inputs
 from mer_tpu_torch.feature_extractors.fe_common import (
+    build_pp,
     load_text_model_and_tokenizer,
     parallel_setup,
     parse_args,
@@ -39,7 +43,9 @@ def main(argv=None):
 
     model, tokenizer, pretrained = load_text_model_and_tokenizer(args, config=config)
     set_float32_exact(model.dtype)
-    model = tensor_parallel_(with_pretrained_backbone(model, pretrained), mesh).to(device)
+    model = with_pretrained_backbone(model, pretrained)
+    pp_logits_fn = build_pp(args, model, mesh, config)
+    model = tensor_parallel_(model, mesh).to(device)
 
     data_train = TextFeatureDataset("train", tokenizer, data_root=args.data_root)
     data_val = TextFeatureDataset("val", tokenizer, data_root=args.data_root)
@@ -51,7 +57,7 @@ def main(argv=None):
 
     class_weights = balanced_class_weights(data_train.get_labels()) if bool(config.solver.balance_classes) else None
     solver = FESolver(model, config, backbone_key="roberta", batch_to_inputs=text_batch_to_inputs,
-                      class_weights=class_weights, mesh=mesh)
+                      class_weights=class_weights, mesh=mesh, pp_logits_fn=pp_logits_fn)
     print("Training...")
     state, history = solver.fit(dl_train, dl_val)
     print("Training complete")

@@ -20,6 +20,7 @@ from torch import nn
 
 from mer_tpu_torch.ops.attention import dot_product_attention
 from mer_tpu_torch.parallel.tensor import copy_to_group
+from mer_tpu_torch.utils.remat import checkpointed
 
 
 class SeededAttention(nn.Module):
@@ -118,3 +119,23 @@ def set_attention_generator(model: nn.Module, generator: torch.Generator | None)
     for module in model.modules():
         if isinstance(module, SeededAttention):
             module.generator = generator
+
+
+def attention_generators(*modules: nn.Module) -> list[torch.Generator]:
+    """The host generators the :class:`SeededAttention` modules of
+    ``modules`` draw seed words from, each once."""
+    found = {}
+    for module in modules:
+        for sub in module.modules():
+            if isinstance(sub, SeededAttention) and sub.generator is not None:
+                found[id(sub.generator)] = sub.generator
+    return list(found.values())
+
+
+def run_layer(layer: nn.Module, remat: bool, policy: str | None, *args) -> torch.Tensor:
+    """``layer(*args)``; under ``remat`` while grad is enabled, recomputed in
+    the backward by ``policy`` (``utils/remat.py``), its attention generators
+    rewound for the recompute."""
+    if remat and torch.is_grad_enabled():
+        return checkpointed(layer, *args, policy=policy, generators=attention_generators(layer))
+    return layer(*args)

@@ -42,9 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mer_tpu_torch.models.layers import SeededAttention
+from mer_tpu_torch.models.layers import SeededAttention, run_layer
 from mer_tpu_torch.models.wav2vec2 import _layer_norm, _linear
 from mer_tpu_torch.ops.attention import dot_product_attention
+from mer_tpu_torch.utils.remat import resolve_remat_policy
 
 
 @dataclass(frozen=True)
@@ -172,12 +173,15 @@ class _Encoder(nn.Module):
 
 class RobertaModel(nn.Module):
     """Input ids + attention mask [B, S] -> last hidden state [B, S, H] in
-    ``dtype`` (no pooler: the reference disables it, text/model.py:16)."""
+    ``dtype`` (no pooler: the reference disables it, text/model.py:16).
+    ``remat``: each layer recomputed in the backward by ``remat_policy``
+    (``utils/remat.py``; None is ``full``; ``TextERC.set_remat``)."""
 
     def __init__(self, cfg: RobertaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat, self.remat_policy = False, None
         self.embeddings = RobertaEmbeddings(cfg)
         self.encoder = _Encoder(cfg)
 
@@ -185,7 +189,7 @@ class RobertaModel(nn.Module):
         hidden = self.embeddings(input_ids, self.dtype)
         key_padding_mask = (attention_mask == 0).contiguous()  # True = ignore
         for layer in self.encoder.layer:
-            hidden = layer(hidden, key_padding_mask, self.dtype)
+            hidden = run_layer(layer, self.remat, self.remat_policy, hidden, key_padding_mask, self.dtype)
         return hidden
 
 
@@ -220,6 +224,13 @@ class TextERC(nn.Module):
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "TextERC":
         self.dtype = self.roberta.dtype = dtype
+        return self
+
+    def set_remat(self, remat: bool, policy: str | None = None) -> "TextERC":
+        """Recompute each encoder layer in the backward (``mer_tpu``'s
+        ``remat`` / ``remat_policy``); an unknown policy raises."""
+        resolve_remat_policy(policy)
+        self.roberta.remat, self.roberta.remat_policy = bool(remat), policy
         return self
 
     def load_backbone(self, state_dict: dict) -> None:

@@ -50,10 +50,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mer_tpu_torch.models.layers import SeededAttention
+from mer_tpu_torch.models.layers import SeededAttention, run_layer
 from mer_tpu_torch.ops import w2v_conv
 from mer_tpu_torch.ops.attention import dot_product_attention
 from mer_tpu_torch.parallel.tensor import tp_linear
+from mer_tpu_torch.utils.remat import resolve_remat_policy
 
 
 @dataclass(frozen=True)
@@ -223,15 +224,20 @@ class _Encoder(nn.Module):
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(Wav2Vec2EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.dropout = cfg.hidden_dropout
+        self.remat, self.remat_policy = False, None
 
-    def forward(self, x: torch.Tensor, frame_valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        # padded frames are zeroed before the positional conv (HF semantics)
+    def pre_stack(self, x: torch.Tensor, frame_valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """What runs before the layers: padded frames zeroed (HF semantics),
+        the positional conv added, LayerNorm, dropout."""
         x = torch.where(frame_valid[..., None], x, 0.0)
         x = _layer_norm(x + self.pos_conv_embed(x, dtype), self.layer_norm, dtype)
-        x = F.dropout(x, self.dropout, self.training)
+        return F.dropout(x, self.dropout, self.training)
+
+    def forward(self, x: torch.Tensor, frame_valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = self.pre_stack(x, frame_valid, dtype)
         key_padding_mask = ~frame_valid
         for layer in self.layers:
-            x = layer(x, key_padding_mask, dtype)
+            x = run_layer(layer, self.remat, self.remat_policy, x, key_padding_mask, dtype)
         return x
 
 
@@ -247,11 +253,16 @@ class Wav2Vec2Model(nn.Module):
         self.feature_projection = FeatureProjection(cfg)
         self.encoder = _Encoder(cfg)
 
-    def forward(self, waveforms: torch.Tensor, lengths: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def frames(self, waveforms: torch.Tensor, lengths: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """(projected frame features [B, T, H], frame counts [B], frame_valid
+        [B, T]): the conv frontend and the feature projection."""
         feats = self.feature_extractor(waveforms, self.dtype)
         out_lengths = self.cfg.feat_extract_output_lengths(lengths.to(torch.int32))
         frame_valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < out_lengths[:, None]
-        x = self.feature_projection(feats, self.dtype)
+        return self.feature_projection(feats, self.dtype), out_lengths, frame_valid
+
+    def forward(self, waveforms: torch.Tensor, lengths: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x, out_lengths, frame_valid = self.frames(waveforms, lengths)
         return self.encoder(x, frame_valid, self.dtype), out_lengths
 
 
@@ -289,6 +300,17 @@ class AudioERC(nn.Module):
         self.dtype = self.wav2vec2.dtype = dtype
         return self
 
+    def set_remat(self, remat: bool, policy: str | None = None) -> "AudioERC":
+        """Recompute each encoder layer in the backward (``mer_tpu``'s
+        ``remat`` / ``remat_policy``); an unknown policy raises."""
+        resolve_remat_policy(policy)
+        self.wav2vec2.encoder.remat, self.wav2vec2.encoder.remat_policy = bool(remat), policy
+        return self
+
+    def head(self, pooled: torch.Tensor) -> torch.Tensor:
+        """Logits [B, num_labels] of the pooled embeddings."""
+        return _linear(torch.tanh(_linear(pooled, self.head_dense, self.dtype)), self.head_out, self.dtype)
+
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         return super().load_state_dict(fold_pos_conv_weight_norm(state_dict), strict=strict, assign=assign)
 
@@ -316,8 +338,7 @@ class AudioERC(nn.Module):
 
     def forward(self, waveforms: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """Logits [B, num_labels] in the compute dtype."""
-        pooled = self.embed(waveforms, lengths)
-        return _linear(torch.tanh(_linear(pooled, self.head_dense, self.dtype)), self.head_out, self.dtype)
+        return self.head(self.embed(waveforms, lengths))
 
 
 @torch.no_grad()

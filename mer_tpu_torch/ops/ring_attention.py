@@ -12,7 +12,8 @@ Two rings:
 - a real one, over a process group (``mesh.sp_group``): each rank holds its
   shards, the rotation is ``torch.distributed.batch_isend_irecv`` (send to
   rank + 1, receive from rank - 1), and its autograd node sends the
-  gradient back the other way (:class:`_Hop`);
+  gradient back the other way (``parallel/hop.py``, which the pipeline
+  shares);
 - a local one (``group=None``): the sp shards on one device, the rotation a
   list index, the counterpart of ``mer_tpu``'s ring on a virtual CPU mesh.
 
@@ -46,6 +47,7 @@ import torch.distributed as dist
 
 from mer_tpu_torch.ops.attention import dot_product_attention
 from mer_tpu_torch.ops.flash_attention import FULLY_MASKED_LSE, NEG_INF, FlashAttention
+from mer_tpu_torch.parallel.hop import Hop, rotate
 
 def _block_update(q, k, v, bias, m_prev, l_prev, acc):
     """One online-softmax update (``mer_tpu``'s ``_block_update``): q [B, H,
@@ -113,55 +115,17 @@ def _body(q):
     return _KernelBody if q.device.type == "cuda" else _PlainBody
 
 
-class _Hop(torch.autograd.Function):
-    """The tensor received from the ring's previous rank, as a function of the
-    one this rank sent on: backward sends the gradient back one hop."""
-
-    @staticmethod
-    def forward(ctx, sent, received, group):
-        ctx.group = group
-        return received.view_as(received)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _rotate([g.contiguous()], ctx.group, back=True).wait()[0], None, None
-
-
-class _Rotation:
-    """Posted sends and receives of one hop; :meth:`wait` returns the received tensors."""
-
-    def __init__(self, requests, buffers):
-        self.requests, self.buffers = requests, buffers
-
-    def wait(self) -> list[torch.Tensor]:
-        for request in self.requests:
-            request.wait()
-        return self.buffers
-
-
-def _rotate(tensors: list[torch.Tensor], group, back: bool = False) -> _Rotation:
-    """Post one hop of ``tensors`` around ``group``'s ring: to rank + 1 and
-    from rank - 1 (``back``: the other way)."""
-    n, r = dist.get_world_size(group), dist.get_rank(group)
-    to, frm = ((r - 1) % n, (r + 1) % n) if back else ((r + 1) % n, (r - 1) % n)
-    to, frm = dist.get_global_rank(group, to), dist.get_global_rank(group, frm)
-    buffers = [torch.empty_like(t) for t in tensors]
-    ops = [dist.P2POp(dist.isend, t, to, group) for t in tensors]
-    ops += [dist.P2POp(dist.irecv, b, frm, group) for b in buffers]
-    return _Rotation(dist.batch_isend_irecv(ops), buffers)
-
-
 def _group_ring(q, k, v, mask, group):
     """This rank's output shard of the ring over ``group``."""
     body, sp = _body(q), dist.get_world_size(group)
     q, k, v, mask = q.contiguous(), k.contiguous(), v.contiguous(), mask.contiguous()
     state = body.init(q)
     for t in range(sp):
-        pending = _rotate([k, v, mask.to(torch.uint8)], group) if t < sp - 1 else None
+        pending = rotate([k, v, mask.to(torch.uint8)], group) if t < sp - 1 else None
         state = body.update(state, q, k, v, mask)
         if pending is not None:
             k_next, v_next, mask_next = pending.wait()
-            k, v, mask = _Hop.apply(k, k_next, group), _Hop.apply(v, v_next, group), mask_next.bool()
+            k, v, mask = Hop.apply(k, k_next, group), Hop.apply(v, v_next, group), mask_next.bool()
     return body.finish(state, q)
 
 

@@ -1,8 +1,9 @@
 """Parallelism over ``torch.distributed`` (counterpart of ``mer_tpu/parallel``):
-the (dp, tp, sp) mesh and its sharding rules (``mesh``), Megatron tensor
-parallelism (``tensor``), data parallelism and ZeRO-1 (``data``). Ring
-attention over the sp axis is ``mer_tpu_torch.ops.ring_attention``. Pipeline
-parallelism (GPipe) is not ported yet."""
+the (dp, tp, sp, pp) mesh and its sharding rules (``mesh``), Megatron tensor
+parallelism (``tensor``), data parallelism and ZeRO-1 (``data``), the
+differentiable ring hop (``hop``), and GPipe over the pp axis (``pipeline``,
+``pp_forward``; imported by name: they need the models). Ring attention over
+the sp axis is ``mer_tpu_torch.ops.ring_attention``."""
 
 from mer_tpu_torch.parallel.mesh import (
     Mesh,

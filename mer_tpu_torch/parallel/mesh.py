@@ -12,11 +12,13 @@ groups and writes the collectives out:
 - ``tp``: Megatron column and row splits of the attention and feed-forward
   linears by :data:`_TP_RULES`, one all-reduce after each row-parallel
   product (``parallel/tensor.py``);
-- ``sp``: ring attention over the sp group (``ops/ring_attention.py``).
+- ``sp``: ring attention over the sp group (``ops/ring_attention.py``);
+- ``pp``: pipeline stages of an encoder's layers (``parallel/pipeline.py``),
+  innermost, as ``mer_tpu``'s (dp, pp) mesh has it.
 
 Ranks are laid out as ``mer_tpu``'s device array (row-major over (dp, tp,
-sp)): rank = (dp_rank * tp + tp_rank) * sp + sp_rank, so a tp or sp group
-is ranks that are neighbours. :func:`initialize_distributed` reads the
+sp, pp)): rank = ((dp_rank * tp + tp_rank) * sp + sp_rank) * pp + pp_rank,
+so a pp, sp or tp group is ranks that are neighbours. :func:`initialize_distributed` reads the
 ``torchrun`` environment (or explicit arguments) and takes NCCL for CUDA and
 gloo for the CPU; each rank's device is ``cuda:LOCAL_RANK``.
 """
@@ -63,23 +65,25 @@ def local_device(device: str = "cuda") -> torch.device:
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
 
 
-def mesh_shape(dp: int = -1, tp: int = 1, sp: int = 1, n: int = 1) -> tuple[int, int, int]:
-    """``mer_tpu``'s sizing rules over ``n`` ranks: dp = -1 takes the rest,
-    and a mesh that needs more ranks than exist raises ``ValueError`` (as
-    does one left without a dp rank: tp x sp above n)."""
-    tp, sp = max(int(tp), 1), max(int(sp), 1)
-    dp = n // (tp * sp) if int(dp) == -1 else int(dp)
-    if dp < 1 or dp * tp * sp > n:
-        raise ValueError(f"mesh {dp}x{tp}x{sp} needs {max(dp, 1) * tp * sp} devices, have {n}")
+def mesh_shape(dp: int = -1, tp: int = 1, sp: int = 1, n: int = 1, pp: int = 1) -> tuple[int, int, int]:
+    """(dp, tp, sp) by ``mer_tpu``'s sizing rules over ``n`` ranks, ``pp``
+    of them a pipeline's stages: dp = -1 takes the rest, and a mesh that
+    needs more ranks than exist raises ``ValueError`` (as does one left
+    without a dp rank: tp x sp x pp above n)."""
+    tp, sp, pp = max(int(tp), 1), max(int(sp), 1), max(int(pp), 1)
+    dp = n // (tp * sp * pp) if int(dp) == -1 else int(dp)
+    if dp < 1 or dp * tp * sp * pp > n:
+        shape = "x".join(map(str, (dp, tp, sp) + ((pp,) if pp > 1 else ())))
+        raise ValueError(f"mesh {shape} needs {max(dp, 1) * tp * sp * pp} devices, have {n}")
     return dp, tp, sp
 
 
 @dataclasses.dataclass
 class Mesh:
-    """This rank's place in a (dp, tp, sp) mesh and its three groups (None
-    for an axis of size 1). ``size`` is dp x tp x sp; ranks past it (a mesh
-    smaller than the world, as ``mer_tpu`` allows) hold no place and raise
-    when they build one."""
+    """This rank's place in a (dp, tp, sp, pp) mesh and its groups (None
+    for an axis of size 1). ``size`` is dp x tp x sp x pp; ranks past it (a
+    mesh smaller than the world, as ``mer_tpu`` allows) hold no place and
+    raise when they build one."""
 
     dp: int = 1
     tp: int = 1
@@ -88,47 +92,56 @@ class Mesh:
     dp_group: Any = None
     tp_group: Any = None
     sp_group: Any = None
+    pp: int = 1
+    pp_group: Any = None
 
     @property
     def size(self) -> int:
-        return self.dp * self.tp * self.sp
+        return self.dp * self.tp * self.sp * self.pp
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // (self.tp * self.sp)
+        return self.rank // (self.tp * self.sp * self.pp)
 
     @property
     def tp_rank(self) -> int:
-        return self.rank // self.sp % self.tp
+        return self.rank // (self.sp * self.pp) % self.tp
 
     @property
     def sp_rank(self) -> int:
-        return self.rank % self.sp
+        return self.rank // self.pp % self.sp
+
+    @property
+    def pp_rank(self) -> int:
+        return self.rank % self.pp
 
 
-def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1) -> Mesh:
-    """The (dp, tp, sp) mesh over the initialized process group (one rank
-    without one). Every rank builds every group, in one order, as
+def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1) -> Mesh:
+    """The (dp, tp, sp, pp) mesh over the initialized process group (one
+    rank without one). Every rank builds every group, in one order, as
     ``torch.distributed.new_group`` requires, and keeps its own."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    dp, tp, sp = mesh_shape(dp, tp, sp, world)
-    mesh = Mesh(dp, tp, sp, rank)
+    pp = max(int(pp), 1)
+    dp, tp, sp = mesh_shape(dp, tp, sp, world, pp)
+    mesh = Mesh(dp, tp, sp, rank, pp=pp)
     if world == 1:
         return mesh
-    place = lambda d, t, s: (d * tp + t) * sp + s
-    axes = {"dp": [[place(d, t, s) for d in range(dp)] for t in range(tp) for s in range(sp)],
-            "tp": [[place(d, t, s) for t in range(tp)] for d in range(dp) for s in range(sp)],
-            "sp": [[place(d, t, s) for s in range(sp)] for d in range(dp) for t in range(tp)]}
-    for axis, groups in axes.items():
-        if len(groups[0]) == 1:
+    sizes = {"dp": dp, "tp": tp, "sp": sp, "pp": pp}
+    coords = [dict(zip(sizes, c)) for c in np.ndindex(dp, tp, sp, pp)]  # row-major: the rank is the index
+    for axis, size in sizes.items():
+        if size == 1:
             continue
-        for ranks in groups:
+        groups: dict[tuple, list[int]] = {}
+        for r, c in enumerate(coords):
+            groups.setdefault(tuple(v for a, v in c.items() if a != axis), []).append(r)
+        for ranks in groups.values():
             group = dist.new_group(ranks)
             if rank in ranks:
                 setattr(mesh, f"{axis}_group", group)
     if rank >= mesh.size:
-        raise ValueError(f"rank {rank} has no place in the {dp}x{tp}x{sp} mesh of a world of {world}")
+        shape = "x".join(map(str, (dp, tp, sp) + ((pp,) if pp > 1 else ())))
+        raise ValueError(f"rank {rank} has no place in the {shape} mesh of a world of {world}")
     return mesh
 
 

@@ -16,14 +16,21 @@ CPU) and runs, on a world of 4:
 2. ring attention over an sp group of 4 (``batch_isend_irecv`` hops) at
    wav2vec2-base width, [2, 12, 4500, 64] with padding that fills a shard,
    f32 and bf16, forward and backward, against the plain full attention on
-   rank 0 (:func:`ring_errors`, the limits of ``chip_smoke.py``'s phase 6m).
+   rank 0 (:func:`ring_errors`, the limits of ``chip_smoke.py``'s phase 6m);
+3. three RoBERTa-base text fine-tune steps (batches of 16 at the 256
+   bucket, f32) pipelined at pp 2 x dp 2 (dropout 0: the dp ranks would draw
+   masks of their own) and at pp 4 (dropout on), 4 microbatches, against
+   the same steps in one process with the same per-(layer, microbatch)
+   seeds (:func:`fe_pp_steps`): the losses within ``F32_TOL``, the weights
+   by :func:`weight_check`; each step's time on rank 0 is printed.
 
 Rank 0 prints one JSON line a check and the card's name and power limit;
 any check that fails raises on every rank (the results are broadcast).
 
 ``chip_smoke.py``'s phase 6m runs the same steps (:func:`fusion_steps`),
 weight rule and ring comparison on one card, two ranks over gloo and a
-local ring; the CPU tests hold the weight rule against planted faults.
+local ring, and its phase 6n :func:`fe_pp_steps` at pp 2 (text and
+wav2vec2, bf16); the CPU tests hold the weight rule against planted faults.
 """
 
 from __future__ import annotations
@@ -33,7 +40,10 @@ import contextlib
 import json
 import subprocess
 import sys
+import time
+import types
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -98,6 +108,81 @@ def fusion_steps(config, mesh: Mesh, device, count=contextlib.nullcontext):
         sum(v.numel() * v.element_size() for st in opt.state.values() for v in st.values() if torch.is_tensor(v))
     weights = full_state_dict(model, mesh) if mesh.size > 1 else model.state_dict()
     return losses, {k: v.float().cpu() for k, v in weights.items()}, nbytes, counted
+
+
+# phase 6n and the four-card pp rows: steps, batch, microbatches of the text and wav2vec2 fine-tune runs
+PP_RUNS = {"text": (3, 16, 4), "wav2vec2": (2, 4, 2)}
+PP_TEXT_WIDTH, PP_W2V_SAMPLES = 256, 48000  # the 256 token bucket; 3 s clips
+
+
+def fe_pp_batches(kind: str) -> list[dict]:
+    """The seeded batches of :func:`fe_pp_steps`: text [16, 256] token ids
+    (64-256 real tokens a row, the hash tokenizer's id range), wav2vec2 [4,
+    48000] int16 waveforms of 1.5-3 s; labels 0-6."""
+    steps, batch, _ = PP_RUNS[kind]
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(steps):
+        label = rng.integers(0, 7, batch).astype(np.int32)
+        if kind == "text":
+            real = rng.integers(64, PP_TEXT_WIDTH + 1, (batch, 1))
+            mask = (np.arange(PP_TEXT_WIDTH)[None, :] < real).astype(np.int32)
+            ids = (rng.integers(3, 50265, (batch, PP_TEXT_WIDTH)) * mask + (1 - mask)).astype(np.int32)
+            ids[:, 0] = 0
+            out.append({"idx": np.arange(batch), "text": ids, "attention_mask": mask, "emotion": label})
+        else:
+            lengths = rng.integers(PP_W2V_SAMPLES // 2, PP_W2V_SAMPLES + 1, batch).astype(np.int32)
+            audio = (rng.normal(size=(batch, PP_W2V_SAMPLES)) * 3000).clip(-32768, 32767).astype(np.int16)
+            audio[np.arange(PP_W2V_SAMPLES)[None, :] >= lengths[:, None]] = 0
+            out.append({"idx": np.arange(batch), "audio": audio, "lengths": lengths, "emotion": label})
+    return out
+
+
+def fe_pp_steps(kind: str, mesh: Mesh, device, dtype: torch.dtype, *, dropout: bool = True,
+                remat: bool | str = False, count=contextlib.nullcontext):
+    """``PP_RUNS[kind]`` fine-tune steps of the base-width TextERC or AudioERC
+    (seeded weights, ``FESolver`` from the fine-tune phase on) with the
+    encoder pipelined over ``mesh`` (in one process at pp 1: the same
+    microbatches and per-(layer, microbatch) dropout seeds): (losses, whole
+    weights on the host, each step's seconds, what ``count()`` yielded
+    around the steps)."""
+    from mer_tpu_torch.core import load_config
+    from mer_tpu_torch.data.text_fe import text_batch_to_inputs
+    from mer_tpu_torch.data.wav2vec2_fe import w2v_batch_to_inputs
+    from mer_tpu_torch.feature_extractors.audio_wav2vec2 import W2V_CONFIG_PATH
+    from mer_tpu_torch.feature_extractors.fe_common import build_pp, pipelined_logits
+    from mer_tpu_torch.feature_extractors.text import TEXT_CONFIG_PATH
+    from mer_tpu_torch.models.roberta import RobertaConfig, text_erc_from_seed
+    from mer_tpu_torch.models.wav2vec2 import Wav2Vec2Config, audio_erc_from_seed
+    from mer_tpu_torch.train.fe_solver import FESolver
+
+    _, _, microbatches = PP_RUNS[kind]
+    rates = {} if dropout else {"hidden_dropout": 0.0, "attention_dropout": 0.0}
+    if kind == "text":
+        model = text_erc_from_seed(0, RobertaConfig(**rates), dtype)
+        path, backbone, to_inputs = TEXT_CONFIG_PATH, "roberta", text_batch_to_inputs
+    else:
+        model = audio_erc_from_seed(0, Wav2Vec2Config(**rates), dtype)
+        path, backbone, to_inputs = W2V_CONFIG_PATH, "wav2vec2", w2v_batch_to_inputs
+    config = load_config(path)
+    warmup = {"solver__finetuning__warmup_epochs": 0} if "frozen" in config.solver else {"solver__warmup_epochs": 0}
+    config = config.override(solver__num_frozen_epochs=0, checkpoint__save_checkpoint=False, **warmup)
+    args = types.SimpleNamespace(pp_microbatches=microbatches, remat=bool(remat),
+                                 remat_policy=remat if isinstance(remat, str) else None)
+    fn = build_pp(args, model, mesh, config) if mesh.pp > 1 else pipelined_logits(model, mesh, microbatches, remat)
+    solver = FESolver(model.to(device), config, batch_to_inputs=to_inputs, backbone_key=backbone, mesh=mesh,
+                      pp_logits_fn=fn)
+    batches = fe_pp_batches(kind)
+    state = solver.init_state(len(batches))
+    losses, seconds = [], []
+    with count() as counted:
+        for b in batches:
+            torch.cuda.synchronize(device) if device.type == "cuda" else None
+            t0 = time.perf_counter()
+            losses.append(solver.train_epoch(state, [b], 0)[1])  # ends in a device-to-host fetch
+            seconds.append(time.perf_counter() - t0)
+    weights = solver._whole_state_dict()
+    return losses, {k: v.float().cpu() for k, v in weights.items()}, seconds, counted
 
 
 def softmax_blind(name: str) -> bool:
@@ -212,6 +297,21 @@ def main(argv=None) -> None:
                               "card": card}), flush=True)
             if not ok:
                 failed.append(f"ring {dtype}")
+    for name, pp, dropout in (("text pp2_dp2", 2, False), ("text pp4", 4, True)):
+        single = fe_pp_steps("text", Mesh(), device, torch.float32, dropout=dropout) if rank == 0 else None
+        losses, weights, seconds, _ = fe_pp_steps("text", make_mesh(dp=4 // pp, pp=pp), device, torch.float32,
+                                                  dropout=dropout)
+        if rank == 0:
+            want_losses, want_weights, one_seconds, _ = single
+            loss_diff = max(abs(a - b) for a, b in zip(losses, want_losses))
+            held = weight_check(weights, want_weights, STRAY_SHARE[torch.float32])
+            ok = loss_diff <= F32_TOL and held["excess"] <= 0
+            print(json.dumps({"check": name, "ok": ok, "dropout": dropout, "losses": losses,
+                              "one_process": want_losses, "loss_diff": loss_diff, "weights": held,
+                              "step_seconds": seconds, "one_process_step_seconds": one_seconds,
+                              "microbatches": PP_RUNS["text"][2], "card": card}), flush=True)
+            if not ok:
+                failed.append(name)
     verdict = [failed]
     dist.broadcast_object_list(verdict, src=0)
     dist.destroy_process_group()

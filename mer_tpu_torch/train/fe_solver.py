@@ -43,9 +43,12 @@ Where this differs from ``mer_tpu`` on purpose:
    is not part of the contract (``utils/rng.py``): the port reseeds both
    generators from (``tpu.seed``, micro-step) before every step, in both
    phases, as the fusion trainer does.
-3. Pipeline parallelism, rematerialisation, ``wandb`` and ``watch_norms``
-   are not ported; the entry points refuse their flags. ``--int8`` selects
-   the int8 engine of the exports alone (training ignores it, as
+3. Under pipeline parallelism (``pp_logits_fn``) every dropout mask is a
+   function of (``tpu.seed``, micro-step, dp rank, global layer,
+   microbatch) (``parallel/pipeline.py``), so it does not depend on pp; it
+   differs from the non-pipelined stream, as ``mer_tpu``'s pp stream differs
+   from its scan. ``wandb`` and ``watch_norms`` are not ported. ``--int8``
+   selects the int8 engine of the exports alone (training ignores it, as
    ``mer_tpu``'s does).
 
 On a mesh (``tpu.mesh``; dp = -1 by default, every rank) each rank takes its
@@ -55,6 +58,14 @@ summed over dp, the backbone is tp-split (``parallel/tensor.py``), both
 AdamW optimizers sum the gradients over dp and, under ``tpu.zero1``
 (``--zero1``), keep each rank's slice of their moments. Evaluation runs every
 batch whole on every rank; rank 0 writes the checkpoints (the whole model).
+
+With ``pp_logits_fn`` (``--pp``; ``parallel/pp_forward.py``) the encoder's
+layers are pipelined over the mesh's pp group: each stage holds its layers
+and their moments alone, the pre-stack's and the head's gradients are
+copied from the stage whose graph gives them to the others
+(``pipeline.sync_replicated_grads``) before the dp sum, evaluation runs
+through the pipeline too, and the checkpoints gather every stage's layers
+first. ``tpu.zero1`` is ignored under pp, as in ``mer_tpu``.
 """
 
 from __future__ import annotations
@@ -71,6 +82,8 @@ from mer_tpu_torch.objectives.classification import cross_entropy, cross_entropy
 from mer_tpu_torch.objectives.metrics import BatchAveragedMetrics
 from mer_tpu_torch.parallel.data import barrier, data_parallel, global_ratio
 from mer_tpu_torch.parallel.mesh import Mesh, dp_row_shard, shard_params
+from mer_tpu_torch.parallel.pipeline import full_stage_state_dict, own_entries, sync_replicated_grads
+from mer_tpu_torch.parallel.pp_forward import replicated_owner, stack_of
 from mer_tpu_torch.parallel.tensor import full_state_dict
 from mer_tpu_torch.train.checkpoint import load_checkpoint, write_checkpoint
 from mer_tpu_torch.train.solver import TrainState, accumulate_and_step, adamw, constant_with_warmup
@@ -101,15 +114,20 @@ class FESolver:
         backbone_key: the submodule that freezes (``"roberta"`` /
             ``"wav2vec2"``); evaluation alone does not need it.
         class_weights: optional [C] class weights of the cross-entropy.
-        mesh: this rank's place in a dp/tp mesh, the model already tp-split
-            on it; None for one process.
+        mesh: this rank's place in a dp/tp (or dp/pp) mesh, the model already
+            tp-split (or stage-split) on it; None for one process.
+        pp_logits_fn: ``(*inputs, seed=None) -> logits`` through the
+            pipeline over ``mesh``'s pp group (``fe_common.build_pp``), or
+            None; ``seed`` is the step's seed words in training.
     """
 
     def __init__(self, model: torch.nn.Module, config, *, batch_to_inputs: Callable[..., tuple],
-                 backbone_key: str | None = None, class_weights=None, mesh: Mesh | None = None):
+                 backbone_key: str | None = None, class_weights=None, mesh: Mesh | None = None,
+                 pp_logits_fn: Callable[..., torch.Tensor] | None = None):
         self.model = model
         self.mesh = mesh or Mesh()
-        self.zero1 = bool(config.get_path("tpu.zero1", False)) and self.mesh.dp > 1
+        self.pp_logits_fn = pp_logits_fn
+        self.zero1 = bool(config.get_path("tpu.zero1", False)) and self.mesh.dp > 1 and pp_logits_fn is None
         self.config = config
         self.batch_to_inputs = batch_to_inputs
         self.backbone_key = backbone_key
@@ -178,9 +196,15 @@ class FESolver:
                 if len(batch["emotion"]) % self.mesh.dp:
                     raise ValueError(f"a batch of {len(batch['emotion'])} does not divide dp={self.mesh.dp}")
                 batch = dp_row_shard(batch, self.mesh.dp, self.mesh.dp_rank)
-            logits = state.model(*self.batch_to_inputs(batch, self.device))
+            inputs = self.batch_to_inputs(batch, self.device)
+            if self.pp_logits_fn is None:
+                logits = state.model(*inputs)
+            else:
+                logits = self.pp_logits_fn(*inputs, seed=(self.seed, state.micro_step, self.mesh.dp_rank))
             loss, global_loss = global_ratio(*self.loss_terms(logits, self._labels(batch)), self.mesh)
             loss.backward()
+            if self.pp_logits_fn is not None:
+                sync_replicated_grads(state.model, self.mesh, replicated_owner(state.model))
             accumulate_and_step(train_state, self.grad_accum, self._schedules[phase])
             state.micro_step += 1
             losses.append(global_loss)
@@ -193,7 +217,8 @@ class FESolver:
         self.model.eval()
         losses, preds, labels = [], [], []
         for batch in batcher:
-            logits = self.model(*self.batch_to_inputs(batch, self.device))
+            inputs = self.batch_to_inputs(batch, self.device)
+            logits = self.model(*inputs) if self.pp_logits_fn is None else self.pp_logits_fn(*inputs)
             losses.append(self.loss_fn(logits, self._labels(batch)))
             preds.append(logits.argmax(-1))
             labels.append(batch["emotion"])
@@ -205,10 +230,20 @@ class FESolver:
             metrics.update(emotion, pred, mask=emotion != -1)
         return total / len(losses), metrics
 
+    def _whole_state_dict(self) -> dict:
+        """The whole model's ``state_dict`` (a collective on a mesh: every
+        stage's layers, every tp part)."""
+        if self.mesh.size == 1:
+            return self.model.state_dict()
+        if self.mesh.pp > 1:
+            layers, prefix = stack_of(self.model)
+            return full_stage_state_dict(self.model, prefix, len(layers), self.mesh)
+        return full_state_dict(self.model, self.mesh)
+
     def _save(self, path: str, epoch: int) -> None:
         """Model parameters only (text/train.py:165-169); on a mesh the whole
         model's, written by rank 0."""
-        state = self.model.state_dict() if self.mesh.size == 1 else full_state_dict(self.model, self.mesh)
+        state = self._whole_state_dict()
         if self.mesh.rank == 0:
             write_checkpoint(path, {"epoch": int(epoch), "model_state_dict": {
                 k: v.detach().to("cpu", copy=True) for k, v in state.items()}})
@@ -257,7 +292,8 @@ class FESolver:
                 barrier(self.mesh)  # rank 0 wrote best_path
                 if restore_best and os.path.exists(best_path):
                     best = load_checkpoint(best_path)
-                    self.model.load_state_dict(shard_params(best["model_state_dict"], self.mesh), strict=True)
+                    self.model.load_state_dict(own_entries(self.model, shard_params(best["model_state_dict"],
+                                                                                    self.mesh)), strict=True)
                     if save_ckpt:
                         self._save(save_path, best["epoch"])
                     barrier(self.mesh)

@@ -28,15 +28,29 @@ of the moments. The ResNet has no tp splits, so tp ranks are replicas. A
 BatchNorm in train mode (``bn_mode: train``) would see the rank's rows alone
 and is refused on a dp mesh. Rank 0 writes the checkpoints.
 
-Not ported, and refused if configured: ``solver.async_mining``. The
-per-epoch visualisation is not ported.
+``solver.async_mining`` (``mer_tpu``'s, off by default): a worker thread mines
+and fetches batch k + 1 while step k runs, with the weights from before step
+k's update, one step staler than the synchronous path. The optimizer writes
+the model's weights in place, so the worker embeds with a snapshot, a second
+extractor in eval mode whose weights are copied before each submit; on the
+card it runs on a stream of its own, and the step waits on an event of that
+stream before it reads the batch. As in ``mer_tpu``'s async path the miner
+returns host indices and the batch is gathered from them, and the miners'
+samplers are the synchronous path's, so both draw the same anchors.
+
+With ``AUDIO.augmentation_factor > 1`` the training split keeps no device
+cache: each triplet batch is decoded and augmented from the wavs
+(``MelFeatureDataset.spectrogram_batch`` with a generator seeded from
+(``seed``, epoch, step)). The per-epoch visualisation is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -63,8 +77,6 @@ class MelSolver:
 
     def __init__(self, model: torch.nn.Module, config, data_train, data_val, seed: int = 0,
                  compute_dtype: torch.dtype = torch.float32, mesh: Mesh | None = None):
-        if config.get_path("solver.async_mining", None):
-            raise NotImplementedError("solver.async_mining is not ported to the PyTorch mel solver; unset it")
         self.mesh = mesh or Mesh()
         if self.mesh.dp > 1 and getattr(model, "bn_mode", "eval") == "train":
             raise NotImplementedError("bn_mode 'train' on a dp mesh: BatchNorm would see a rank's rows alone")
@@ -82,8 +94,12 @@ class MelSolver:
         self.batch_size = int(config.train.data_loader.batch_size)
         self.val_batch_size = int(config.val.data_loader.batch_size)
         self.accum = grad_accum_steps(config.solver)
+        self.async_mining = bool(config.get_path("solver.async_mining", False))
         self._miners: dict[int, TripletMiner] = {}  # one per dataset; their samplers advance across epochs
+        self._snapshot: torch.nn.Module | None = None  # async mining's copy of the weights
+        self._mining_model: torch.nn.Module | None = None  # the snapshot, while an async epoch runs
         self._schedule = None
+        self._epoch = 0  # seeds the epoch's augmentation draws
 
     def _autocast(self):
         if self.compute_dtype == torch.float32:
@@ -91,11 +107,13 @@ class MelSolver:
         return torch.autocast(self.device.type, dtype=self.compute_dtype)
 
     @torch.no_grad()
-    def embed(self, spectrograms: torch.Tensor) -> torch.Tensor:
-        """[n, 3, frames, mels] -> [n, D] f32 embeddings, eval mode."""
-        self.model.eval()
+    def embed(self, spectrograms: torch.Tensor, model: torch.nn.Module | None = None) -> torch.Tensor:
+        """[n, 3, frames, mels] -> [n, D] f32 embeddings, eval mode (by
+        ``model``, the solver's by default)."""
+        model = model or self.model
+        model.eval()
         with self._autocast():
-            return self.model(spectrograms)
+            return model(spectrograms)
 
     # -- setup -------------------------------------------------------------------
 
@@ -114,19 +132,28 @@ class MelSolver:
     def _miner(self, dataset) -> TripletMiner:
         miner = self._miners.get(id(dataset))
         if miner is None:
-            miner = TripletMiner(dataset.get_labels(), lambda idx: self.embed(dataset.spectrogram_batch(idx)),
+            miner = TripletMiner(dataset.get_labels(),
+                                 lambda idx: self.embed(dataset.spectrogram_batch(idx), self._mining_model),
                                  len_triplet_picking=int(self.config.solver.len_triplet_picking),
                                  seed=self.seed + len(self._miners))
             self._miners[id(dataset)] = miner
         return miner
 
-    def _triplet_batch(self, dataset, batch_size: int) -> torch.Tensor:
-        """[3B, 3, frames, mels]: anchors, positives, negatives."""
+    def _augment_generator(self, step: int) -> torch.Generator:
+        """The augmentation draws of training step ``step`` of the epoch: a
+        function of (seed, epoch, step), as ``mer_tpu`` folds its key."""
+        words = np.random.SeedSequence([self.seed + 1, self._epoch, step]).generate_state(1, np.uint64)
+        return torch.Generator().manual_seed(int(words[0]))
+
+    def _triplet_batch(self, dataset, batch_size: int, step: int | None = None) -> torch.Tensor:
+        """[3B, 3, frames, mels]: anchors, positives, negatives; training
+        step ``step`` of the epoch augments where the dataset does."""
         miner = self._miner(dataset)
         if self.mining_type == "hard" and dataset.device_cache is not None:
             return dataset.spectrogram_batch(miner.mine_hard_rows_device(batch_size))
         a, p, n = miner.mine(batch_size, self.mining_type)
-        return dataset.spectrogram_batch(np.concatenate([a, p, n]))
+        generator = None if step is None else self._augment_generator(step)
+        return dataset.spectrogram_batch(np.concatenate([a, p, n]), generator=generator)
 
     def _loss(self, spectrograms: torch.Tensor) -> torch.Tensor:
         """The loss of [3B, ...]; on a dp mesh each rank embeds its rows and
@@ -153,9 +180,57 @@ class MelSolver:
     def train_epoch(self, state: TrainState) -> tuple[TrainState, float]:
         n_steps = len(self.data_train) // self.batch_size
         total = torch.zeros((), device=self.device)
-        for _ in range(n_steps):
-            total += self.train_step(state, self._triplet_batch(self.data_train, self.batch_size))
+        if self.async_mining:
+            for loss in self._train_steps_async(state, n_steps):
+                total += loss
+        else:
+            for step in range(n_steps):
+                total += self.train_step(state, self._triplet_batch(self.data_train, self.batch_size, step))
         return state, total.item() / max(n_steps, 1)
+
+    def _train_steps_async(self, state: TrainState, n_steps: int):
+        """The epoch's steps with batch k + 1 mined and fetched by a worker
+        thread, with the snapshot of the weights from before step k's update,
+        while step k runs; yields each step's loss."""
+        if self._snapshot is None:
+            self._snapshot = copy.deepcopy(self.model).eval()
+        snapshot = self._mining_model = self._snapshot
+        side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+        def produce(step: int, copied):
+            with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+                if side is not None:
+                    side.wait_event(copied)
+                miner = self._miner(self.data_train)
+                a, p, n = miner.mine(self.batch_size, self.mining_type)
+                batch = self.data_train.spectrogram_batch(np.concatenate([a, p, n]),
+                                                          generator=self._augment_generator(step))
+                ready = torch.cuda.Event() if side is not None else None
+                if ready is not None:
+                    ready.record(side)
+                return batch, ready
+
+        def submit(pool, step: int):
+            with torch.no_grad():  # the weights before this step's update, on the main stream
+                for mine, theirs in zip(snapshot.state_dict().values(), self.model.state_dict().values()):
+                    mine.copy_(theirs)
+            copied = None
+            if side is not None:
+                copied = torch.cuda.Event()
+                copied.record()
+            return pool.submit(produce, step, copied)
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            future = submit(pool, 0)
+            for step in range(n_steps):
+                batch, ready = future.result()
+                if ready is not None:
+                    torch.cuda.current_stream(self.device).wait_event(ready)
+                    batch.record_stream(torch.cuda.current_stream(self.device))
+                if step + 1 < n_steps:
+                    future = submit(pool, step + 1)
+                yield self.train_step(state, batch)
+        self._mining_model = None
 
     @torch.no_grad()
     def validate(self) -> float:
@@ -203,6 +278,7 @@ class MelSolver:
 
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
+            self._epoch = epoch
             state, loss_train = self.train_epoch(state)
             loss_val = self.validate()
             dt = time.perf_counter() - t0

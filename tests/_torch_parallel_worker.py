@@ -23,6 +23,16 @@ embeddings) at dp = 2 with ZeRO-1, each from :func:`fe_setup` /
 ranks) and sp = 4 on ``WORKDIR/ring_inputs.npz``; the first ring's rank 0
 writes ``ring_sp<n>.npz``: the output and the gradients of q, k and v,
 gathered whole.
+
+``pipeline`` (4 ranks): from ``WORKDIR/pipe_inputs.npz``, ``pipeline_apply``
+over a stack of four dense layers at pp 4 and at pp 2 x dp 2, M = pp and 2 pp,
+with and without a mask (each rank writes ``pipe_<case>_r<rank>.npz``: its
+dp rows' output, its layers' gradients and, on stage 0, its input's); the
+narrow text and wav2vec2 classifiers' pipelined logits at pp 2 x dp 2
+(``logits_<kind>_r<rank>.npz``); their train-mode logits and gradients with
+dropout on at pp 4 and pp 2 (``dropout_<kind>_pp<n>.npz``); and three
+``FESolver`` text steps at pp 2 x dp 2, with and without ``--remat dots``
+(:func:`pp_fe_setup`; rank 0 writes ``fe_pp2_dp2<_remat>.npz``).
 """
 
 import os
@@ -46,6 +56,7 @@ from mer_tpu_torch.data.prefetch import DevicePrefetcher  # noqa: E402
 from mer_tpu_torch.models import M2FNet  # noqa: E402
 from mer_tpu_torch.ops.ring_attention import ring_attention  # noqa: E402
 from mer_tpu_torch.parallel import full_state_dict, initialize_distributed, make_mesh, tensor_parallel_  # noqa: E402
+from mer_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from mer_tpu_torch.parallel.tensor import gather_tp  # noqa: E402
 from mer_tpu_torch.train import solver as solver_module  # noqa: E402
 from mer_tpu_torch.train.checkpoint import save_checkpoint  # noqa: E402
@@ -195,12 +206,139 @@ def ring(rank, workdir):
         dist.barrier()
 
 
+class Dense(torch.nn.Module):
+    """``tanh(x @ w + b)``, rows where ``mask`` is True passed through."""
+
+    def __init__(self, w, b):
+        super().__init__()
+        self.w, self.b = torch.nn.Parameter(torch.as_tensor(w)), torch.nn.Parameter(torch.as_tensor(b))
+
+    def forward(self, x, mask=None):
+        y = torch.tanh(x @ self.w + self.b)
+        return y if mask is None else torch.where(mask[..., None], x, y)
+
+
+def dense_stack(inputs) -> torch.nn.ModuleList:
+    return torch.nn.ModuleList(Dense(w, b) for w, b in zip(inputs["w"], inputs["b"]))
+
+
+PIPE_CASES = [(pp, dp, m, masked) for pp, dp in ((4, 1), (2, 2)) for m in (pp, 2 * pp) for masked in (False, True)]
+PP_TEXT = dict(TEXT, num_hidden_layers=4, hidden_dropout=0.1, attention_dropout=0.1)
+PP_W2V = dict(conv_dim=(32,) * 7, hidden_size=32, num_hidden_layers=4, num_attention_heads=4, intermediate_size=64,
+              num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+
+
+def pp_models(inputs, dropout: bool = False):
+    """The narrow TextERC and AudioERC on the weights in ``inputs``."""
+    from mer_tpu_torch.models.roberta import TextERC
+    from mer_tpu_torch.models.wav2vec2 import AudioERC, Wav2Vec2Config
+
+    rates = {} if dropout else {"hidden_dropout": 0.0, "attention_dropout": 0.0}
+    text = TextERC(RobertaConfig(**{**PP_TEXT, **rates}))
+    text.load_state_dict({k[5:]: torch.from_numpy(inputs[k]) for k in inputs.files if k.startswith("text.")})
+    audio = AudioERC(Wav2Vec2Config(**{**PP_W2V, **rates}))
+    audio.load_state_dict({k[6:]: torch.from_numpy(inputs[k]) for k in inputs.files if k.startswith("audio.")})
+    return {"text": text, "audio": audio}
+
+
+def pp_logits(kind, model, mesh, inputs, rows=slice(None), **kwargs):
+    from mer_tpu_torch.parallel.pp_forward import audio_erc_logits_pp, text_erc_logits_pp
+
+    if kind == "text":
+        args = torch.from_numpy(inputs["ids"][rows]).long(), torch.from_numpy(inputs["mask"][rows])
+        return text_erc_logits_pp(model, mesh, *args, **kwargs)
+    args = torch.from_numpy(inputs["waves"][rows]), torch.from_numpy(inputs["lengths"][rows])
+    return audio_erc_logits_pp(model, mesh, *args, **kwargs)
+
+
+def dropout_step(kind, mesh, inputs):
+    """Train-mode pipelined logits and synced gradients, dropout on, the
+    step's seed words (0, 7); the whole batch on every rank, M = 4."""
+    from mer_tpu_torch.models import set_attention_generator
+    from mer_tpu_torch.parallel.pipeline import keep_stage_layers_, sync_replicated_grads
+    from mer_tpu_torch.parallel.pp_forward import replicated_owner, stack_of
+    from mer_tpu_torch.utils import seed_dropout
+
+    model = pp_models(inputs, dropout=True)[kind].train()
+    set_attention_generator(model, seed_dropout(0))
+    keep_stage_layers_(stack_of(model)[0], mesh)
+    logits = pp_logits(kind, model, mesh, inputs, seed=(0, 7), microbatches=4)
+    (logits.float() * torch.from_numpy(inputs["logit_g"])).sum().backward()
+    sync_replicated_grads(model, mesh, replicated_owner(model))
+    return logits.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def pp_fe_setup(mesh, remat: str | None = None):
+    """(solver, batches): the text extractor's three steps of :func:`fe_setup`
+    (dropout 0) on 4 layers, pipelined over ``mesh`` (M = 2) when its pp is
+    above 1."""
+    import types
+
+    from mer_tpu_torch.feature_extractors.fe_common import build_pp
+
+    config = load_config(TEXT_CONFIG_PATH).override(solver__num_frozen_epochs=0, solver__warmup_epochs=0,
+                                                    solver__finetuning_lr=1e-4, tpu__zero1=mesh.dp > 1)
+    model = text_erc_from_seed(0, RobertaConfig(**{**PP_TEXT, "hidden_dropout": 0.0, "attention_dropout": 0.0}))
+    args = types.SimpleNamespace(pp_microbatches=2, remat=remat is not None, remat_policy=remat)
+    solver = FESolver(model, config, batch_to_inputs=text_batch_to_inputs, backbone_key="roberta", mesh=mesh,
+                      class_weights=np.array([0.5, 1.0, 2.0, 1.5, 3.0, 0.7, 1.2], np.float32),
+                      pp_logits_fn=build_pp(args, model, mesh, config))
+    return solver, fe_setup(Mesh())[1]
+
+
+def pipeline(rank, workdir):
+    from mer_tpu_torch.parallel.pipeline import keep_stage_layers_, make_pp_mesh, pipeline_apply
+    from mer_tpu_torch.parallel.pp_forward import stack_of
+
+    inputs = np.load(os.path.join(workdir, "pipe_inputs.npz"))
+    for pp, dp, m, masked in PIPE_CASES:
+        mesh = make_pp_mesh(pp, dp)
+        rows = slice(mesh.dp_rank * 8 // dp, (mesh.dp_rank + 1) * 8 // dp)
+        layers = keep_stage_layers_(dense_stack(inputs), mesh)
+        x = torch.from_numpy(inputs["x"][rows]).requires_grad_()
+        extra = torch.from_numpy(inputs["xmask"][rows]) if masked else None
+        out = pipeline_apply(layers, x, lambda layer, h, *e: layer(h, *e), mesh, microbatches=m, extra=extra)
+        (out * torch.from_numpy(inputs["g"][rows])).sum().backward()
+        own = {f"{name}{i}": getattr(layers[i], name).grad.numpy() for i in range(4)
+               if isinstance(layers[i], Dense) for name in ("w", "b")}
+        np.savez(os.path.join(workdir, f"pipe_pp{pp}_m{m}_{masked}_r{rank}.npz"), out=out.detach().numpy(),
+                 dx=x.grad.numpy() if mesh.pp_rank == 0 else np.zeros(0), **own)
+        dist.barrier()
+    mesh = make_pp_mesh(2, 2)
+    rows = slice(mesh.dp_rank * 4, (mesh.dp_rank + 1) * 4)
+    for kind, model in pp_models(inputs).items():
+        keep_stage_layers_(stack_of(model)[0], mesh)
+        with torch.no_grad():
+            logits = pp_logits(kind, model.eval(), mesh, inputs, rows, microbatches=2)
+        np.savez(os.path.join(workdir, f"logits_{kind}_r{rank}.npz"), logits=logits.numpy())
+    for pp in (4, 2):
+        mesh = make_pp_mesh(pp, 4 // pp)
+        for kind in ("text", "audio"):
+            logits, grads = dropout_step(kind, mesh, inputs)
+            layers_prefix = stack_of(pp_models(inputs)[kind])[1]
+            if mesh.dp_rank == 0:
+                np.savez(os.path.join(workdir, f"dropout_{kind}_pp{pp}_r{rank}.npz"), logits=logits.numpy(),
+                         **{f"g.{n}": g.numpy() for n, g in grads.items()
+                            if mesh.pp_rank == 0 or n.startswith(layers_prefix)})
+            dist.barrier()
+    for remat in (None, "dots"):
+        mesh = make_pp_mesh(2, 2)
+        solver, batches = pp_fe_setup(mesh, remat)
+        state = solver.init_state(3)
+        _, loss = solver.train_epoch(state, batches, 0)
+        params = solver._whole_state_dict()
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"fe_pp2_dp2{'_remat' if remat else ''}.npz"), losses=np.array([loss]),
+                     **{f"p.{n}": t.numpy() for n, t in params.items()})
+        dist.barrier()
+
+
 def main():
     job, rank, world, port, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
     torch.set_num_threads(1)
     initialize_distributed(init_method=f"tcp://localhost:{port}", world_size=world, rank=rank, device="cpu")
     try:
-        for part in {"fusion": (fusion, fe_and_mel), "ring": (ring,)}[job]:
+        for part in {"fusion": (fusion, fe_and_mel), "ring": (ring,), "pipeline": (pipeline,)}[job]:
             part(rank, workdir)
     finally:
         dist.destroy_process_group()

@@ -23,7 +23,10 @@ channels) in both packages, holding the same numpy-perturbed weights:
   wires, the int8 engines and the mel branch; ``--int8 --audio mel`` raises.
 """
 
+import fcntl
 import os
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -196,8 +199,35 @@ def test_failed_decoder_build_raises(monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+@pytest.fixture(scope="module")
+def jax_native_loaded():
+    """``mer_tpu``'s decoder, loaded from a complete ``native/libwavio.so``.
+
+    Its first use builds the library with ``make`` into ``native/``, where the
+    linker writes the file in place. Under pytest-xdist every worker imports
+    ``tests/test_native_wavio.py``, whose collection calls ``available()``: a
+    worker that opens the file while another worker's linker is still writing
+    it fails to load it and keeps ``_build_failed`` set for the rest of its
+    life. So clear the flag and load again, under a lock that keeps this
+    file's own workers from building at once, until a complete library loads."""
+    lock = os.path.join(tempfile.gettempdir(), f"mer_tpu_libwavio_{os.getuid()}.lock")
+    deadline = time.monotonic() + 180.0
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            while True:
+                jax_native._build_failed = False
+                if jax_native._load() is not None:
+                    return jax_native
+                if time.monotonic() > deadline:
+                    pytest.fail(f"mer_tpu's native decoder did not load from {jax_native._SO_PATH}")
+                time.sleep(0.5)
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 @pytest.mark.parametrize("width", [16000, 2000])
-def test_decode_wav_batch_bit_equal(wav_files, width):
+def test_decode_wav_batch_bit_equal(wav_files, width, jax_native_loaded):
     _, paths = wav_files
     out, lengths = native_wavio.decode_wav_batch(paths, width, expect_rate=16000)
     want, want_lengths = jax_native.decode_wav_batch(paths, width, expect_rate=16000)
@@ -221,7 +251,7 @@ def test_decode_wav_batch_error_codes(wav_files):
 
 
 @pytest.mark.parametrize("native", [True, False])
-def test_waveform_batch_bit_equal(meld_like_root_with_wavs, monkeypatch, native):
+def test_waveform_batch_bit_equal(meld_like_root_with_wavs, monkeypatch, native, jax_native_loaded):
     root, _ = meld_like_root_with_wavs
     if not native:
         monkeypatch.setenv("MER_TPU_NATIVE", "0")
@@ -237,12 +267,22 @@ def test_waveform_batch_bit_equal(meld_like_root_with_wavs, monkeypatch, native)
 
 
 def test_waveform_batch_rate_mismatch_raises(meld_like_root_with_wavs, tmp_path):
+    """An 8 kHz file: the native decoder rejects it (-3), the store resamples
+    it as ``mer_tpu``'s does (within 1e-6), and a store told not to
+    resample raises."""
     root, _ = meld_like_root_with_wavs
-    ds = Wav2Vec2FeatureDataset("val", data_root=root)
+    ds, ref = Wav2Vec2FeatureDataset("val", data_root=root), JaxW2VDataset("val", data_root=root)
     dia, utt = ds.dia_utt[2]
-    save_wav(tmp_path / f"dia{dia}_utt{utt}.wav", np.zeros(4000, np.float32), 8000)
-    ds.store.audio_dir = str(tmp_path)  # row 2 now reads an 8 kHz file
+    tone = 0.5 * np.sin(2 * np.pi * 440 * np.arange(4000) / 8000)
+    save_wav(tmp_path / f"dia{dia}_utt{utt}.wav", tone.astype(np.float32), 8000)
+    ds.store.audio_dir = ref.store.audio_dir = str(tmp_path)  # row 2 now reads an 8 kHz file
     assert native_wavio.decode_wav_batch([ds.store.path_for(dia, utt)], 16000, 16000)[1][0] == native_wavio.ERR_RATE
+    got, lengths = ds.waveform_batch(np.array([2]), 16000)
+    want, want_lengths = ref.waveform_batch(np.array([2]), 16000)
+    assert lengths.tolist() == want_lengths.tolist() == [8000]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    ds.store.resample_if_needed = False
+    ds.store._load.cache_clear()
     with pytest.raises(ValueError, match="sample rate"):
         ds.waveform_batch(np.array([2]), 16000)
 

@@ -14,7 +14,14 @@
   2.3e-5 on losses near 70); the test split's table after them, exported
   from the wavs, within 1e-3 (observed 3.1e-4: a few pixels part by one
   quantisation step between the frontends); ``fit`` with early stopping,
-  restore and resume; the entry points on the CPU, and without a card.
+  restore and resume; the entry points on the CPU, and without a card;
+- ``solver.async_mining``: three steps mine ``mer_tpu``'s async epoch's
+  indices with losses within 1e-4, and equal to the bit a synchronous loop
+  that mines with the weights one step stale;
+- ``AUDIO.augmentation_factor`` 2: the native batch decode equals
+  ``mer_tpu``'s, the variant-0 rows of an augmented batch equal the clean
+  batch exactly, the others change, and a wav at 8 kHz is resampled as
+  ``mer_tpu``'s store does (within 1e-6).
 """
 
 import importlib.util
@@ -158,9 +165,13 @@ def test_wav_io_and_embedding_pickles_equal_jax(tmp_path):
     want, _ = jax_load_wav(tmp_path / "jax.wav")
     assert sr == 16000
     np.testing.assert_array_equal(got, want)
-    audio_io.save_wav(tmp_path / "dia0_utt0.wav", wave, 8000)
-    with pytest.raises(ValueError, match="does not resample"):
-        audio_io.WaveformStore(str(tmp_path)).get(0, 0)
+    audio_io.save_wav(tmp_path / "dia0_utt0.wav", wave, 8000)  # another rate: resampled as mer_tpu's store does
+    from mer_tpu.data.audio_io import WaveformStore as JaxWaveformStore
+
+    np.testing.assert_allclose(audio_io.WaveformStore(str(tmp_path)).get(0, 0),
+                               JaxWaveformStore(str(tmp_path)).get(0, 0), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="sample rate"):
+        audio_io.WaveformStore(str(tmp_path), resample_if_needed=False).get(0, 0)
 
     table = np.random.default_rng(1).normal(size=(7, 300)).astype(np.float32)
     save_embeddings(tmp_path / "emb" / "test.pkl", table)
@@ -334,9 +345,121 @@ def test_entry_without_a_card_raises(mel, monkeypatch, entry):
 
 
 def test_unported_options_raise(mel):
+    """Nothing of the mel path is refused any more: an augmenting train split
+    builds (without a device cache) and the solver takes async mining; an
+    unknown mining type still raises."""
     path = _write_mel_config(str(mel["tmp"] / "unported.yaml"), AUDIO__augmentation_factor=3)
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        MelFeatureDataset("train", load_config(path), data_root=mel["root"], device=CPU)
+    train = MelFeatureDataset("train", load_config(path), data_root=mel["root"], device=CPU)
+    train.build_device_cache()
+    assert train.augments and train.device_cache is None
     config, _ = _port_solver(mel, _write_mel_config(str(mel["tmp"] / "async.yaml")))
-    with pytest.raises(NotImplementedError, match="async_mining"):
-        MelSolver(AudioMelFeatureExtractor(), config.override(solver__async_mining=True), None, None)
+    assert MelSolver(AudioMelFeatureExtractor(), config.override(solver__async_mining=True), None, None).async_mining
+    with pytest.raises(ValueError, match="mining_type"):
+        triplet.TripletMiner(np.arange(8) % 2, lambda idx: None).mine(2, "closest")
+
+
+def test_async_mining_matches_jax_async_epoch(mel):
+    """solver.async_mining: three steps of the port's worker-thread epoch
+    against ``mer_tpu``'s ``_train_epoch_async`` from the same weights,
+    caches and sampler seed: the same mined indices (batch k + 1 mined with
+    the weights from before step k's update), losses within 1e-4 (the sync
+    test's limit: the frontends' caches are shared, the ResNets' f32 sums
+    part by rounding)."""
+    path = _write_mel_config(str(mel["tmp"] / "async_steps.yaml"), solver__async_mining=True)
+    jcfg = jax_load_config(path)
+    jsolver = JaxMelSolver(JaxExtractor(), jcfg, mel["jtrain"], mel["jval"], seed=0)
+    jstate = jsolver.init_state()
+    mined = {"jax": [], "port": []}
+
+    def recording(miner, key):
+        mine = miner.mine
+
+        def wrapped(*args, **kwargs):
+            out = mine(*args, **kwargs)
+            mined[key].append(np.concatenate([np.asarray(x) for x in out]))
+            return out
+
+        miner.mine = wrapped
+        return miner
+
+    recording(jsolver._miner(mel["jtrain"], jstate.params), "jax")
+    jlosses = []
+    step = jsolver._train_step
+    jsolver._train_step = lambda st, spec: (lambda out: (jlosses.append(float(out[1])), out)[1])(step(st, spec))
+    jsolver._train_epoch_async(jstate, 0, jax.random.PRNGKey(1), 3)
+
+    _, solver = _port_solver(mel, path)
+    for port_ds, jax_ds in ((solver.data_train, mel["jtrain"]), (solver.data_val, mel["jval"])):
+        port_ds.device_cache = torch.from_numpy(np.array(jax_ds._device_cache))
+    state = solver.init_state()
+    recording(solver._miner(solver.data_train), "port")
+    before = {k: v.clone() for k, v in solver.model.state_dict().items()}
+    losses = [loss.item() for loss in solver._train_steps_async(state, 3)]
+    assert len(mined["port"]) == len(mined["jax"]) == 3
+    for got, want in zip(mined["port"], mined["jax"]):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(losses, jlosses, rtol=0, atol=1e-4)
+    assert state.step == 3 and solver._mining_model is None
+    assert any(not torch.equal(before[k], v) for k, v in solver.model.state_dict().items())
+
+
+def test_async_mining_equals_sync_with_stale_weights(mel):
+    """The port's async epoch equals a synchronous loop that mines batch k
+    with the weights from before step k - 1's update (batch 0 and 1 with
+    the starting weights): the same indices, losses to the bit."""
+    path = _write_mel_config(str(mel["tmp"] / "async_sync.yaml"), solver__async_mining=True)
+    results = []
+    torch.set_num_threads(1)  # the bit-for-bit comparison: no product's sums split between threads
+    for asynchronous in (True, False):
+        _, solver = _port_solver(mel, path)
+        for port_ds, jax_ds in ((solver.data_train, mel["jtrain"]), (solver.data_val, mel["jval"])):
+            port_ds.device_cache = torch.from_numpy(np.array(jax_ds._device_cache))
+        state = solver.init_state()
+        if asynchronous:
+            losses = [loss.item() for loss in solver._train_steps_async(state, 3)]
+        else:
+            stale = __import__("copy").deepcopy(solver.model)
+            solver._mining_model, losses = stale, []
+            for step in range(3):
+                a, p, n = solver._miner(solver.data_train).mine(BATCH, "hard")
+                batch = solver.data_train.spectrogram_batch(np.concatenate([a, p, n]))
+                stale.load_state_dict(solver.model.state_dict())  # the weights before this step's update
+                losses.append(solver.train_step(state, batch).item())
+        results.append((losses, {k: v.clone() for k, v in solver.model.state_dict().items()}))
+    assert results[0][0] == results[1][0]
+    for name, value in results[1][1].items():
+        torch.testing.assert_close(results[0][1][name], value, rtol=0, atol=0)
+
+
+def test_augmented_batches_keep_clean_rows_and_match_jax_where_clean(mel):
+    """AUDIO.augmentation_factor 2 on the train split: no device cache; the
+    native batch decode equals ``mer_tpu``'s (bit for bit); a batch asked
+    for with a generator keeps its variant-0 rows exactly as the clean batch
+    (itself within one quantisation step of ``mer_tpu``'s), changes the
+    others, and repeats under the same seed; augmented lengths stay in the
+    buffer and within the stretch range."""
+    path = _write_mel_config(str(mel["tmp"] / "augment.yaml"), AUDIO__augmentation_factor=2)
+    config = load_config(path)
+    port = MelFeatureDataset("train", config, data_root=mel["root"], device=CPU)
+    jport = JaxMelFeatureDataset("train", jax_load_config(path), data_root=mel["root"])
+    idx = np.arange(len(port))
+    waves, lengths = port.waveform_batch(idx)
+    jwaves, jlengths = jport.waveform_batch(idx)
+    np.testing.assert_array_equal(waves, jwaves)
+    np.testing.assert_array_equal(lengths, jlengths)
+    clean = port.spectrogram_batch(idx)
+    np.testing.assert_allclose(clean.numpy(), np.asarray(jport._spectrogram_from_waveforms(idx)).transpose(0, 3, 1, 2),
+                               rtol=0, atol=STEP)
+    got = port.spectrogram_batch(idx, generator=torch.Generator().manual_seed(5))
+    again = port.spectrogram_batch(idx, generator=torch.Generator().manual_seed(5))
+    torch.testing.assert_close(got, again, rtol=0, atol=0)
+    audio = torch.from_numpy(np.clip(waves * 32768.0, -32768, 32767).astype(np.int16)).float()
+    _, new_lengths, variant = port.augment(audio, torch.from_numpy(lengths), torch.Generator().manual_seed(5))
+    clean_rows, aug_rows = (variant == 0).nonzero()[:, 0], (variant > 0).nonzero()[:, 0]
+    assert len(clean_rows) and len(aug_rows)
+    torch.testing.assert_close(got[clean_rows], clean[clean_rows], rtol=0, atol=0)
+    assert all(not torch.equal(got[r], clean[r]) for r in aug_rows)
+    new = new_lengths.numpy()
+    assert (new <= port.mel_cfg.max_samples).all() and (new[clean_rows.numpy()] == lengths[clean_rows.numpy()]).all()
+    assert (new >= np.floor(lengths / 1.25) - 1).all()
+    assert (new <= np.minimum(lengths / 0.8, port.mel_cfg.max_samples)).all()

@@ -12,8 +12,9 @@ same numpy-perturbed weights:
 - the exported test table is within 1e-4 of ``mer_tpu``'s per-batch export;
 - ``FESolver.test`` gives ``mer_tpu``'s loss within 1e-4 and its metrics;
 - both entry points run with ``--device cpu`` from a checkpoint, the export
-  also from a ``--pretrained`` backbone file; without a card, without weights,
-  and with an unported flag they raise.
+  also from a ``--pretrained`` backbone file; without a card and without
+  weights they raise; ``--pp`` in one process raises ``mer_tpu``'s sizing
+  error and ``--remat`` takes the known policies alone.
 """
 
 import importlib.util
@@ -244,9 +245,18 @@ def test_entry_without_a_card_raises(fe, monkeypatch, entry):
 
 
 @pytest.mark.parametrize("flag", [["--pp", "2"], ["--remat"]])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        fe_common.parse_args(["--random-init", *flag])
+def test_unported_flags_raise(fe, flag):
+    """The flags are ported: ``--pp 2`` in one process raises ``mer_tpu``'s
+    sizing error, ``--remat`` takes a known policy and refuses another."""
+    args = fe_common.parse_args(["--random-init", "--device", "cpu", *flag])
+    if flag[0] == "--pp":
+        with pytest.raises(ValueError, match="--pp 2 does not divide the 1 available devices"):
+            fe_common.parallel_setup(args, load_config(fe["config"]))
+    else:
+        assert fe_common.remat_value(args) is True
+        assert fe_common.remat_value(fe_common.parse_args([*flag, "--remat-policy", "dots"])) == "dots"
+        with pytest.raises(SystemExit):
+            fe_common.parse_args([*flag, "--remat-policy", "everything"])
 
 
 def test_resolve_compute_dtype(fe):
