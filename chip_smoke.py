@@ -46,8 +46,9 @@ that two runs see the same tokens:
 3b. K3 at Sk = 4,097, 8,192, 16,384 and K4 at 2,049, 4,499, 8,192 ([2, 1, S,
    S, 64] and [2, 1, S, S, 50]), f32 and bf16, with a key mask, with a fully
    masked batch element and with dropout 0.1, against their plain versions
-   (K4 in bf16 at Dh 64 is its Hopper design, at Dh 50 and in f32 the older
-   one), every other batch element attending to most of its keys; the seams K1 |
+   (K4 at Dh 64 is its Hopper design, in bf16 and in 3xTF32 in f32, at Dh 50
+   the older one: every K4 check also holds the design its C entry took),
+   every other batch element attending to most of its keys; the seams K1 |
    K3 and K2 | K4 at the dispatch's thresholds (``STREAM_THRESHOLD``,
    ``BWD_FUSED_MAX`` keys) on the same inputs ([2, 2, S, S, 64]); the bf16
    limits shown to fail a K1, K2, K3 and K4 that read the wrong key tiles;
@@ -56,7 +57,9 @@ that two runs see the same tokens:
    64-key windows of v: K3's Hopper design in bf16, the 3xTF32 forward of
    both in f32); K3 also the same bits from two calls at every case; the
    kernels SDPA's f32 forward runs at [32, 12, 499, 499, 64] (the
-   profiler's names: the f32 yardstick of K1 and K3);
+   profiler's names: the f32 yardstick of K1 and K3); K4's f32 launch split
+   into its prep, dq and dk/dv kernels' device time (late in the run a CUDA
+   profile has recorded no device activity on the H100, so both run here);
 4. offline evaluation: ``mer_tpu_torch.test.main`` on the synthetic MELD test
    split (280 dialogues, batch 32), with and without ``--serving-batch 512``;
    17 attention launches per forward; f32 logits through the kernel against
@@ -201,15 +204,17 @@ that two runs see the same tokens:
    within 1e-5 of each frame's largest band in the linear domain, exactly
    log(eps) (rounded once from float64) on silence, the same bits from two
    calls;
-8. K6 in f32 against cuDNN's f32 chain, K3 against SDPA, and K1 and K3 in
-   f32 at head dim 64 against SDPA's f32 at every phase-3 shape; per
+8. K6 in f32 against cuDNN's f32 chain, K3 against SDPA, and K1, K3 and K4
+   in f32 at head dim 64 against SDPA's f32 at every phase-3 shape; per
    main-path shape of each kernel its launches, time, bound, plain and
    library time, then one ``{"kernels": [...]}`` line, whose times and bound
    are per launch, averaged over the main paths' launches at their own shapes
-   (K6, K1 and K3 an entry per dtype, ``w2v_conv_tail``,
-   ``flash_attention_fwd`` and ``flash_attention_stream`` bf16 and the same
-   names with ``_f32``, whose bounds count three TF32 products per f32
-   product at the TF32 peak: K6 and, at head dim 64, K1 and K3; K5's bound from the function's least work, a
+   (K6, K1, K3 and K4 an entry per dtype, ``w2v_conv_tail``,
+   ``flash_attention_fwd``, ``flash_attention_stream`` and
+   ``flash_attention_tiled_bwd`` bf16 and the same names with ``_f32``, whose
+   bounds count three TF32 products per f32 product at the TF32 peak
+   (``utils/profiling.py``'s ``PEAK_TF32X3``): K6 and, at head dim 64, K1, K3
+   and K4; K5's bound from the function's least work, a
    real FFT and the mel product over the filterbank's nonzeros; P's averaged
    over its six probes, each probe's row beside it); then the device line
    last.
@@ -263,13 +268,13 @@ from unittest import mock
 import numpy as np
 import torch
 
+START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
-# K6 in f32, and K1 and K3 in f32 at head dim 64, run three TF32 products per f32 product on the tensor cores
-# (3xTF32): their bounds count them at the 495 TFLOP/s of TF32, i.e. the f32 FLOPs at a third of that (the f32
-# attention template's other head dims keep PEAK_FLOPS' CUDA-core rate)
-TF32X3_FLOPS = 495e12 / 3
+sys.path.insert(0, REPO)
+# the card's data-sheet peaks (dense bf16 tensor, f32 CUDA-core, HBM). K6 in f32, and K1, K3 and K4 in f32 at head
+# dim 64, run three TF32 products per f32 product on the tensor cores (3xTF32): their bounds count the f32 FLOPs at
+# PEAK_TF32X3, a third of TF32's rate (the f32 attention templates' other head dims keep PEAK_FLOPS' CUDA-core rate)
+from mer_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, PEAK_TF32X3  # noqa: E402
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DTYPE_NAMES = {0: "float32", 1: "bfloat16"}  # the kernels' dtype codes
 DTYPE_LABELS = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -380,7 +385,8 @@ PATH_SHAPES: collections.Counter = collections.Counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log after the seconds since the script started: the phases' timeline."""
+    print(f"[{time.perf_counter() - START:.1f} s] {msg}", flush=True)
 
 
 def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
@@ -462,13 +468,12 @@ def attention_errors(names, got, want, dtype: str, sums: torch.Tensor | None = N
     ``parallel_check.sum_bound``) + one ulp of the larger value; in bf16 also
     ``ATTENTION_BF16_REL`` of the plain version's largest |value| on out, dq,
     dk and dv."""
-    from mer_tpu_torch.scripts.parallel_check import bf16_ulp
+    from mer_tpu_torch.scripts.parallel_check import bf16_out_excess
 
     errs = {}
     for name, a, b in zip(names, got, want):
         if name == "out" and dtype == "bfloat16":
-            a32, b32 = a.float(), b.float()
-            errs[name] = ((a32 - b32).abs() - sums - bf16_ulp(torch.maximum(a32.abs(), b32.abs()))).max().item()
+            errs[name] = bf16_out_excess(a, b, sums)
         else:
             errs[name] = excess(a, b, ({"out": "fwd", "lse": "lse"}.get(name, "bwd"), dtype))
         if dtype == "bfloat16" and name != "lse":
@@ -487,16 +492,18 @@ def attention_bound(kernel: str, shape, dtype) -> tuple[float, float]:
     the dense peak of the dtype; the bound is the larger. A forward (K1, K3)
     reads q, k, v, mask and writes out, lse (2 products); a backward (K2, K4)
     reads q, k, v, out, g, lse, mask and writes dq, dk, dv (5 products).
-    A forward in f32 at head dim 64 (the 3xTF32 design) counts its products
-    at ``TF32X3_FLOPS``. Dropout's Philox integer work is not counted."""
+    K1, K3 and K4 in f32 at head dim 64 (the 3xTF32 designs) count their
+    products at ``PEAK_TF32X3``; K2 and the other f32 head dims (the
+    templates) at the CUDA-core rate. Dropout's Philox integer work is not
+    counted."""
     b, h, sq, sk, dh = shape
     esize = torch.tensor([], dtype=dtype).element_size()
     forward = kernel in ATTENTION_FWD
     rows_q, rows_k = (2, 2) if forward else (4, 4)  # q, out (+ g, dq); k, v (+ dk, dv)
     nbytes = (rows_q * b * h * sq * dh + rows_k * b * h * sk * dh) * esize + b * h * sq * 4 + b * sk
     flops = (4 if forward else 10) * b * h * sq * sk * dh
-    rate = TF32X3_FLOPS if forward and dtype == torch.float32 and dh == 64 else PEAK_FLOPS[dtype]
-    return nbytes / HBM_BYTES_PER_S * 1e6, flops / rate * 1e6
+    tf32 = (forward or kernel == TILED) and dtype == torch.float32 and dh == 64
+    return nbytes / HBM_BYTES_PER_S * 1e6, flops / (PEAK_TF32X3 if tf32 else PEAK_FLOPS[dtype]) * 1e6
 
 
 def sdpa_forward(q, k, v, mask, rate):
@@ -577,8 +584,14 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
         plain = lambda: plain_fn(q, k, v, mask, seed, rate)
         library = (lambda: time_device(lambda: sdpa_forward(q, k, v, mask, rate)))
     else:
+        routes = dict(fa.flash_attention_tiled_backward.routes)
         grads = call_fn(q, k, v, mask, out, lse, g, seed, rate)
         torch.cuda.synchronize()
+        if kernel == TILED:  # the design K4's C entry took: its Hopper designs at head dim 64, else the template
+            route = ("wgmma_tf32" if dtype == "float32" else "wgmma_bf16") if shape[4] == 64 else "template"
+            if fa.flash_attention_tiled_backward.routes != {**routes, route: routes[route] + 1}:
+                raise AssertionError(f"K4 at {shape} {dtype}: expected its {route} route, took "
+                                     f"{fa.flash_attention_tiled_backward.routes} after {routes}")
         ref = plain_fn(q, k, v, mask, out, lse, g, seed, rate)
         errs = attention_errors(("dq", "dk", "dv"), grads, ref, dtype)
         max_abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref))
@@ -1378,7 +1391,7 @@ def w2v_bound(kernel: str, shape, dtype) -> tuple[float, float]:
     frame, and 8 per value for the statistics, the affine and the GELU (the
     erf as one). K6 (clips, T0): [B, T0, 512] and the 16 x 512 x 512 weights
     in, [B, T6, 512] out; 2 x k x 512 x 512 per frame of each layer, in f32 at
-    ``TF32X3_FLOPS`` (three TF32 products each at the TF32 peak). K8 (clips,
+    ``PEAK_TF32X3`` (three TF32 products each at the TF32 peak). K8 (clips,
     rows, valid rows): [B, T, 512] in and out, gamma and beta in; no product:
     3 operations per valid value for the statistics and 8 per value for the
     affine and the GELU (the erf as one), at the f32 non-tensor peak whatever
@@ -1402,7 +1415,7 @@ def w2v_bound(kernel: str, shape, dtype) -> tuple[float, float]:
         nbytes = (b * t0 * c + sum(wc.TAIL_TAPS) * c * c + b * lengths[-1] * c) * esize
         flops = 2 * c * c * b * sum(k * t for k, t in zip(wc.TAIL_TAPS, lengths))
         if dtype == torch.float32:
-            return nbytes / HBM_BYTES_PER_S * 1e6, flops / TF32X3_FLOPS * 1e6
+            return nbytes / HBM_BYTES_PER_S * 1e6, flops / PEAK_TF32X3 * 1e6
     return nbytes / HBM_BYTES_PER_S * 1e6, flops / PEAK_FLOPS[dtype] * 1e6
 
 
@@ -2897,6 +2910,31 @@ def log_sdpa_f32_kernels(card: str) -> None:
            or "no device activity recorded (not measured)") + f" ({card})")
 
 
+def log_k4_f32_breakdown(fa, card: str, calls: int = 5) -> None:
+    """Device us of each of the three launches of K4's 3xTF32 design (prep, dq, dk/dv), averaged over ``calls``
+    calls after a warm one (a CUDA-only profile), at the remat f32 text step's [16, 12, 256, 256, 64] and the 90 s
+    clips' [2, 12, 4499, 4499, 64], dropout 0 and 0.1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for shape in ((16, 12, 256, 256, 64), (2, 12, 4499, 4499, 64)):
+        for rate in (0.0, LONG_DROPOUT):
+            q, k, v, g, mask = attention_inputs(shape, torch.float32, seed=7, clips=True)
+            seed = dropout_seed(7, rate)
+            out, lse = fa.flash_attention_stream(q, k, v, mask, seed, rate)
+            call = lambda: fa.flash_attention_tiled_backward(q, k, v, mask, out, lse, g, seed, rate)
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    call()
+                torch.cuda.synchronize()
+            us = {e.key: e.device_time_total / calls for e in prof.key_averages() if "mer_k4_tf32" in e.key}
+            part = lambda name: sum(t for n, t in us.items() if name in n)
+            log(f"K4 f32 at {list(shape)} dropout {rate}, device us a launch: " + (
+                f"prep {part('prep_kernel')}, dq {part('dq_kernel')}, dk/dv {part('dkv_kernel')}" if us
+                else "no device activity recorded (not measured)") + f" (torch.profiler, {calls} calls; {card})")
+
+
 def attention_bench_phase(card: str) -> None:
     """Phase 6j: the attention bench entry point at all its shapes, f32 and
     bf16, and its crossover rows (K1 | K3, K2 | K4 on either side of the
@@ -2973,7 +3011,6 @@ def main() -> None:
         os.execve(sys.executable, [sys.executable, *sys.argv], {**os.environ, "PYTHONHASHSEED": "0"})
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs one NVIDIA card")
-    sys.path.insert(0, REPO)
     from mer_tpu_torch import serve as serve_entry
     from mer_tpu_torch.core import CONFIG_PATH, load_config
     from mer_tpu_torch.data import write_synthetic_meld
@@ -2986,7 +3023,7 @@ def main() -> None:
     # 1. device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(card)
+    print(card, flush=True)  # as nvidia-smi gives it
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} CUDA {torch.version.cuda}; "
@@ -3028,6 +3065,7 @@ def main() -> None:
     rows += long_kernel_checks(fa, len(rows))
     log(f"phase 3b (K3, K4 against their plain versions) in {time.perf_counter() - t0:.1f} s")
     log_sdpa_f32_kernels(card)
+    log_k4_f32_breakdown(fa, card)
 
     # 4. offline evaluation, 5. online serving, 6. training: counts start at 0 for each path
     launches = {**ZERO, FWD: offline_phase(fa, card)}
@@ -3117,7 +3155,8 @@ def main() -> None:
     for what, kernel, dtype in (("K6 f32 (3xTF32) against cuDNN's f32 chain, TF32 off", W2V_TAIL, "float32"),
                                 ("K3 against SDPA", STREAM, "bfloat16"),
                                 ("K1 f32 (3xTF32) against SDPA's f32", FWD, "float32"),
-                                ("K3 f32 (3xTF32) against SDPA's f32", STREAM, "float32")):
+                                ("K3 f32 (3xTF32) against SDPA's f32", STREAM, "float32"),
+                                ("K4 f32 (3xTF32) against SDPA's f32 backward", TILED, "float32")):
         log(f"{what}, per phase-3 shape (launches: the counted paths'; ms a call, graph replay; {card}):")
         # the attention f32 rows: head dim 64 alone (the 3xTF32 design; other head dims run the template)
         for case in sorted(c for c in by_case if c[0] == kernel and c[2] == dtype
@@ -3127,10 +3166,10 @@ def main() -> None:
                 f"library {r['library_ms']} ms, kernel / library {r['kernel_ms'] / r['library_ms']}, bound "
                 f"{r['bound_us'] / 1e3} ms ({r['bound_by']}), share of bound {r['bound_us'] / 1e3 / r['kernel_ms']}")
     kernels = []
-    # K6's, K1's and K3's two dtypes are two routes each (bf16 wgmma or mma.sync, f32 3xTF32 or the f32 template):
-    # an entry each, together the kernel's launches
+    # K6's, K1's, K3's and K4's two dtypes are two routes each (bf16 wgmma or mma.sync, f32 3xTF32 or the f32
+    # template): an entry each, together the kernel's launches
     entries = [entry for name in KERNELS for entry in (
-        [(name, name, "bfloat16"), (name + "_f32", name, "float32")] if name in (W2V_TAIL, FWD, STREAM)
+        [(name, name, "bfloat16"), (name + "_f32", name, "float32")] if name in (W2V_TAIL, FWD, STREAM, TILED)
         else [(name, name, None)])]
     for entry, name, only in entries:
         if name == PROBE:

@@ -180,14 +180,6 @@ constexpr int kThreads = 128 + 32;                        // one consumer warpgr
 constexpr uint32_t kBoxBytes = kTile * 32 * sizeof(float);  // 64 rows of one 128-byte row: 8 KB
 constexpr int kPrepThreads = 256;
 
-__device__ __forceinline__ float4 tf32_hi(float4 x) {
-  return make_float4(__uint_as_float(tf32_rna(x.x)), __uint_as_float(tf32_rna(x.y)), __uint_as_float(tf32_rna(x.z)),
-                     __uint_as_float(tf32_rna(x.w)));
-}
-__device__ __forceinline__ float4 tf32_lo(float4 x, float4 hi) {
-  return tf32_hi(make_float4(x.x - hi.x, x.y - hi.y, x.z - hi.z, x.w - hi.w));
-}
-
 struct SmemTF32 {  // 1024-byte aligned; every box at a multiple of 1024 bytes
   float q_hi[2][kTile * 32];   // q's column halves: TMA writes q here, the consumers split it in place
   float q_lo[2][kTile * 32];
@@ -241,10 +233,6 @@ __global__ void __launch_bounds__(kPrepThreads) prep_tf32_kernel(const float* __
   if (bh % p.H == 0 && tid < kTile)
     p.bias[(size_t)(bh / p.H) * p.sk_pad + key0 + tid] = key_bias(p, bh / p.H, key0 + tid);
 }
-
-// descriptor offset of k-step kk (8 values) in a pair of 128-byte-wide boxes: box kk >> 2 (8 KB on, 512 in 16-byte
-// units), 32 bytes (2) a step inside it
-__device__ __forceinline__ uint64_t kstep(int kk) { return static_cast<uint64_t>(512 * (kk >> 2) + 2 * (kk & 3)); }
 
 // 2. out and lse of 64 query rows of one slice; two blocks an SM
 template <typename Tag, bool kDrop>
@@ -333,14 +321,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // P o D as A fragments: k-step j's column t is key 8 j + 2 t (sc[4 j + 2 h]), column t + 4 key 8 j + 2 t + 1
     // (sc[4 j + 2 h + 1]), rows g (h = 0) and g + 8 (h = 1); V^T's groups hold the keys in that order
     uint32_t p_hi[8][4], p_lo[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float x = sc[4 * j + 2 * (r & 1) + (r >> 1)];
-        p_hi[j][r] = tf32_rna(x);
-        p_lo[j][r] = tf32_rna(x - __uint_as_float(p_hi[j][r]));
-      }
+    split_fragments(sc, p_hi, p_lo);
     mbar_wait(&sm.v_full, phase);
     wgmma_fence();
 #pragma unroll

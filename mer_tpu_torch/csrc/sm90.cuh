@@ -2,7 +2,8 @@
 // programmatic dependent launch, TMA loads, the async-proxy fence, the wgmma
 // shared-memory descriptor, the bf16 m64nNk16 wgmma products (N = 64, 128),
 // the tf32 m64n64k8 ones (A from shared memory or registers) and m64n128k8
-// one (A from registers), the f32 -> tf32 rounding, and host helpers that
+// one (A from registers), the f32 -> tf32 rounding and 3xTF32's splits, and
+// host helpers that
 // encode TMA descriptors through the driver entry point (so nothing links
 // against libcuda).
 //
@@ -117,6 +118,33 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
 }
+
+// 3xTF32's halves of four values: hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ float4 tf32_hi(float4 x) {
+  return make_float4(__uint_as_float(tf32_rna(x.x)), __uint_as_float(tf32_rna(x.y)), __uint_as_float(tf32_rna(x.z)),
+                     __uint_as_float(tf32_rna(x.w)));
+}
+__device__ __forceinline__ float4 tf32_lo(float4 x, float4 hi) {
+  return tf32_hi(make_float4(x.x - hi.x, x.y - hi.y, x.z - hi.z, x.w - hi.w));
+}
+
+// A 64 x 64 f32 accumulator (the layout of wgmma_tf32_ss's d) as the A operand of eight tf32 k-steps, split into
+// TF32 halves: k-step j's a[r] is column 8 j + 2 t + (r >> 1) of row g + 8 (r & 1), so the B operand's k-step j
+// must hold those columns at positions t + 4 (r >> 1) of its group of 8 (columns permuted 0, 2, 4, 6, 1, 3, 5, 7)
+__device__ __forceinline__ void split_fragments(const float (&d)[32], uint32_t (&hi)[8][4], uint32_t (&lo)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = d[4 * j + 2 * (r & 1) + (r >> 1)];
+      hi[j][r] = tf32_rna(x);
+      lo[j][r] = tf32_rna(x - __uint_as_float(hi[j][r]));
+    }
+}
+
+// descriptor offset of tf32 k-step kk (8 values) of a 64-wide reduction held as two 128-byte-wide boxes of 64 rows
+// (8 KB each, the second right after the first): box kk >> 2 (512 in 16-byte units), 32 bytes (2) a step inside it
+__device__ __forceinline__ uint64_t kstep(int kk) { return static_cast<uint64_t>(512 * (kk >> 2) + 2 * (kk & 3)); }
 
 #define MER_WGMMA_D32                                                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \

@@ -21,8 +21,10 @@ wav2vec2 and RoBERTa heads) K1 and K3 launch one Hopper forward
 (``csrc/flash_attention_hopper.cuh``): a prep pass splits K and V^T into TF32
 halves, then both products run as three TF32 ``wgmma`` passes (3xTF32), bound
 by three TF32 products per f32 product at 495 TFLOP/s (0.148 ms at the f32
-export's [32, 12, 499, 499, 64]); other f32 head dims stay on the template.
-All draw dropout with the Philox generator ``csrc/philox.cuh``; K1 and K2 take
+export's [32, 12, 499, 499, 64]); K4 in f32 at head dim 64 runs its bf16
+design's three launches in 3xTF32 (a prep pass writes the TF32 halves of q,
+g, K, V and of the transposes q^T, g^T, K^T). Other f32 head dims stay on
+the templates. All draw dropout with the Philox generator ``csrc/philox.cuh``; K1 and K2 take
 several (b*h) slices a block for sequences up to 32 rows. Each source's header
 states its design and bound.
 
@@ -433,13 +435,28 @@ def _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), scratch, drop
 
 
-def tiled_scratch_numel(b: int, h: int, sq: int, sk: int, dropout: bool) -> int:
+def tiled_scratch_numel(b: int, h: int, sq: int, sk: int, dropout: bool, tf32: bool = False) -> int:
     """f32 scratch of one K4 call: per query row its lse, delta and
     fully-masked probability, per key its bias, rows padded to 64, and with
     dropout the keep bits the dq kernel hands the dk/dv kernel (the Hopper
-    design's; the older design takes delta [B, H, Sq] from its head)."""
+    designs'; the older design takes delta [B, H, Sq] from its head). With
+    ``tf32`` (f32 at head dim 64, the 3xTF32 design) the prep pass's TF32
+    halves follow: q's and g's [4, B*H, Sq padded, 64] (q hi, q lo, g hi, g
+    lo), their transposes [4, B*H, 64, Sq padded], K's and V's [4, B*H, Sk
+    padded, 64] and K^T's [2, B*H, 64, Sk padded]."""
     pad = lambda n: -(-n // 64) * 64
-    return 3 * b * h * pad(sq) + b * pad(sk) + (b * h * pad(sq) * pad(sk) // 32 if dropout else 0)
+    n = 3 * b * h * pad(sq) + b * pad(sk) + (b * h * pad(sq) * pad(sk) // 32 if dropout else 0)
+    return n + (b * h * 64 * (8 * pad(sq) + 6 * pad(sk)) if tf32 else 0)
+
+
+TILED_ROUTES = ("template", "wgmma_bf16", "wgmma_tf32")  # K4's designs, by the route code its C entry records
+
+
+def _tiled_route() -> str:
+    """The design K4's last call launched, as its C entry recorded it."""
+    fn = _build.load("flash_attention_tiled_bwd").mer_flash_attention_tiled_bwd_route
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return TILED_ROUTES[fn()]
 
 
 def flash_attention_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, dropout_rate: float = 0.0,
@@ -479,21 +496,28 @@ def flash_attention_tiled_backward(q, k, v, key_padding_mask, out, lse, g, seed=
                                    g_lse=None):
     """``(dq, dk, dv)`` through the key-tiled backward K4 for CUDA tensors, its
     plain version for CPU tensors. ``flash_attention_tiled_backward.launches``
-    counts K4's launches (one per call: the dq and the dk/dv grids)."""
+    counts K4's launches (one per call: prep, dq and dk/dv kernels, or the
+    older design's two grids), ``.routes`` the same by the design that the
+    C entry took (``TILED_ROUTES``): ``wgmma_bf16`` for bf16 and
+    ``wgmma_tf32`` for f32 at head dim 64 with 16-byte aligned tensors,
+    ``template`` otherwise."""
     if not _device_or_raise(q):
         return flash_attention_tiled_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed,
                                                         dropout_rate, g_lse)
+    tf32 = q.dtype == torch.float32 and q.shape[3] == 64
     dq, dk, dv, scratch, drop = _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse,
-                                               tiled_scratch_numel(*q.shape[:3], k.shape[2], dropout_rate > 0))
+                                               tiled_scratch_numel(*q.shape[:3], k.shape[2], dropout_rate > 0, tf32))
     _launch("flash_attention_tiled_bwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                                              out.data_ptr(), lse.data_ptr(), g.data_ptr(), _ptr(g_lse),
                                              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr()],
               k.shape[2], drop)
     flash_attention_tiled_backward.launches += 1
+    flash_attention_tiled_backward.routes[_tiled_route()] += 1
     return dq, dk, dv
 
 
 flash_attention_tiled_backward.launches = 0
+flash_attention_tiled_backward.routes = dict.fromkeys(TILED_ROUTES, 0)
 
 
 class FlashAttention(torch.autograd.Function):

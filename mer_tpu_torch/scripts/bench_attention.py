@@ -52,12 +52,8 @@ import torch
 
 from mer_tpu_torch.ops import flash_attention as fa
 from mer_tpu_torch.serving.engine import resolve_device
+from mer_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, PEAK_TF32X3
 
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# K1 and K3 in f32 at head dim 64 run three TF32 products per f32 product (3xTF32): the forward's products at a
-# third of the 495 TFLOP/s of TF32
-TF32X3_FLOPS = 495e12 / 3
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (name, B, H, S, Dh): scripts/bench_attention.py:67-80, then 16,384 frames
 SHAPES = [
@@ -98,16 +94,16 @@ def bound_ms(b: int, h: int, s: int, dh: int, dtype: torch.dtype, backward: bool
     it: each input read once and each output written once at the HBM rate
     (forward: q, k, v, mask -> out, lse; backward: q, k, v, out, g, lse, mask
     -> dq, dk, dv), against the products at the dtype's dense peak (2 in the
-    forward, 5 in the backward; the f32 forward at head dim 64 at
-    ``TF32X3_FLOPS``)."""
+    forward, 5 in the backward; f32 at head dim 64, the 3xTF32 designs of K1,
+    K3 and K4, at ``PEAK_TF32X3``)."""
     esize = torch.tensor([], dtype=dtype).element_size()
     tensor, stats, mask = b * h * s * dh * esize, b * h * s * 4, b * s
     nbytes = 4 * tensor + stats + mask
-    fwd_rate = TF32X3_FLOPS if dtype == torch.float32 and dh == 64 else PEAK_FLOPS[dtype]
-    seconds = 4 * b * h * s * s * dh / fwd_rate
-    if backward:
+    rate = PEAK_TF32X3 if dtype == torch.float32 and dh == 64 else PEAK_FLOPS[dtype]
+    seconds = 4 * b * h * s * s * dh / rate
+    if backward:  # K4 (above BWD_FUSED_MAX keys, every bench shape) at head dim 64 in f32: 3xTF32 as well
         nbytes += 8 * tensor + stats + mask
-        seconds += 10 * b * h * s * s * dh / PEAK_FLOPS[dtype]
+        seconds += 10 * b * h * s * s * dh / (rate if s > fa.BWD_FUSED_MAX else PEAK_FLOPS[dtype])
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, seconds * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 

@@ -87,6 +87,14 @@ def sum_bound(plain_fn, q, k, v, mask, seed=None, rate: float = 0.0, sides: int 
     return sides * (2.0 ** -8 + k.shape[2] * 2.0 ** -23) * terms
 
 
+def bf16_out_excess(got, want, sums: torch.Tensor) -> float:
+    """Largest excess of a bf16 attention forward's ``got`` over its limit
+    against ``want`` (<= 0 passes): the sums' part ``sums`` (:func:`sum_bound`)
+    plus one ulp of the larger of the two values, element by element."""
+    a, b = got.float(), want.float()
+    return ((a - b).abs() - sums - bf16_ulp(torch.maximum(a.abs(), b.abs()))).max().item()
+
+
 def fusion_steps(config, mesh: Mesh, device, count=contextlib.nullcontext):
     """STEPS fusion steps on the synthetic train split's first global batches
     from the seeded weights, this rank's part of ``mesh``: (losses, whole

@@ -28,10 +28,10 @@ import torch
 
 from mer_tpu_torch.ops import _build, w2v_conv
 from mer_tpu_torch.scripts.bench_attention import device_ms
+from mer_tpu_torch.utils.profiling import HBM_BYTES_PER_S
 
 PROBE = "probe_gn_grid_sync"
 SHAPES = [((32, 31999, 512), 31999), ((2, 12799, 512), 12799), ((3, 301, 512), 7)]
-HBM_BYTES_PER_S = 3.35e12
 BF16_REL = 2e-2
 EPS = 1e-5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

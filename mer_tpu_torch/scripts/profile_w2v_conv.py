@@ -40,8 +40,8 @@ import torch
 from mer_tpu_torch.models.wav2vec2 import Wav2Vec2Config, audio_erc_from_seed
 from mer_tpu_torch.ops import w2v_conv
 from mer_tpu_torch.serving.engine import resolve_device
+from mer_tpu_torch.utils.profiling import PEAK_FLOPS
 
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 SAMPLE_RATE = 16000
 
 

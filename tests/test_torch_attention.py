@@ -158,14 +158,47 @@ def cuda():
     return torch.device("cuda")
 
 
-# bf16: |err| <= 1e-2 and <= BF16_REL x the plain version's largest |out| (tests/test_torch_attention_tc.py)
+# bf16 out: within the a priori rounding bound (chip_smoke.py's: parallel_check.sum_bound of the plain version plus
+# one ulp of the larger value, element by element; test_bf16_out_bound_fails_a_dropped_key) and within BF16_REL x
+# the plain version's largest |out| (tests/test_torch_attention_tc.py)
 BF16_REL = 2e-2
+
+
+def _bf16_out_excess(out, ref_out, plain, q, k, v, mask, seed=None, rate=0.0) -> float:
+    """Largest excess of a bf16 forward's out over the rounding bound against its plain version (<= 0 passes)."""
+    from mer_tpu_torch.scripts.parallel_check import bf16_out_excess, sum_bound
+
+    return bf16_out_excess(out, ref_out, sum_bound(plain, q, k, v, mask, seed, rate))
+
+
+@pytest.mark.parametrize("case, rate", [((32, 8, 24, 33, 96), 0.4), ((2, 2, 5, 40, 50), 0.0),
+                                        ((2, 3, 100, 301, 64), 0.1)])
+def test_bf16_out_bound_fails_a_dropped_key(case, rate):
+    """The bf16 limit of the card legs on the plain versions (CPU): K3's plain version (an online softmax that
+    rounds P o D against the running max, not the normalised P) lies within the bound of K1's, and K1's with
+    the last key of every row dropped (a planted fault) does not."""
+    q, k, v, mask = _inputs(case, seed=3)
+    q, k, v = (torch.from_numpy(a / math.sqrt(3)).to(torch.bfloat16) for a in (q, k, v))
+    mask = torch.from_numpy(mask)
+    mask[:, -1] = False  # the last key is attended, so that dropping it is a fault
+    seed = (0xFACE, 21) if rate else None
+    want, _ = fa.flash_attention_reference(q, k, v, mask, seed, rate)
+    other, _ = fa.flash_attention_stream_reference(q, k, v, mask, seed, rate)
+    dropped = mask.clone()
+    dropped[:, -1] = True
+    fault, _ = fa.flash_attention_reference(q, k, v, dropped, seed, rate)
+    assert not torch.equal(other, want)
+    assert _bf16_out_excess(other, want, fa.flash_attention_reference, q, k, v, mask, seed, rate) <= 0
+    assert _bf16_out_excess(fault, want, fa.flash_attention_reference, q, k, v, mask, seed, rate) > 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES + [(32, 8, 33, 33, 96), (4, 2, 70, 70, 128), (1, 1, 1, 1, 1)])
 @pytest.mark.parametrize("dtype, tol_out, tol_lse", [(torch.float32, 2e-5, 2e-5), (torch.bfloat16, 1e-2, 1e-3)])
 def test_kernel_matches_plain_version(case, dtype, tol_out, tol_lse, cuda):
+    """out within tol_out in f32; in bf16 within the rounding bound and BF16_REL x its largest value (tol_out,
+    TOL's elementwise 1e-2, no longer holds it: two correct roundings can break it, chip_smoke.py's
+    rounding_witness); lse within tol_lse."""
     q, k, v, mask = _inputs(case, seed=2)
     # main-path scale (unit-variance activations through U(+-1/sqrt(D)) weights)
     q, k, v = (torch.from_numpy(a / math.sqrt(3)).to(cuda, dtype) for a in (q, k, v))
@@ -177,9 +210,11 @@ def test_kernel_matches_plain_version(case, dtype, tol_out, tol_lse, cuda):
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, m)  # rounds P to bf16 as the kernel does
         assert out.dtype == dtype and lse.dtype == torch.float32
         err = (out.float() - ref_out.float()).abs().max().item()
-        assert err <= tol_out
         if dtype == torch.bfloat16:
+            assert _bf16_out_excess(out, ref_out, fa.flash_attention_reference, q, k, v, m) <= 0
             assert err <= BF16_REL * ref_out.float().abs().max().item()
+        else:
+            assert err <= tol_out
         assert (lse - ref_lse).abs().max().item() <= tol_lse
     assert fa.flash_attention_forward.launches == before + 2
 

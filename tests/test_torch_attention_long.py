@@ -443,6 +443,11 @@ def test_k3_k4_match_plain_versions(case, dtype, rate, cuda):
     ref_out, ref_lse = fa.flash_attention_stream_reference(q, k, v, mask, seed, rate)
     ref = fa.flash_attention_tiled_backward_reference(q, k, v, mask, out, lse, g, seed, rate, g_lse)
     assert _excess(out, ref_out, "fwd", dtype) <= 0
+    if dtype == torch.bfloat16:  # and element by element the rounding bound (tests/test_torch_attention.py)
+        from mer_tpu_torch.scripts.parallel_check import bf16_out_excess, sum_bound
+
+        sums = sum_bound(fa.flash_attention_stream_reference, q, k, v, mask, seed, rate)
+        assert bf16_out_excess(out, ref_out, sums) <= 0
     assert (lse - ref_lse).abs().max().item() <= 1e-3
     for got, want in zip(grads, ref):
         assert got.dtype == dtype and _excess(got, want, "bwd", dtype) <= 0

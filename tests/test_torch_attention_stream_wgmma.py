@@ -234,11 +234,14 @@ def _card(case, dtype, device, seed, fully_masked=False, dh=64):
     return [torch.from_numpy(a).to(device, dtype) for a in (q, k, v)] + [torch.from_numpy(mask).to(device)]
 
 
-def _excess(got, want, bf16_key: tuple[float, float]) -> float:
-    """bf16: TOL (atol, rtol) and 2e-2 of the plain version's largest |value| (chip_smoke.py's limits)."""
-    err, want = (got.float() - want.float()).abs(), want.float()
-    return max((err - bf16_key[0] - bf16_key[1] * want.abs()).max().item(),
-               (err.max() - 2e-2 * want.abs().max()).item())
+def _excess(got, want, q, k, v, mask, seed=None, rate=0.0) -> float:
+    """bf16 out: the rounding bound (``parallel_check.sum_bound`` of the plain version plus one ulp of the larger
+    value, element by element) and 2e-2 of the plain version's largest |value| (chip_smoke.py's limits)."""
+    from mer_tpu_torch.scripts.parallel_check import bf16_out_excess, sum_bound
+
+    sums = sum_bound(fa.flash_attention_stream_reference, q, k, v, mask, seed, rate)
+    return max(bf16_out_excess(got, want, sums),
+               ((got.float() - want.float()).abs().max() - 2e-2 * want.float().abs().max()).item())
 
 
 @pytest.mark.cuda
@@ -253,7 +256,7 @@ def test_k3_matches_plain_version(case, fully_masked, rate, cuda):
     torch.cuda.synchronize()
     assert fa.flash_attention_stream.launches == before + 1
     want_out, want_lse = fa.flash_attention_stream_reference(q, k, v, mask, seed, rate)
-    assert torch.isfinite(out.float()).all() and _excess(out, want_out, (1e-2, 2 ** -8)) <= 0
+    assert torch.isfinite(out.float()).all() and _excess(out, want_out, q, k, v, mask, seed, rate) <= 0
     assert (lse - want_lse).abs().max().item() <= 1e-3
 
 
@@ -269,7 +272,7 @@ def test_k3_older_template_still_holds(dtype, dh, cuda):
         torch.testing.assert_close(out, want_out, atol=2e-5, rtol=0)
         torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
     else:
-        assert _excess(out, want_out, (1e-2, 2 ** -8)) <= 0 and (lse - want_lse).abs().max().item() <= 1e-3
+        assert _excess(out, want_out, q, k, v, mask) <= 0 and (lse - want_lse).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda

@@ -186,7 +186,14 @@ def test_k1_k2_match_plain_versions(case, dtype, mask_kind, rate, cuda):
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, mask, seed, rate)
     ref = fa.flash_attention_backward_reference(q, k, v, mask, out, lse, g, seed, rate, g_lse)
-    assert out.dtype == dtype and _excess(out, ref_out, "fwd", dtype) <= 0
+    if dtype == torch.bfloat16:  # out: the rounding bound (tests/test_torch_attention.py) in place of TOL's 1e-2
+        from mer_tpu_torch.scripts.parallel_check import bf16_out_excess, sum_bound
+
+        sums = sum_bound(fa.flash_attention_reference, q, k, v, mask, seed, rate)
+        assert out.dtype == dtype and bf16_out_excess(out, ref_out, sums) <= 0
+        assert (out.float() - ref_out.float()).abs().max() <= BF16_REL * ref_out.float().abs().max()
+    else:
+        assert out.dtype == dtype and _excess(out, ref_out, "fwd", dtype) <= 0
     assert (lse - ref_lse).abs().max().item() <= (2e-5 if dtype == torch.float32 else 1e-3)
     for got, want in zip(grads, ref):
         assert got.dtype == dtype and _excess(got, want, "bwd", dtype) <= 0

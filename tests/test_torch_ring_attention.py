@@ -29,11 +29,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from mer_tpu.ops import ring_attention as jax_ring
-from mer_tpu.parallel import make_mesh as jax_make_mesh
 from mer_tpu_torch.ops import flash_attention as fa
 from mer_tpu_torch.ops import ring_attention as ring
 
@@ -63,7 +58,22 @@ def _inputs():
     return {"q": q, "k": k, "v": v, "g": g, "mask": mask}
 
 
-def _jax_ring(x, sp, kernel):
+@pytest.fixture(scope="module")
+def jax_side():
+    """(jax, jax.numpy, mer_tpu's ring_attention module, its make_mesh), imported here so that the card's leg
+    collects where JAX is not installed."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from mer_tpu.ops import ring_attention as jax_ring
+    from mer_tpu.parallel import make_mesh as jax_make_mesh
+
+    return jax, jnp, jax_ring, jax_make_mesh
+
+
+def _jax_ring(jax_side, x, sp, kernel):
+    jax, jnp, jax_ring, jax_make_mesh = jax_side
     mesh = jax_make_mesh(dp=1, tp=1, sp=sp, devices=jax.devices()[:sp])
     fn = lambda q, k, v: jax_ring.ring_attention(q, k, v, mesh=mesh, key_padding_mask=jnp.asarray(x["mask"]),
                                                  use_kernel=kernel, interpret=kernel)
@@ -85,7 +95,7 @@ def _free_port() -> int:
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(tmp_path_factory, jax_side):
     """The gloo rings (spawned once) and ``mer_tpu``'s rings meanwhile."""
     workdir = str(tmp_path_factory.mktemp("ring"))
     x = _inputs()
@@ -95,7 +105,7 @@ def runs(tmp_path_factory):
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(4)]
     cases = [(sp, kernel) for sp in (2, 4) for kernel in (False, True)]
     with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:  # XLA compiles outside the GIL
-        want = dict(zip(cases, pool.map(lambda case: _jax_ring(x, *case), cases)))
+        want = dict(zip(cases, pool.map(lambda case: _jax_ring(jax_side, x, *case), cases)))
     for r, p in enumerate(procs):
         out, _ = p.communicate(timeout=300)
         assert p.returncode == 0, f"rank {r}:\n{out[-4000:]}"
@@ -148,7 +158,8 @@ def test_kernel_block_ring_is_the_plain_attention_under_padding(runs, sp):
     assert not got["dk"][1, :, S // 2:].any() and not got["dv"][1, :, S // 2:].any()
 
 
-def test_indivisible_sequence_raises():
+def test_indivisible_sequence_raises(jax_side):
+    jax, jnp, jax_ring, jax_make_mesh = jax_side
     q = torch.zeros(1, 1, 15, 8)
     with pytest.raises(ValueError, match="must divide sp=2"):
         ring.ring_attention(q, q, q, sp=2)

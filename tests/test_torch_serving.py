@@ -159,7 +159,8 @@ def test_port_imports_neither_jax_nor_mer_tpu():
             "mer_tpu_torch.data.process_sharding, mer_tpu_torch.ops.ring_attention, "
             "mer_tpu_torch.scripts.parallel_check, mer_tpu_torch.scripts.probe_gn_designs, "
             "mer_tpu_torch.parallel.hop, mer_tpu_torch.parallel.pipeline, mer_tpu_torch.parallel.pp_forward, "
-            "mer_tpu_torch.utils.remat, mer_tpu_torch.ops.augment, mer_tpu_torch.ops.resample; "
+            "mer_tpu_torch.utils.remat, mer_tpu_torch.ops.augment, mer_tpu_torch.ops.resample, "
+            "mer_tpu_torch.utils.profiling, mer_tpu_torch.scripts.bench_attention, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mer_tpu')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
