@@ -24,7 +24,8 @@ that two runs see the same tokens:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build every CUDA kernel from ``mer_tpu_torch/csrc``, one nvcc per source,
-   all started together;
+   all started together (the design probe ``probe_gn_grid_sync`` too, so that
+   ``preflight`` finds every source built);
 3. hold each kernel against its plain PyTorch version on the card at the
    dialogue buckets (B=32), f32 and bf16, dropout off and on (K1 the
    forward, K2 the backward), K1 bf16 and its plain version each against
@@ -75,7 +76,12 @@ that two runs see the same tokens:
    ``mer_tpu_torch.test --checkpoint`` reads; an f32, dropout-0 parity leg
    (3 steps through the kernels against 3 through the plain attention);
    training utterances per second and one step's eager vs device time with
-   its kernel breakdown;
+   its kernel breakdown; the tools on that checkpoint (``python -m
+   mer_tpu_torch.tools``): ``inspect`` (epoch, step, parameter count),
+   ``export-torch`` to a ``.pth`` that ``mer_tpu_torch.test --checkpoint``
+   reads with the checkpoint's own logits (bit for bit) and metrics, and
+   ``preflight`` (the card, ``nvcc`` and every kernel source of ``csrc/``
+   built ``[ok]``; exit 1, the card's machine having no MELD);
 6b. mel training: a synthetic MELD root from ``mer_tpu_torch.data.synthetic``
    (100 train and 20 dev dialogues; the test split MELD-shaped, 2,608
    clips), ``mer_tpu_torch.feature_extractors.audio_mel.train`` for 2 epochs
@@ -90,7 +96,14 @@ that two runs see the same tokens:
 6c. mel export: ``...audio_mel.embeddings`` from that checkpoint: K5
    launches = one per batch of 32 of each split; [N, 300] finite unit-norm tables (1e-5) that ``load_embeddings``
    reads back; clips per second on the test split and one batch's eager vs
-   device time;
+   device time; the shipped ``DEBUG.visualize`` (3D) plots the val split on
+   the card: the printed silhouette and the card's ``utils/viz.py::silhouette``
+   of the table against a float64 numpy recomputation on the host (1e-6; the
+   printed value to its 4 places), the PNG decoded through its chunks and
+   ``zlib`` to 800 x 800 RGB with every class's disc colour present, the
+   HTML holding every point; the visualisation's seconds, and
+   ``project_embeddings`` of 1,109 seeded clustered embeddings of width 300
+   (MELD's dev split) in 3D timed;
 6d. wav2vec2 export: a seeded ``AudioERC`` checkpoint, then
    ``mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings`` over the
    three splits of that root in batches of 32 (per batch: K7 once, K6 once,
@@ -255,14 +268,17 @@ import concurrent.futures
 import contextlib
 import copy
 import functools
+import io
 import itertools
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -1134,6 +1150,7 @@ def training_phase(fa, card: str) -> dict:
         log(f"mer_tpu_torch.test --checkpoint on the trained checkpoint: {json.dumps(summary)}")
         if saved["extra"]["step"] != steps or not math.isfinite(summary["accuracy"]):
             raise AssertionError(f"checkpoint step {saved['extra']['step']} (want {steps}) or metrics {summary}")
+        tools_phase(cfg_path, ckpt, saved, summary, tmp, card)
 
         # throughput and one step's time split, on the default config (bf16)
         state = solver.init_state(len(batchers["train"]))
@@ -1184,6 +1201,153 @@ def training_phase(fa, card: str) -> dict:
     if not (loss_diff <= 1e-4 and diffs.max().item() <= 2 * lr * 3 + 1e-6):
         raise AssertionError("training through the kernels departs from training through the plain attention")
     return run
+
+
+def captured(fn, *args, **kwargs):
+    """(``fn(*args, **kwargs)``, what it printed); the printout is echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    sys.stdout.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def tools_phase(cfg_path: str, ckpt: str, saved: dict, summary: dict, tmp: str, card: str) -> None:
+    """Phase 6o: ``python -m mer_tpu_torch.tools`` on phase 6's checkpoint:
+    ``inspect``; ``export-torch``, then ``mer_tpu_torch.test --checkpoint``
+    on the ``.pth`` with the checkpoint's logits (bit for bit) and metrics;
+    ``preflight`` with the card, ``nvcc`` and every kernel source built
+    ``[ok]``, and exit 1 (no MELD, no pretrained weights, no pickles here)."""
+    from mer_tpu_torch import test as eval_entry
+    from mer_tpu_torch import tools
+    from mer_tpu_torch.core import load_config
+    from mer_tpu_torch.serving.engine import build_model
+
+    t0 = time.perf_counter()
+    info = tools.inspect_checkpoint(ckpt)
+    log(f"tools inspect: {json.dumps(info, default=str)}")
+    n_params = sum(v.numel() for v in saved["model_state_dict"].values())
+    if (info["epoch"], info["n_params"], info["extra"].get("step")) != (saved["epoch"], n_params,
+                                                                         saved["extra"]["step"]) \
+            or info["n_opt_state"] < 2 * n_params:  # Adam's two moments of every parameter
+        raise AssertionError(f"tools inspect {info}; checkpoint epoch {saved['epoch']}, {n_params} values")
+    pth = os.path.join(tmp, "exported.pth")
+    _, out = captured(tools.main, ["export-torch", ckpt, pth, cfg_path])
+    config = load_config(cfg_path)
+    batch = eval_entry.eval_batches(config, eval_entry.eval_dataset(config, True))[0]
+    inputs = [torch.as_tensor(batch[k]).cuda() for k in ("text", "audio", "padding_mask")]
+    with torch.inference_mode():
+        logits = [build_model(config, torch.device("cuda"), checkpoint=path)(*inputs).float() for path in (ckpt, pth)]
+    exported = eval_entry.main(["--synthetic", "--config", cfg_path, "--checkpoint", pth])
+    log(f"tools export-torch -> {os.path.getsize(pth)} bytes; .test --checkpoint on it: {json.dumps(exported)}; "
+        f"logits {tuple(logits[0].shape)} equal to the checkpoint's: {torch.equal(*logits)}")
+    if not torch.equal(*logits) or exported != summary or "torch model_state_dict layout" not in out:
+        raise AssertionError(f"the exported .pth gives other logits or metrics: {exported} vs {summary}")
+    rc, out = captured(tools.main, ["preflight"])
+    want = [f"[ok] card ({card})", "[ok] nvcc ("] + [f"[ok] kernel {name} (" for name in tools.kernel_sources()]
+    missing = [w for w in want if w not in out]
+    log(f"tools preflight: exit {rc}, {out.count('[ok]')} [ok] and {out.count('[MISSING]')} [MISSING] lines; "
+        f"tools phase in {time.perf_counter() - t0} s ({card})")
+    if rc != 1 or missing or "[MISSING] train CSV" not in out:
+        raise AssertionError(f"preflight exit {rc}; lines not [ok]: {missing}")
+
+
+def silhouette_f64(x: np.ndarray, labels: np.ndarray) -> float:
+    """The mean silhouette in float64 numpy on the host (euclidean; a class
+    of one point scores 0), the yardstick of ``utils/viz.py::silhouette``."""
+    x = np.asarray(x, np.float64)
+    sq = (x * x).sum(1)
+    dist = np.sqrt(np.maximum(sq[:, None] + sq[None] - 2 * x @ x.T, 0))
+    np.fill_diagonal(dist, 0)
+    classes, codes = np.unique(labels, return_inverse=True)
+    sums = np.stack([dist[:, codes == c].sum(1) for c in range(len(classes))], 1)
+    counts = np.bincount(codes)
+    rows = np.arange(len(x))
+    intra = sums[rows, codes] / np.maximum(counts[codes] - 1, 1)
+    other = sums / counts
+    other[rows, codes] = np.inf
+    inter = other.min(1)
+    s = np.where(counts[codes] > 1, (inter - intra) / np.maximum(intra, inter), 0.0)
+    return float(s.mean())
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """[H, W, 3] uint8 of an 8-bit RGB PNG with filter 0 on every row, read
+    through its chunks (each CRC checked) and ``zlib``."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG signature")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        (length,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0] != zlib.crc32(kind + body):
+            raise AssertionError(f"PNG chunk {kind} fails its CRC")
+        if kind == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+            if body[8:10] != b"\x08\x02":
+                raise AssertionError("PNG not 8-bit RGB")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if (rows[:, 0] != 0).any():
+        raise AssertionError("PNG rows with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def visualization_checks(tables: dict, printed: str, root: str, cfg: str, save_dir: str, card: str) -> None:
+    """Phase 6c's visualisation of the val split (``DEBUG.visualize``, 3D):
+    the silhouettes against float64 numpy, the PNG and the HTML, its
+    seconds; then ``project_embeddings`` at MELD's dev-split size, timed."""
+    from mer_tpu_torch.core import load_config
+    from mer_tpu_torch.data import MelFeatureDataset
+    from mer_tpu_torch.utils import viz
+
+    config = load_config(cfg)
+    if not (config.DEBUG.visualize and config.DEBUG.visualization_type == "3D"):
+        raise AssertionError("config_audio_mel.yaml no longer ships DEBUG.visualize with the 3D type")
+    val = tables["val"]
+    labels = MelFeatureDataset("val", config, data_root=root, device="cpu").get_labels()
+    host = silhouette_f64(val, labels)
+    card_value = viz.silhouette(val, labels, device="cuda")
+    line = [l for l in printed.splitlines() if l.startswith("silhouette score (val): ")]
+    shown = float(line[-1].split(": ")[1]) if line else math.nan
+    log(f"mel export visualisation, val {val.shape}: printed silhouette {shown}, the card's {card_value}, float64 "
+        f"numpy {host}, diff {abs(card_value - host)} (tol 1e-6)")
+    if not (abs(card_value - host) <= 1e-6 and abs(shown - host) <= 5e-5 + 1e-9):
+        raise AssertionError(f"silhouette {card_value} (printed {shown}) against float64 {host}")
+    png = os.path.join(save_dir, "visualization", "png", "visualization_0.png")
+    html = os.path.join(save_dir, "visualization", "html", "visualization_0.html")
+    with open(png, "rb") as f:
+        img = decode_png(f.read())
+    colours = {tuple(c) for c in img.reshape(-1, 3)}
+    absent = [int(c) for c in np.unique(labels) if viz.disc_colour(c) not in colours]
+    with open(html) as f:
+        page = f.read()
+    payload = json.loads(page.split("const D = ", 1)[1].split(";\n", 1)[0])
+    log(f"mel export visualisation: PNG {img.shape} with {len(colours)} colours, classes absent {absent}; HTML "
+        f"{len(page)} bytes, {len(payload['pts'])} points of {payload['dims']} dims")
+    if img.shape != (viz.CANVAS, viz.CANVAS, 3) or absent or len(payload["pts"]) != len(val) \
+            or payload["dims"] != 3 or payload["labels"] != [int(l) for l in labels]:
+        raise AssertionError("the mel export's PNG or HTML is wrong")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    viz.visualize_embeddings(val, labels, os.path.join(save_dir, "visualization_timed"), kind="3D", device="cuda")
+    log(f"mel export visualisation of the val split ({len(val)} x {val.shape[1]}, 3D: silhouette, PCA, t-SNE, PNG, "
+        f"HTML) in {time.perf_counter() - t0} s ({card})")
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(7, 300)) * 3
+    dev = (centers[rng.integers(0, 7, 1109)] + rng.normal(size=(1109, 300))).astype(np.float32)
+    viz.project_embeddings(dev[:64], "3D", device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = viz.project_embeddings(dev, "3D", device="cuda")
+    seconds = time.perf_counter() - t0
+    log(f"project_embeddings of 1,109 x 300 seeded clustered embeddings (MELD's dev split) in 3D: {seconds} s "
+        f"(PCA, perplexity search, up to 1,000 t-SNE iterations in float64, 300 without progress stop) ({card})")
+    if z.shape != (1109, 3) or not np.isfinite(z).all():
+        raise AssertionError(f"project_embeddings gave {z.shape}, finite {np.isfinite(z).all()}")
 
 
 # -- the mel feature extractor (stage 1c) -------------------------------------------
@@ -1322,13 +1486,13 @@ def mel_export_phase(lk, card: str, root: str, cfg: str, tmp: str) -> int:
     argv = ["--config", cfg, "--data-root", root]
     t0 = time.perf_counter()
     with main_path_run() as run:
-        tables = mel_embeddings.main(argv, save_dir=save_dir)
+        tables, printed = captured(mel_embeddings.main, argv, save_dir=save_dir)
     seconds = time.perf_counter() - t0
     sizes = {mode: len(get_text(mode, root)) for mode in tables}
     batch = int(load_config(cfg).test.data_loader.batch_size)
     want = {**ZERO, MEL: sum(math.ceil(n / batch) for n in sizes.values())}
-    log(f"mel export: splits {sizes} in {seconds} s = {sum(sizes.values()) / seconds} clips/s (model load "
-        f"included); launches {run} (want {want}: one K5 per batch of {batch})")
+    log(f"mel export: splits {sizes} in {seconds} s = {sum(sizes.values()) / seconds} clips/s (model load and the "
+        f"val split's visualisation included); launches {run} (want {want}: one K5 per batch of {batch})")
     if run != want or sizes["test"] != 2608:
         raise AssertionError(f"mel export launches {run}, want {want}; test split {sizes['test']} clips")
     for mode, table in tables.items():
@@ -1338,6 +1502,7 @@ def mel_export_phase(lk, card: str, root: str, cfg: str, tmp: str) -> int:
         if table.shape != (sizes[mode], 300) or not np.isfinite(table).all() or norm_err > 1e-5 \
                 or not np.array_equal(back, table):
             raise AssertionError(f"mel export {mode}: bad table")
+    visualization_checks(tables, printed, root, cfg, save_dir, card)
 
     # the test split alone, from fresh wav stores, and one batch's time split
     _, solver = build_solver(parse_args(argv), train_mode="val")
@@ -3019,6 +3184,7 @@ def main() -> None:
     from mer_tpu_torch.ops import flash_attention as fa
     from mer_tpu_torch.ops import logmel_kernel as lk
     from mer_tpu_torch.ops import w2v_conv as wc
+    from mer_tpu_torch.tools import kernel_sources
 
     # 1. device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3031,8 +3197,9 @@ def main() -> None:
 
     # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = [name for name, new in zip(KERNELS, pool.map(_build.build, KERNELS)) if new]
+    sources = kernel_sources()
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # KERNELS and the design probes' sources
+        built = [name for name, new in zip(sources, pool.map(_build.build, sources)) if new]
     log(f"build: {built or 'all kernels already built'} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions at the dialogue buckets

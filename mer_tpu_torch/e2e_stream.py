@@ -38,7 +38,7 @@ from mer_tpu_torch.models.roberta import RobertaConfig, text_erc_from_seed
 from mer_tpu_torch.models.wav2vec2 import Wav2Vec2Config, audio_erc_from_seed
 from mer_tpu_torch.pipelines import E2EModels, StreamingPipeline, mixed_utterance_batches
 from mer_tpu_torch.serving.engine import resolve_device
-from mer_tpu_torch.train.checkpoint import load_checkpoint
+from mer_tpu_torch.models.convert import load_model_state_dict
 
 FE_CONFIGS = {name: os.path.join(REPO_ROOT, "src", "feature_extractors", name, file)
               for name, file in (("text", "config.yaml"), ("audio_wav2vec2", "config.yaml"),
@@ -92,8 +92,7 @@ def build_models(audio: str, text_cfg: RobertaConfig, w2v_cfg: Wav2Vec2Config, f
         audio_model = mel_extractor_from_seed(0)
 
         def load_mel(model, path):
-            ckpt = load_checkpoint(path)
-            model.load_state_dict(ckpt.get("model_state_dict", ckpt), strict=True)
+            model.load_state_dict(load_model_state_dict(path, "mel"), strict=True)
             print(f"Loaded {path}")
 
         _load_or_seeded("mel extractor", audio_model, _checkpoint_path("audio_mel"), load_mel)
@@ -103,7 +102,7 @@ def build_models(audio: str, text_cfg: RobertaConfig, w2v_cfg: Wav2Vec2Config, f
     fusion_model = init_random_(M2FNet.from_config(fusion_model_cfg), torch.Generator().manual_seed(0))
 
     def load_fusion(model, path):
-        model.load_state_dict(load_reference_checkpoint(path), strict=True)
+        model.load_state_dict(load_reference_checkpoint(path, fusion_model_cfg), strict=True)
         print(f"Loaded {path}")
 
     _load_or_seeded("fusion model", fusion_model, fusion_ckpt, load_fusion)

@@ -33,12 +33,11 @@ import numpy as np
 import torch
 
 from mer_tpu_torch.data.text_fe import ToyWhitespaceTokenizer, load_roberta_tokenizer
-from mer_tpu_torch.models.convert import read_torch_checkpoint
+from mer_tpu_torch.models.convert import load_model_state_dict, read_torch_checkpoint
 from mer_tpu_torch.models.roberta import RobertaConfig, TextERC, text_erc_from_seed
 from mer_tpu_torch.models.wav2vec2 import AudioERC, Wav2Vec2Config, audio_erc_from_seed
 from mer_tpu_torch.parallel import initialize_distributed, local_device, mesh_from_config
 from mer_tpu_torch.serving.engine import resolve_device
-from mer_tpu_torch.train.checkpoint import load_checkpoint
 from mer_tpu_torch.utils.remat import REMAT_POLICIES
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -226,13 +225,14 @@ def set_float32_exact(dtype: torch.dtype) -> None:
 
 def load_finetuned(model: TextERC | AudioERC, pretrained: dict | None, ckpt_path: str, need_checkpoint: bool):
     """``model`` with the fine-tuned checkpoint at ``ckpt_path`` (a
-    ``model_state_dict`` or a bare ``state_dict``) when it exists; else, unless
+    ``model_state_dict``, a bare ``state_dict``, or a ``mer_tpu`` msgpack file
+    or shard directory, converted) when it exists; else, unless
     ``need_checkpoint``, with the pretrained backbone under the seeded head;
     else an error (as the reference's entry points)."""
     ckpt_path = os.path.abspath(ckpt_path)
     if os.path.exists(ckpt_path):
-        ckpt = load_checkpoint(ckpt_path)
-        model.load_state_dict(ckpt.get("model_state_dict", ckpt), strict=True)
+        kind = "text" if isinstance(model, TextERC) else "wav2vec2"
+        model.load_state_dict(load_model_state_dict(ckpt_path, kind), strict=True)
         print(f"Loaded fine-tuned checkpoint {ckpt_path}")
     elif need_checkpoint:
         raise FileNotFoundError(f"Checkpoint not found at {ckpt_path}")

@@ -28,11 +28,11 @@ def build_model(config, device: torch.device, checkpoint: str | None = None,
                 dtype: torch.dtype | None = None) -> M2FNet:
     """M2FNet from ``config.model`` in eval mode on ``device``, cast to
     ``dtype`` (default: the config's compute dtype; the int8 engine
-    quantizes f32 weights); weights from a reference-layout checkpoint
-    (strict load) or, without one, random weights from seed 0."""
+    quantizes f32 weights); weights from a reference-layout checkpoint or a
+    ``mer_tpu`` one (strict load) or, without one, random weights from seed 0."""
     model = M2FNet.from_config(config.model)
     if checkpoint is not None:
-        model.load_state_dict(load_reference_checkpoint(checkpoint), strict=True)
+        model.load_state_dict(load_reference_checkpoint(checkpoint, config.model), strict=True)
     else:
         init_random_(model, torch.Generator().manual_seed(0))
     return model.to(device=device, dtype=dtype or compute_dtype(config)).eval()

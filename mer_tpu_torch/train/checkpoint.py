@@ -16,10 +16,16 @@ moments gathered by the optimizer, an open accumulation window summed over
 dp; rank 0 alone writes it. The file is the single-process layout, so a run
 resumes from it at any world size.
 
-``mer_tpu`` writes flax msgpack files, and ``src/config.yaml`` points both
-packages at ``checkpoints/m2fnet.ckpt``. Reading those files needs msgpack
-and flax, which the card's machine lacks, so :func:`load_checkpoint` raises
-on any file that is not a torch checkpoint rather than misread it.
+``mer_tpu`` writes flax msgpack files (one file, or a directory of
+per-process shards), and ``src/config.yaml`` points both packages at
+``checkpoints/m2fnet.ckpt``. :func:`load_checkpoint` reads those too, in
+plain Python (``train/flax_msgpack.py``), and gives them in the port's
+layout (``models/convert.py::port_payload``: the weights, the Adam moments,
+the early-stop state). A file that is neither raises.
+
+``tpu.async_checkpoint`` (default true) picks the background writer;
+false writes each checkpoint before the epoch goes on, as ``mer_tpu`` does
+(``mer_tpu/train/solver.py:411-412``): :func:`checkpoint_writer`.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import threading
 
 import torch
 
-from mer_tpu_torch.models.convert import read_torch_checkpoint
+from mer_tpu_torch.models.convert import is_mer_tpu_payload, port_payload, read_checkpoint
 
 
 def _to_host(tree):
@@ -87,7 +93,50 @@ def _writes(mesh) -> bool:
     return mesh is None or mesh.rank == 0
 
 
-load_checkpoint = read_torch_checkpoint  # tensors on the host; refuses files torch.save did not write
+def load_checkpoint(path: str | os.PathLike, kind: str | None = None, model_cfg=None) -> dict:
+    """A checkpoint in the port's layout, tensors on the host: a torch file
+    as written, or a ``mer_tpu`` msgpack file or shard directory converted
+    (``kind``: which model it must hold, found from its names when None;
+    ``model_cfg``: the fusion model's ``model:`` block). Anything else raises."""
+    payload = read_checkpoint(path)
+    return port_payload(payload, kind, model_cfg) if is_mer_tpu_payload(payload) else payload
+
+
+def full_optimizer_state_dict(restored: dict, optimizer) -> dict:
+    """``restored``'s optimizer ``state_dict``; a ``mer_tpu`` checkpoint's
+    carries moments alone and takes ``optimizer``'s ``param_groups``."""
+    if "optimizer_state_dict" not in restored:
+        raise ValueError("the checkpoint holds no optimizer state (no Adam moments); resuming from it would start "
+                         "fresh moments")
+    state = restored["optimizer_state_dict"]
+    return state if "param_groups" in state else {"state": state["state"],
+                                                   "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def micro_steps(restored: dict, accum: int) -> int:
+    """The micro-steps a checkpoint's run had taken: ``extra``'s ``step``,
+    else (a ``mer_tpu`` mel checkpoint) the Adam count's updates of ``accum``
+    micro-steps plus the open window's."""
+    extra = restored["extra"]
+    if "step" in extra:
+        return int(extra["step"])
+    return int(restored.get("adam_count", 0)) * accum + int(restored.get("mini_step", 0))
+
+
+class SyncCheckpointer:
+    """The :class:`AsyncCheckpointer` interface, writing before ``save``
+    returns (``tpu.async_checkpoint: false``)."""
+
+    def save(self, path: str | os.PathLike, **kwargs) -> None:
+        save_checkpoint(path, **kwargs)
+
+    def wait(self) -> None:
+        pass
+
+
+def checkpoint_writer(config):
+    """The writer ``tpu.async_checkpoint`` picks (default: the background one)."""
+    return AsyncCheckpointer() if bool(config.get_path("tpu.async_checkpoint", True)) else SyncCheckpointer()
 
 
 class AsyncCheckpointer:

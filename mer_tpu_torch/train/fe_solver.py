@@ -47,7 +47,7 @@ Where this differs from ``mer_tpu`` on purpose:
    function of (``tpu.seed``, micro-step, dp rank, global layer,
    microbatch) (``parallel/pipeline.py``), so it does not depend on pp; it
    differs from the non-pipelined stream, as ``mer_tpu``'s pp stream differs
-   from its scan. ``wandb`` and ``watch_norms`` are not ported. ``--int8``
+   from its scan. ``--int8``
    selects the int8 engine of the exports alone (training ignores it, as
    ``mer_tpu``'s does).
 
@@ -88,6 +88,7 @@ from mer_tpu_torch.parallel.tensor import full_state_dict
 from mer_tpu_torch.train.checkpoint import load_checkpoint, write_checkpoint
 from mer_tpu_torch.train.solver import TrainState, accumulate_and_step, adamw, constant_with_warmup
 from mer_tpu_torch.utils import RunLogger, seed_dropout, seed_step
+from mer_tpu_torch.utils.logging import StepGradients, watch_norms
 
 
 class FEState:
@@ -132,7 +133,7 @@ class FESolver:
         self.batch_to_inputs = batch_to_inputs
         self.backbone_key = backbone_key
         self.device = next(model.parameters()).device
-        self.logger = RunLogger()
+        self.logger = RunLogger(config)
         cw = None if class_weights is None else torch.as_tensor(class_weights, device=self.device)
         self.loss_fn = partial(cross_entropy, label_smoothing=0.0, class_weights=cw, ignore_index=-1)
         self.loss_terms = partial(cross_entropy_terms, label_smoothing=0.0, class_weights=cw, ignore_index=-1)
@@ -197,6 +198,7 @@ class FESolver:
                     raise ValueError(f"a batch of {len(batch['emotion'])} does not divide dp={self.mesh.dp}")
                 batch = dp_row_shard(batch, self.mesh.dp, self.mesh.dp_rank)
             inputs = self.batch_to_inputs(batch, self.device)
+            watched = StepGradients(state.model) if self.logger.watch_step(len(losses)) else None
             if self.pp_logits_fn is None:
                 logits = state.model(*inputs)
             else:
@@ -205,9 +207,14 @@ class FESolver:
             loss.backward()
             if self.pp_logits_fn is not None:
                 sync_replicated_grads(state.model, self.mesh, replicated_owner(state.model))
+            grads = watched.after_backward() if watched else None
             accumulate_and_step(train_state, self.grad_accum, self._schedules[phase])
+            if watched:
+                self.logger.log_watch(watch_norms(state.model, self.logger.watch_log, grads))
             state.micro_step += 1
             losses.append(global_loss)
+            if self.logger.wants_step_logs:  # a fetch per step, only while wandb records
+                self.logger.log_step(torch.stack(losses).sum().item() / len(losses))
         getattr(state.model, self.backbone_key).requires_grad_(True)
         return state, (torch.stack(losses).sum().item() / len(losses) if losses else 0.0)
 
@@ -301,6 +308,7 @@ class FESolver:
                         os.remove(best_path)
                     self.logger.print(f"Best model at epoch {best['epoch']} restored")
                 break
+        self.logger.finish()
         return state, history
 
     def test(self, batcher) -> dict:

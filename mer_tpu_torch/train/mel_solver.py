@@ -41,7 +41,13 @@ samplers are the synchronous path's, so both draw the same anchors.
 With ``AUDIO.augmentation_factor > 1`` the training split keeps no device
 cache: each triplet batch is decoded and augmented from the wavs
 (``MelFeatureDataset.spectrogram_batch`` with a generator seeded from
-(``seed``, epoch, step)). The per-epoch visualisation is not ported.
+(``seed``, epoch, step)).
+
+``DEBUG.visualize_during_training`` embeds the validation split after each
+epoch's validation and writes its silhouette and t-SNE scatter
+(:meth:`MelSolver.visualize`, ``utils/viz.py``) on the solver's device. With
+wandb recording (``utils/logging.py``) each step logs its running loss and,
+every ``watch_log_freq`` steps, its :func:`watch_norms`.
 """
 
 from __future__ import annotations
@@ -59,10 +65,12 @@ from mer_tpu_torch.mining import TripletMiner
 from mer_tpu_torch.objectives import make_embedding_loss
 from mer_tpu_torch.parallel.data import barrier, data_parallel, gather_rows
 from mer_tpu_torch.parallel.mesh import Mesh
-from mer_tpu_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
+from mer_tpu_torch.train.checkpoint import (checkpoint_writer, full_optimizer_state_dict, load_checkpoint, micro_steps,
+                                            save_checkpoint)
 from mer_tpu_torch.train.solver import (TrainState, accumulate_and_step, grad_accum_steps, optimizer_from_config,
                                        schedule_from_config)
 from mer_tpu_torch.utils import RunLogger
+from mer_tpu_torch.utils.logging import StepGradients, watch_norms
 
 
 class MelSolver:
@@ -88,7 +96,7 @@ class MelSolver:
         self.seed = seed
         self.compute_dtype = compute_dtype
         self.device = next(model.parameters()).device
-        self.logger = RunLogger()
+        self.logger = RunLogger(config)
         self.loss_fn = make_embedding_loss(config)
         self.mining_type = str(config.get_path("solver.mining_type", "hard"))
         self.batch_size = int(config.train.data_loader.batch_size)
@@ -168,24 +176,32 @@ class MelSolver:
 
     # -- epochs ------------------------------------------------------------------
 
-    def train_step(self, state: TrainState, spectrograms: torch.Tensor) -> torch.Tensor:
+    def train_step(self, state: TrainState, spectrograms: torch.Tensor, watch: bool = False) -> torch.Tensor:
         """One forward of [3B, ...], backward and (every ``accum`` steps) an
-        Adam update; returns the loss on the device."""
+        Adam update; returns the loss on the device. ``watch``: log the
+        step's :func:`watch_norms` (``mer_tpu``'s watched step)."""
         state.model.train()
+        watched = StepGradients(state.model) if watch else None
         loss = self._loss(spectrograms)
         loss.backward()
+        grads = watched.after_backward() if watched else None
         accumulate_and_step(state, self.accum, self._schedule)
+        if watched:
+            self.logger.log_watch(watch_norms(state.model, self.logger.watch_log, grads))
         return loss.detach()
 
     def train_epoch(self, state: TrainState) -> tuple[TrainState, float]:
         n_steps = len(self.data_train) // self.batch_size
         total = torch.zeros((), device=self.device)
         if self.async_mining:
-            for loss in self._train_steps_async(state, n_steps):
-                total += loss
+            losses = self._train_steps_async(state, n_steps)
         else:
-            for step in range(n_steps):
-                total += self.train_step(state, self._triplet_batch(self.data_train, self.batch_size, step))
+            losses = (self.train_step(state, self._triplet_batch(self.data_train, self.batch_size, step),
+                                      watch=self.logger.watch_step(step)) for step in range(n_steps))
+        for step, loss in enumerate(losses):
+            total += loss
+            if self.logger.wants_step_logs:  # a fetch per step, only while wandb records
+                self.logger.log_step(total.item() / (step + 1))
         return state, total.item() / max(n_steps, 1)
 
     def _train_steps_async(self, state: TrainState, n_steps: int):
@@ -229,7 +245,7 @@ class MelSolver:
                     batch.record_stream(torch.cuda.current_stream(self.device))
                 if step + 1 < n_steps:
                     future = submit(pool, step + 1)
-                yield self.train_step(state, batch)
+                yield self.train_step(state, batch, watch=self.logger.watch_step(step))
         self._mining_model = None
 
     @torch.no_grad()
@@ -242,6 +258,19 @@ class MelSolver:
         return total.item() / n_steps
 
     # -- full loop ---------------------------------------------------------------
+
+    def restore(self, state: TrainState, path: str) -> tuple[int, float, int]:
+        """Resume ``state`` from the checkpoint at ``path``, the port's or a
+        ``mer_tpu`` one (its BatchNorm ``batch_stats`` and Adam moments
+        converted): returns (first epoch to run, best validation loss,
+        patience counter), the early-stop state of audio_mel/train.py:143-154."""
+        restored = load_checkpoint(path, "mel")
+        state.model.load_state_dict(restored["model_state_dict"], strict=True)
+        state.optimizer.load_state_dict(full_optimizer_state_dict(restored, state.optimizer))
+        extra = restored["extra"]
+        state.step = micro_steps(restored, self.accum)
+        return (int(restored["epoch"]) + 1, float(extra.get("min_loss_val", float("inf"))),
+                int(extra.get("patience_counter", 0)))
 
     def fit(self, state: TrainState | None = None) -> tuple[TrainState, dict]:
         cfg = self.config
@@ -258,19 +287,12 @@ class MelSolver:
         start_epoch, min_loss_val, patience_counter = 0, float("inf"), 0
         load_path = os.path.abspath(str(cfg.checkpoint.get("load_path", save_path)))
         if bool(cfg.checkpoint.get("load_checkpoint", False)) and os.path.exists(load_path):
-            restored = load_checkpoint(load_path)
-            state.model.load_state_dict(restored["model_state_dict"], strict=True)
-            state.optimizer.load_state_dict(restored["optimizer_state_dict"])
-            extra = restored["extra"]
-            state.step = int(extra.get("step", 0))
-            start_epoch = int(restored["epoch"]) + 1
-            # early-stop state resume (audio_mel/train.py:143-154)
-            min_loss_val = float(extra.get("min_loss_val", float("inf")))
-            patience_counter = int(extra.get("patience_counter", 0))
+            start_epoch, min_loss_val, patience_counter = self.restore(state, load_path)
             self.logger.print(f"Resumed from {load_path} at epoch {start_epoch}")
 
         history: dict[str, list] = {"loss_values": [], "val_loss_values": []}
-        writer = AsyncCheckpointer()
+        writer = checkpoint_writer(cfg)
+        viz_each_epoch = bool(cfg.get_path("DEBUG.visualize_during_training", False))
 
         def snapshot(epoch: int) -> dict:
             return dict(epoch=epoch, model=state.model, optimizer=state.optimizer, mesh=self.mesh,
@@ -281,6 +303,8 @@ class MelSolver:
             self._epoch = epoch
             state, loss_train = self.train_epoch(state)
             loss_val = self.validate()
+            if viz_each_epoch:  # reference audio_mel/train.py:182 (shipped commented out there)
+                self.visualize(self.data_val, epoch=epoch)
             dt = time.perf_counter() - t0
             history["loss_values"].append(loss_train)
             history["val_loss_values"].append(loss_val)
@@ -311,7 +335,26 @@ class MelSolver:
                 break
 
         writer.wait()
+        self.logger.finish()
         return state, history
+
+    # -- diagnostics --------------------------------------------------------------
+
+    def visualize(self, dataset, *, epoch: int = 0, out_dir: str = "visualization", kind: str | None = None,
+                  batch_size: int = 32) -> dict:
+        """The reference's ``visualize_model`` (audio_mel/train.py:282-342):
+        embed ``dataset``, then the silhouette and the PCA -> t-SNE scatter
+        as ``<out_dir>/{png,html}/visualization_{epoch}.{png,html}`` on the
+        solver's device (``utils/viz.py``), uploaded when wandb records."""
+        from mer_tpu_torch.core import EMOTION_LABELS
+        from mer_tpu_torch.utils.viz import visualize_embeddings
+
+        kind = kind or str(self.config.get_path("DEBUG.visualization_type", "2D"))
+        emb = self.export_embeddings(dataset, batch_size=batch_size)
+        out = visualize_embeddings(emb, dataset.get_labels(), out_dir, epoch=epoch, kind=kind, logger=self.logger,
+                                   label_names=EMOTION_LABELS, device=self.device)
+        self.logger.print(f"Silhouette score: {out['silhouette']:.6f}")
+        return out
 
     # -- export ------------------------------------------------------------------
 

@@ -47,8 +47,10 @@ from mer_tpu_torch.objectives.classification import cross_entropy_terms
 from mer_tpu_torch.parallel.data import barrier, data_parallel, global_ratio
 from mer_tpu_torch.parallel.mesh import Mesh, dp_row_shard, shard_params, tp_slice
 from mer_tpu_torch.parallel.tensor import shard_optimizer_state
-from mer_tpu_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
+from mer_tpu_torch.train.checkpoint import (checkpoint_writer, full_optimizer_state_dict, load_checkpoint, micro_steps,
+                                            save_checkpoint)
 from mer_tpu_torch.utils import RunLogger, seed_dropout, seed_step
+from mer_tpu_torch.utils.logging import StepGradients, watch_norms
 
 
 @dataclass
@@ -154,7 +156,7 @@ class Solver:
         self.zero1 = bool(config.get_path("tpu.zero1", False)) and self.mesh.dp > 1
         self.config = config
         self.device = next(model.parameters()).device
-        self.logger = RunLogger()
+        self.logger = RunLogger(config)
         self.compute_dtype = compute_dtype(config)
         self.accum = grad_accum_steps(config.solver)
         cw = None if class_weights is None else torch.as_tensor(class_weights, device=self.device)
@@ -197,11 +199,17 @@ class Solver:
             seed_step(self.seed, state.step, self._attention_generator, self.mesh.dp_rank, self.mesh.tp_rank)
             if self.mesh.dp > 1:
                 batch = dp_row_shard(batch, self.mesh.dp, self.mesh.dp_rank)
+            watched = StepGradients(state.model) if self.logger.watch_step(batches) else None
             loss, global_loss = global_ratio(*self.loss_terms(*self._logits(state.model, batch)), self.mesh)
             loss.backward()
+            grads = watched.after_backward() if watched else None
             accumulate_and_step(state, self.accum, self._schedule)
+            if watched:  # gradients of this step, weights after its update (mer_tpu's watched step)
+                self.logger.log_watch(watch_norms(state.model, self.logger.watch_log, grads))
             total += global_loss
             batches += 1
+            if self.logger.wants_step_logs:  # a fetch per step, only while wandb records
+                self.logger.log_step(total.item() / batches)
         return state, total.item() / max(batches, 1)
 
     @torch.no_grad()
@@ -219,6 +227,25 @@ class Solver:
         return total / max(batches, 1), metrics
 
     # -- full training loop ---------------------------------------------------
+
+    def restore(self, state: TrainState, path: str) -> tuple[int, float, int]:
+        """Resume ``state`` from the checkpoint at ``path``, the port's or a
+        ``mer_tpu`` one (file or shard directory): weights, Adam moments, an
+        open accumulation window, the micro-step; returns (first epoch to
+        run, best validation loss, patience counter)."""
+        restored = load_checkpoint(path, "fusion", self.config.model)
+        names = [n for n, _ in state.model.named_parameters()]
+        state.model.load_state_dict(shard_params(restored["model_state_dict"], self.mesh), strict=True)
+        state.optimizer.load_state_dict(shard_optimizer_state(full_optimizer_state_dict(restored, state.optimizer),
+                                                              names, self.mesh))
+        for name, grad in restored.get("accumulated_grads", {}).items():
+            param = state.model.get_parameter(name)
+            grad = tp_slice(name, grad, self.mesh.tp_rank, self.mesh.tp)  # the dp sum, held by dp rank 0
+            param.grad = (grad if self.mesh.dp_rank == 0 else torch.zeros_like(grad)).to(param.device, param.dtype)
+        extra = restored["extra"]
+        state.step = micro_steps(restored, self.accum)
+        return (int(restored["epoch"]) + 1, float(extra.get("min_loss_val", float("inf"))),
+                int(extra.get("patience_counter", 0)))
 
     def fit(self, train_batcher, val_batcher, state: TrainState | None = None) -> tuple[TrainState, dict]:
         solver_cfg, ckpt_cfg = self.config.solver, self.config.checkpoint
@@ -238,24 +265,12 @@ class Solver:
         start_epoch, min_loss_val, patience_counter = 0, float("inf"), 0
         load_path = os.path.abspath(str(ckpt_cfg.get("load_path", save_path)))
         if bool(ckpt_cfg.get("load_checkpoint", False)) and os.path.exists(load_path):
-            restored = load_checkpoint(load_path)
-            names = [n for n, _ in state.model.named_parameters()]
-            state.model.load_state_dict(shard_params(restored["model_state_dict"], self.mesh), strict=True)
-            state.optimizer.load_state_dict(shard_optimizer_state(restored["optimizer_state_dict"], names, self.mesh))
-            for name, grad in restored.get("accumulated_grads", {}).items():
-                param = state.model.get_parameter(name)
-                grad = tp_slice(name, grad, self.mesh.tp_rank, self.mesh.tp)  # the dp sum, held by dp rank 0
-                param.grad = (grad if self.mesh.dp_rank == 0 else torch.zeros_like(grad)).to(param.device, param.dtype)
-            extra = restored["extra"]
-            state.step = int(extra.get("step", 0))
-            start_epoch = int(restored["epoch"]) + 1
-            min_loss_val = float(extra.get("min_loss_val", float("inf")))
-            patience_counter = int(extra.get("patience_counter", 0))
+            start_epoch, min_loss_val, patience_counter = self.restore(state, load_path)
             train_batcher.seek_epoch(start_epoch)  # the shuffle of an uninterrupted run's epoch
             self.logger.print(f"Resumed from {load_path} at epoch {start_epoch}")
 
         history: dict[str, list] = {"loss_values": [], "val_loss_values": []}
-        writer = AsyncCheckpointer()  # epoch checkpoints never wait on the disk
+        writer = checkpoint_writer(self.config)  # by default epoch checkpoints never wait on the disk
 
         def snapshot(epoch: int) -> dict:
             pending = {n: p.grad for n, p in state.model.named_parameters() if p.grad is not None}
@@ -300,6 +315,7 @@ class Solver:
                 break
 
         writer.wait()
+        self.logger.finish()
         return state, history
 
     # -- evaluation entry (reference src/test.py) -----------------------------

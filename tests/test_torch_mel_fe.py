@@ -320,14 +320,15 @@ def test_fit_early_stopping_restore_and_resume(mel, monkeypatch):
 
 def test_entry_points_on_cpu(mel, tmp_path, capsys):
     """train -> checkpoint -> embeddings: [N, 300] unit-norm tables for each
-    split that both packages' ``load_embeddings`` read."""
+    split that both packages' ``load_embeddings`` read, and the val split's
+    visualisation (``DEBUG.visualize``, on in the shipped config)."""
     path = _write_mel_config(str(tmp_path / "mel.yaml"), solver__epochs=1, **SMALL)
     argv = ["--config", path, "--data-root", mel["root"], "--device", "cpu"]
     state, history = train_entry.main(argv)
     assert len(history["loss_values"]) == 1 and np.isfinite(history["loss_values"][0])
     tables = embeddings_entry.main(argv, save_dir=str(tmp_path / "emb"))
     out = capsys.readouterr().out
-    assert "Training complete" in out and "DEBUG.visualize is ignored" in out
+    assert "Training complete" in out and "silhouette score (val): " in out  # the shipped DEBUG.visualize
     for mode, table in tables.items():
         assert table.shape == (SMALL["DEBUG__num_samples"], 300)
         np.testing.assert_allclose(np.linalg.norm(table, axis=1), 1.0, rtol=0, atol=1e-5)

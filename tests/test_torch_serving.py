@@ -160,8 +160,10 @@ def test_port_imports_neither_jax_nor_mer_tpu():
             "mer_tpu_torch.scripts.parallel_check, mer_tpu_torch.scripts.probe_gn_designs, "
             "mer_tpu_torch.parallel.hop, mer_tpu_torch.parallel.pipeline, mer_tpu_torch.parallel.pp_forward, "
             "mer_tpu_torch.utils.remat, mer_tpu_torch.ops.augment, mer_tpu_torch.ops.resample, "
-            "mer_tpu_torch.utils.profiling, mer_tpu_torch.scripts.bench_attention, chip_smoke; "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mer_tpu')); "
+            "mer_tpu_torch.utils.profiling, mer_tpu_torch.scripts.bench_attention, mer_tpu_torch.tools, "
+            "mer_tpu_torch.train.flax_msgpack, mer_tpu_torch.utils.viz, mer_tpu_torch.utils.logging, chip_smoke; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mer_tpu', "
+            "'msgpack', 'sklearn', 'matplotlib', 'plotly', 'huggingface_hub', 'wandb')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env, check=True, timeout=120)

@@ -15,7 +15,8 @@ dialogues and batcher seed):
   weights restored;
 - resume: 2 + 1 epochs equal 3 epochs; ``DeviceFusionBatcher`` equals
   ``FusionBatcher``; the train -> checkpoint -> ``mer_tpu_torch.test`` flow;
-  a ``mer_tpu`` msgpack checkpoint is refused, not misread.
+  a ``mer_tpu`` msgpack checkpoint is read, and a file that is neither is
+  refused, not misread.
 
 Parameter tolerance: Adam divides the first moment by the root of the
 second, so a gradient near 0, whose f32 rounding differs in sign or size
@@ -408,7 +409,9 @@ def test_train_entry_without_a_card_raises(setup, monkeypatch):
 def test_train_checkpoint_test_flow(setup, tmp_path, capsys):
     """``python -m mer_tpu_torch.train`` writes a checkpoint that
     ``python -m mer_tpu_torch.test --checkpoint`` reads, with the trained
-    weights; a mer_tpu msgpack checkpoint at that path is refused."""
+    weights; a mer_tpu msgpack checkpoint at that path is read too (its
+    weights converted), a resume from one without Adam state is refused,
+    and a file that is neither raises."""
     path = _write_config(str(tmp_path / "flow.yaml"), epochs=2)
     state, history = train_entry.main(["--synthetic", "--config", path, "--device", "cpu"])
     out = capsys.readouterr().out
@@ -422,12 +425,19 @@ def test_train_checkpoint_test_flow(setup, tmp_path, capsys):
     metrics = eval_entry.main(["--synthetic", "--config", path, "--checkpoint", ckpt, "--device", "cpu"])
     assert set(metrics) == {"accuracy", "weighted_f1", "pooled_accuracy", "pooled_weighted_f1"}
 
-    jax_save_checkpoint(ckpt, epoch=0, params=setup["params"])
-    with pytest.raises(ValueError, match="not a torch checkpoint"):
-        eval_entry.main(["--synthetic", "--config", path, "--checkpoint", ckpt, "--device", "cpu"])
+    jax_save_checkpoint(ckpt, epoch=0, params=setup["params"])  # weights alone, no Adam state
+    assert eval_entry.main(["--synthetic", "--config", path, "--checkpoint", ckpt, "--device", "cpu"]).keys() == \
+        metrics.keys()
+    for name, value in state_dict_from_jax(_np_params(setup["params"]), load_config(path).model).items():
+        torch.testing.assert_close(load_reference_checkpoint(ckpt, load_config(path).model)[name], value,
+                                   rtol=0, atol=0)
     resume = load_config(path).override(checkpoint__load_checkpoint=True)
-    with pytest.raises(ValueError, match="not a torch checkpoint"):
+    with pytest.raises(ValueError, match="no optimizer state"):
         Solver(_port_model(path, setup["params"]), resume).fit([], [])
+    with open(ckpt, "wb") as f:
+        f.write(b"neither a zip archive nor msgpack")
+    with pytest.raises(ValueError, match="neither a torch checkpoint"):
+        eval_entry.main(["--synthetic", "--config", path, "--checkpoint", ckpt, "--device", "cpu"])
 
 
 def test_bf16_training_keeps_f32_weights_and_adam_state(setup, monkeypatch):
