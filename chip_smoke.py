@@ -267,6 +267,7 @@ import collections
 import concurrent.futures
 import contextlib
 import copy
+import ctypes
 import functools
 import io
 import itertools
@@ -552,6 +553,24 @@ def attention_calls(fa, kernel: str):
             TILED: (fa.flash_attention_tiled_backward, fa.flash_attention_tiled_backward_reference)}[kernel]
 
 
+def forward_route(shape, dtype: str) -> str:
+    """The design K1's C entry takes (``fa.FORWARD_ROUTES``) for 16-byte aligned tensors, as every main path hands
+    them: its Hopper forwards at head dim 64 (bf16 on wgmma, f32 in 3xTF32), the template at other head dims."""
+    if shape[-1] != 64:
+        return "template"
+    return "wgmma_bf16" if dtype == "bfloat16" else "wgmma_tf32"
+
+
+def k1_routed(fa, call, route: str):
+    """call(), which launches K1 once, and the check that its C entry took the design ``route``."""
+    before = dict(fa.flash_attention_forward.routes)
+    result = call()
+    if fa.flash_attention_forward.routes != {**before, route: before[route] + 1}:
+        raise AssertionError(f"K1: expected one launch through its {route} design; routes "
+                             f"{fa.flash_attention_forward.routes} after {before}")
+    return result
+
+
 def backward_kernel(fa, keys: int) -> str:
     """The backward kernel the dispatch picks at ``keys`` keys: K2 up to
     ``BWD_FUSED_MAX`` (the dialogue buckets), K4 above."""
@@ -571,7 +590,10 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
     seed = dropout_seed(i, rate)
     call_fn, plain_fn = attention_calls(fa, kernel)
     forward_of = fa.flash_attention_forward if kernel in (FWD, BWD) else fa.flash_attention_stream
-    out, lse = forward_of(q, k, v, mask, seed, rate)
+    if kernel == FWD:  # the design K1's C entry took: its Hopper forwards at head dim 64, else the template
+        out, lse = k1_routed(fa, lambda: forward_of(q, k, v, mask, seed, rate), forward_route(shape, dtype))
+    else:
+        out, lse = forward_of(q, k, v, mask, seed, rate)
     # the dialogue shapes take microseconds a call; the wav2vec2 and RoBERTa encoders' take milliseconds, and
     # 45-90 s clips up to half a second for the plain versions with dropout
     scores = shape[0] * shape[1] * shape[2] * shape[3]
@@ -725,7 +747,12 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
             n = min(dh, sk - j0)
             v = torch.zeros(b, h, sk, dh, device="cuda", dtype=dtype)
             v[:, :, j0:j0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
-            window_mask[..., j0:j0 + n] = fwd(q, k, v, None, seed, rate)[0][..., :n] > 0
+            call = lambda: fwd(q, k, v, None, seed, rate)[0]
+            if name == "K1":
+                got = k1_routed(fa, call, forward_route((dh,), "bfloat16" if dtype == torch.bfloat16 else "float32"))
+            else:
+                got = call()
+            window_mask[..., j0:j0 + n] = got[..., :n] > 0
         windowed[name] = int((window_mask != want).sum())
     bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum()), sum(windowed.values())
     log(f"dropout masks of {'K3, K4' if long else 'K1, K2'} {DTYPE_LABELS[dtype]} at B={b} H={h} Sq={sq} Sk={sk} "
@@ -943,7 +970,13 @@ def main_path_run():
             on, keep_scale = args[7 + n_pointers], args[11 + n_pointers]
             rate = round(1.0 - 1.0 / keep_scale, 6) if on else 0.0
             PATH_SHAPES[(name, dims, DTYPE_NAMES[args[0]], rate)] += 1
-            return fn(*args)
+            rc = fn(*args)
+            if name == FWD and rc == 0:  # K1's last pointer: the design its C entry launched
+                route, want = fa.FORWARD_ROUTES[ctypes.c_int.from_address(args[n_pointers]).value], forward_route(
+                    dims, DTYPE_NAMES[args[0]])
+                if route != want:
+                    raise AssertionError(f"K1 at {dims} {DTYPE_NAMES[args[0]]} took its {route} design, not {want}")
+            return rc
 
         return launch
 
@@ -2460,7 +2493,8 @@ def check_limit_fails_wrong_tiles(fa, i: int) -> None:
              fa.flash_attention_tiled_backward_reference, fa.flash_attention_stream, fa.flash_attention_tiled_backward)):
         q, k, v, g, mask = attention_inputs(shape, torch.bfloat16, seed=i, clips=True)
         ref_out, ref_lse = plain_fwd(q, k, v, mask)
-        pairs = {f"{names[0]} out": (fwd(q, k, wrong(v), mask)[0], ref_out)}
+        call = lambda: fwd(q, k, wrong(v), mask)[0]
+        pairs = {f"{names[0]} out": (k1_routed(fa, call, "wgmma_bf16") if names[0] == "K1" else call(), ref_out)}
         ref = plain_bwd(q, k, v, mask, ref_out, ref_lse, g)
         bad = bwd(q, wrong(k), v, mask, ref_out, ref_lse, g)
         pairs.update({f"{names[1]} {name}": (a, b) for name, a, b in zip(("dq", "dk", "dv"), bad, ref)})
@@ -3122,8 +3156,10 @@ def attention_bench_phase(card: str) -> None:
         times = (r[f"{a}_ms"], r[f"{b}_ms"])
         if not all(math.isfinite(t) and t > 0 for t in times):
             raise AssertionError(f"bench_attention crossover row without times: {r}")
+        sdpa = (f", SDPA {r['sdpa_ms']} ms, {b} / SDPA {times[1] / r['sdpa_ms']}, template on unaligned inputs "
+                f"{r['template_unaligned_ms']} ms" if r["direction"] == "designs" else "")
         log(f"crossover {r['direction']} [{r['B']}, {r['H']}, {r['S']}, {r['Dh']}] bf16 dropout {r['dropout']}: "
-            f"{a} {times[0]} ms, {b} {times[1]} ms, {b} / {a} {times[1] / times[0]} ({card})")
+            f"{a} {times[0]} ms, {b} {times[1]} ms, {b} / {a} {times[1] / times[0]}{sdpa} ({card})")
     log(f"bench_attention --crossover in {time.perf_counter() - t0:.1f} s")
 
 
@@ -3319,30 +3355,42 @@ def main() -> None:
 
     # 8. kernel line (times per launch, averaged over the main paths' launches
     # at their own shapes), then the device line last
-    for what, kernel, dtype in (("K6 f32 (3xTF32) against cuDNN's f32 chain, TF32 off", W2V_TAIL, "float32"),
-                                ("K3 against SDPA", STREAM, "bfloat16"),
-                                ("K1 f32 (3xTF32) against SDPA's f32", FWD, "float32"),
-                                ("K3 f32 (3xTF32) against SDPA's f32", STREAM, "float32"),
-                                ("K4 f32 (3xTF32) against SDPA's f32 backward", TILED, "float32")):
+    dh64 = lambda case: case[1][-1] == 64
+    for what, kernel, dtype, only in (
+            ("K6 f32 (3xTF32) against cuDNN's f32 chain, TF32 off", W2V_TAIL, "float32", None),
+            ("K1 bf16, Hopper forward (Dh 64), against SDPA", FWD, "bfloat16", dh64),
+            ("K1 bf16, template (other head dims), against SDPA", FWD, "bfloat16", lambda case: not dh64(case)),
+            ("K3 against SDPA", STREAM, "bfloat16", None),
+            ("K1 f32 (3xTF32) against SDPA's f32", FWD, "float32", dh64),
+            ("K3 f32 (3xTF32) against SDPA's f32", STREAM, "float32", dh64),
+            ("K4 f32 (3xTF32) against SDPA's f32 backward", TILED, "float32", dh64)):
         log(f"{what}, per phase-3 shape (launches: the counted paths'; ms a call, graph replay; {card}):")
         # the attention f32 rows: head dim 64 alone (the 3xTF32 design; other head dims run the template)
-        for case in sorted(c for c in by_case if c[0] == kernel and c[2] == dtype
-                           and (kernel == W2V_TAIL or dtype == "bfloat16" or c[1][-1] == 64)):
+        for case in sorted(c for c in by_case if c[0] == kernel and c[2] == dtype and (only is None or only(c))):
             r = by_case[case]
             log(f"  {case[1]} dropout {case[3]}: launches {PATH_SHAPES.get(case, 0)}, kernel {r['kernel_ms']} ms, "
                 f"library {r['library_ms']} ms, kernel / library {r['kernel_ms'] / r['library_ms']}, bound "
                 f"{r['bound_us'] / 1e3} ms ({r['bound_by']}), share of bound {r['bound_us'] / 1e3 / r['kernel_ms']}")
     kernels = []
-    # K6's, K1's, K3's and K4's two dtypes are two routes each (bf16 wgmma or mma.sync, f32 3xTF32 or the f32
-    # template): an entry each, together the kernel's launches
-    entries = [entry for name in KERNELS for entry in (
-        [(name, name, "bfloat16"), (name + "_f32", name, "float32")] if name in (W2V_TAIL, FWD, STREAM, TILED)
-        else [(name, name, None)])]
+    # K6's, K3's and K4's two dtypes are two routes each (bf16 wgmma or mma.sync, f32 3xTF32 or the f32 template),
+    # and K1's bf16 two more (its Hopper forward at head dim 64, the template at the fusion model's head dims): an
+    # entry each, together the kernel's launches
+    bf16, f32 = (lambda case: case[2] == "bfloat16"), (lambda case: case[2] == "float32")
+    entries = []
+    for name in KERNELS:
+        if name == FWD:
+            entries += [(FWD, FWD, lambda case: bf16(case) and dh64(case)),
+                        (FWD + "_template", FWD, lambda case: bf16(case) and not dh64(case)), (FWD + "_f32", FWD, f32)]
+        elif name in (W2V_TAIL, STREAM, TILED):
+            entries += [(name, name, bf16), (name + "_f32", name, f32)]
+        else:
+            entries.append((name, name, None))
     for entry, name, only in entries:
+        selected = lambda r: r["kernel"] == name and (only is None or only((name, r["shape"], r["dtype"], r["rate"])))
         if name == PROBE:
             kernels.append(probe_kernel_line(probe_results, launches[PROBE], card))
             continue
-        path = {case: n for case, n in PATH_SHAPES.items() if case[0] == name and only in (None, case[2])}
+        path = {case: n for case, n in PATH_SHAPES.items() if case[0] == name and (only is None or only(case))}
         for case, n in sorted(path.items()):
             r = by_case[case]
             log(f"main path {case}: {n} launches x kernel {r['kernel_ms']} ms (bound {r['bound_us'] / 1e3} ms, "
@@ -3359,7 +3407,7 @@ def main() -> None:
             "source": f"mer_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
             "launches": n,
-            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name and only in (None, r["dtype"])),
+            "max_abs_err": max(r["max_abs_err"] for r in rows if selected(r)),
             "ms": total["kernel_ms"] / n,
             "plain_ms": total["plain_ms"] / n,
             "bound_ms": max(total["bound_bytes_us"], total["bound_ops_us"]) / 1e3 / n,
@@ -3368,7 +3416,7 @@ def main() -> None:
             "shapes": {f"{dtype} {'x'.join(map(str, shape))}" + (f" dropout {rate}" if name in (FWD, BWD, STREAM, TILED)
                                                                  else ""): c
                        for (_, shape, dtype, rate), c in sorted(path.items())},
-            "cases_checked": sum(r["kernel"] == name and only in (None, r["dtype"]) for r in rows),
+            "cases_checked": sum(map(selected, rows)),
             "card": card,
         })
     print(json.dumps({"kernels": kernels}))

@@ -30,11 +30,11 @@
 // layout; in bf16 both products run on the tensor cores (the scores'
 // registers become P's A operand, V enters through ldmatrix.trans), in f32 as
 // FMA on the CUDA cores (bound by the f32 rate, 67 TFLOP/s). K1 and K3 take
-// this template in f32 only at head dims other than 64 (the fusion model's 96
-// and 50); f32 at 64 runs the 3xTF32 Hopper forward of
-// flash_attention_hopper.cuh (bound at the TF32 rate, 495 TFLOP/s over three
-// passes), bf16 at 64 in K3 its own Hopper design. Keys past Sk get a -inf
-// bias, so the zero- or stale-padded last tile adds nothing.
+// this template at head dims other than 64 (the fusion model's 96 and 50) and
+// for tensors that are not 16-byte aligned; at 64 both launch the Hopper
+// forwards of flash_attention_hopper.cuh (bf16 on wgmma, f32 in 3xTF32,
+// bound at the TF32 rate, 495 TFLOP/s over three passes). Keys past Sk get a
+// -inf bias, so the zero- or stale-padded last tile adds nothing.
 
 #pragma once
 

@@ -1,8 +1,8 @@
-// The Hopper (sm_90a) attention forward at head dim 64 shared by K1
-// (flash_attention_fwd.cu) and K3 (flash_attention_stream.cu): the parts
-// both element types use, and the f32 forward in TF32 with error compensation
-// (3xTF32), which both entries launch for f32. K3's bf16 forward
-// (flash_attention_stream.cu, `mer_k3`) is built on the same parts.
+// The Hopper (sm_90a) attention forwards at head dim 64 shared by K1
+// (flash_attention_fwd.cu) and K3 (flash_attention_stream.cu): the bf16
+// forward on wgmma and TMA (`bf16_fwd`, `launch_bf16`) and the f32 forward in
+// TF32 with error compensation (3xTF32, `launch_tf32`), which both entries
+// launch for 16-byte aligned tensors, and the parts the two share.
 //
 // The function is the one at the head of flash_attention_forward.cuh: out =
 // softmax(scale q k^T + bias) v, lse in natural-log units, -1e30 on ignored
@@ -11,9 +11,10 @@
 // 2 x 2 scores (philox.cuh).
 //
 // Shared parts:
-// - the key biases in log2 units that a prep pass writes, [B][Sk padded to
-//   64]: 0, -1e30 log2 e on an ignored key, -inf past Sk (no weight, even in
-//   a fully masked row);
+// - the key biases in log2 units: 0, -1e30 log2 e on an ignored key, -inf
+//   past Sk (no weight, even in a fully masked row); the f32 prep pass writes
+//   them, [B][Sk padded to 64], the bf16 forward makes them from the mask's
+//   bytes tile by tile;
 // - the online softmax of a 64 x 64 score tile in the wgmma accumulator
 //   registers, in log2 units (exp2 of scale log2 e s + bias - m, a running
 //   max and a per-thread partial row sum of the undropped probabilities), the
@@ -22,6 +23,38 @@
 //   mer_philox::factors serves);
 // - the epilogue: out = O / l and lse = m ln 2 + ln l, or for a fully masked
 //   row -1e30 + ln l in natural units as the plain version rounds it.
+//
+// The bf16 forward (`bf16_fwd::forward_kernel`): one launch a call. A block
+// owns one (b*h) slice and 64 query rows, one consumer warpgroup and one
+// producer warp, three blocks an SM (the shape chosen on the card, PERF.md).
+// TMA loads the q tile once (3-D maps [slice][rows][64]: no box crosses a
+// slice; rows past Sq read as zeros); 64-key tiles of K and V stream through
+// a ring of stages, each with a "full" and an "empty" mbarrier, and beside
+// them the tile's key biases, which the producer warp's 32 lanes make from the
+// mask's bytes (two keys a lane, plain loads: a TMA box must start 16-byte
+// aligned, and a mask row starts at byte b Sk). Per tile S = q K^T is
+// wgmma.m64n64k16 from shared memory (both K-major, 128-byte swizzled as TMA
+// writes them); the online softmax runs in the accumulator registers, and
+// with dropout each lane draws its scores' keep bits there. O += (P o D) V is a wgmma whose A
+// (P o D rounded to bf16) comes from registers and whose B is the V tile
+// read MN-major through the transpose bit. The products overlap the softmax:
+// S of tile i and (P o D) V of tile i - 1 are issued together, the
+// exponentials and Philox of tile i run while the second product completes,
+// and O is rescaled once it has. Several blocks an SM overlap one another's
+// softmax and products. out and lse are written once. K1 takes it from 64
+// keys (the RoBERTa windows, wav2vec2's 99-499 frames, the long clips' 2,999
+// and the ring's blocks), K3 above 4,096: one design either side of
+// STREAM_THRESHOLD.
+//
+// Bound (bf16). At [32, 12, 512, 512, 64] (RoBERTa-base's longest window) one
+// call reads q, k, v (25.2 MB each) and the mask and writes out and lse: 101
+// MB, 30.3 us at 3.35 TB/s; its two products are 4 x 384 x 512^2 x 64 = 25.8
+// GFLOP, 26.1 us at 989 TFLOP/s. Bytes bound it, just; at 4,499 keys the
+// products do (0.126 ms at [2, 12, 4499, 4499, 64]). Beside the products
+// each score takes an exp2 on the SFU (16 a cycle and SM: as long as the two
+// products at this head dim) and, with dropout, a quarter of a Philox4x32-10
+// call: work on the CUDA cores of the order of the products, which the design
+// overlaps with them but cannot remove.
 //
 // The f32 forward (`forward_tf32_kernel`). TF32 wgmma takes only K-major
 // operands and has no transpose bit, and one TF32 pass keeps 2^-11 of each
@@ -172,6 +205,160 @@ __device__ __forceinline__ void write_rows(const float (&o)[32], float (&l)[2], 
       p.lse[(size_t)bh * p.Sq + r] = m2[h] < 0.5f * kMaskBias2 ? mer_fwd::kMaskBias + logf(lsum)
                                                                   : m2[h] * kLn2 + logf(lsum);
   }
+}
+
+// -- the bf16 forward -------------------------------------------------------------------
+
+namespace bf16_fwd {
+
+using bf16 = __nv_bfloat16;
+
+// The block's shape, chosen on the card (PERF.md: blocks of 128 query rows in two consumer warpgroups, and other
+// stage and block counts, were slower): the K/V ring's stages, and the blocks an SM that the registers are capped
+// for (with dropout 128 registers a thread, unspilled).
+constexpr int kStages = 3;
+constexpr int kBlocksPerSm = 3;
+constexpr int kThreads = 128 + 32;  // one consumer warpgroup, one producer warp
+constexpr uint32_t kTileBytes = kTile * kD * sizeof(bf16);
+
+struct Smem {  // 1024-byte aligned; the 8 KB tiles first
+  bf16 q[kTile * kD];
+  bf16 k[kStages][kTile * kD];
+  bf16 v[kStages][kTile * kD];
+  float bias[kStages][kTile];  // the tile's key biases in log2 units, beside its K and V
+  uint64_t full[kStages], empty[kStages], q_full;
+};
+
+// out and lse of 64 query rows of one slice. The producer warp loads q once and streams 64-key tiles of K and V
+// through the ring (lane 0 issues the copies), and beside them the tile's key biases, which its 32 lanes make from
+// the mask's bytes (two keys a lane: a TMA box must start 16-byte aligned, a mask row starts at byte b Sk). A
+// stage's full barrier completes on K's and V's bytes and the 32 lanes' arrivals, each after its biases.
+template <typename Tag, bool kDrop>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    forward_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, const Params<bf16> p) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align1024(smem_raw));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 32);  // the producer warp's lanes
+      mbar_init(&sm.empty[s], 4);  // one arrival per consumer warp
+    }
+    mbar_init(&sm.q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int n_tiles = (p.Sk + kTile - 1) / kTile;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x >= 128) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(&sm.q_full, kTileBytes);
+      tma_load_3d(sm.q, &map_q, &sm.q_full, 0, q0, bh);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages, key = it * kTile + 2 * lane;
+      if (it >= kStages) mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx_only(&sm.full[s], 2 * kTileBytes);
+        tma_load_3d(sm.k[s], &map_k, &sm.full[s], 0, it * kTile, bh);
+        tma_load_3d(sm.v[s], &map_v, &sm.full[s], 0, it * kTile, bh);
+      }
+      *reinterpret_cast<float2*>(&sm.bias[s][2 * lane]) =
+          make_float2(key_bias(p, bh / p.H, key), key_bias(p, bh / p.H, key + 1));
+      mbar_arrive(&sm.full[s]);  // releases this lane's biases
+    }
+    return;
+  }
+
+  const int w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 16 * w + g;  // this lane's query rows: row0, row0 + 8
+  const float c_log2 = p.scale * kLog2e;
+
+  float o[32], sc[32], m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  uint32_t a_p[4][4];  // P o D of the previous tile, bf16 pairs: the A operand of its product with V
+  mbar_wait(&sm.q_full, 0);
+  const uint64_t q_desc = desc_sw128(sm.q);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages, prev = (it + kStages - 1) % kStages, key0 = it * kTile;
+    mbar_wait(&sm.full[s], (it / kStages) & 1);
+    const uint64_t k_desc = desc_sw128(sm.k[s]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    wgmma_commit();
+    if (it > 0) {  // O += (P o D) V of the previous tile, behind S of this one
+      const uint64_t v_desc = desc_sw128(sm.v[prev]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(o, a_p[kk], v_desc + 128 * kk);
+      wgmma_commit();
+    }
+    if (it > 0)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+    fence_operands(sc);
+
+    // scores in log2 units where they lie: row row0 + 8 h, key key0 + 8 j + 2 t + c
+    float alpha[2];
+    softmax_tile<kDrop>(sc, sm.bias[s], c_log2, m2, l, alpha, p.drop, bh, row0, key0, t);
+    if (it > 0) {
+      wgmma_wait<0>();  // the previous tile's product with V: its stage and a_p are free
+      fence_operands(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[prev]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a_p[kk][r] = mer_tiles::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  }
+  {  // the last tile's product with V
+    const uint64_t v_desc = desc_sw128(sm.v[(n_tiles - 1) % kStages]);
+    fence_operands(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(o, a_p[kk], v_desc + 128 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(o);
+  }
+  write_rows(o, l, m2, p, bh, row0, t);
+}
+
+template <typename Tag, bool kDrop>
+cudaError_t launch_kernel(const CUtensorMap (&maps)[3], const Params<bf16>& p, cudaStream_t stream) {
+  const auto kernel = forward_kernel<Tag, kDrop>;
+  const int bytes = sizeof(Smem) + 1024;  // + alignment slack
+  // above the default 48 KB of dynamic shared memory: raised once per kernel, before any launch or capture
+  static const cudaError_t smem_ok = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (smem_ok != cudaSuccess) return smem_ok;
+  kernel<<<dim3((p.Sq + kTile - 1) / kTile, p.BH), kThreads, bytes, stream>>>(maps[0], maps[1], maps[2], p);
+  return cudaGetLastError();
+}
+
+}  // namespace bf16_fwd
+
+// One bf16 call at head dim 64: one launch; q, k, v and out 16-byte aligned, the mask [B][Sk] bytes (or null).
+template <typename Tag>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int B,
+                        int H, int Sq, int Sk, float scale, mer_philox::Dropout drop, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const Params<bf16> p{static_cast<bf16*>(out), static_cast<float*>(lse), static_cast<const uint8_t*>(mask),
+                       nullptr, B * H, B, H, Sq, Sk, (Sk + kTile - 1) / kTile * kTile, scale, drop};
+  if (p.BH > 65535) return cudaErrorInvalidValue;
+  CUtensorMap maps[3];  // q, k, v
+  if (!encode_rows64(&maps[0], q, Sq, p.BH) || !encode_rows64(&maps[1], k, Sk, p.BH) ||
+      !encode_rows64(&maps[2], v, Sk, p.BH))
+    return cudaErrorInvalidValue;
+  return drop.on ? bf16_fwd::launch_kernel<Tag, true>(maps, p, stream)
+                 : bf16_fwd::launch_kernel<Tag, false>(maps, p, stream);
 }
 
 // -- the f32 forward (3xTF32) ---------------------------------------------------------

@@ -10,23 +10,25 @@ dropout branch ``:86-115``) -> K1, ``csrc/flash_attention_fwd.cu``; ``:270``
 the online-softmax forward over key tiles, ``_flash_stream`` ``:465``) -> K3,
 ``csrc/flash_attention_stream.cu``; ``:579`` + ``:624`` (``_bwd_dkv_kernel``
 and ``_bwd_dq_kernel``, the key-tiled backward, ``_flash_bwd_tiled`` ``:659``)
--> K4, ``csrc/flash_attention_tiled_bwd.cu``. K1 and K3 are one kernel
-template (``csrc/flash_attention_forward.cuh``), K2 and K4's f32 and odd head
-dims two (``csrc/flash_attention_backward.cuh``), all on the tensor-core tile
-products of ``csrc/flash_attention_tiles.cuh`` in bf16 (``mma.sync``; f32 by
-FMA on the CUDA cores, bound by the f32 rate); K3 and K4 in bf16 at head dim
-64 are Hopper designs of their own (``wgmma``, TMA into an ``mbarrier`` ring
-filled by a producer warp; ``csrc/sm90.cuh``). In f32 at head dim 64 (the
-wav2vec2 and RoBERTa heads) K1 and K3 launch one Hopper forward
-(``csrc/flash_attention_hopper.cuh``): a prep pass splits K and V^T into TF32
-halves, then both products run as three TF32 ``wgmma`` passes (3xTF32), bound
-by three TF32 products per f32 product at 495 TFLOP/s (0.148 ms at the f32
-export's [32, 12, 499, 499, 64]); K4 in f32 at head dim 64 runs its bf16
-design's three launches in 3xTF32 (a prep pass writes the TF32 halves of q,
-g, K, V and of the transposes q^T, g^T, K^T). Other f32 head dims stay on
-the templates. All draw dropout with the Philox generator ``csrc/philox.cuh``; K1 and K2 take
-several (b*h) slices a block for sequences up to 32 rows. Each source's header
-states its design and bound.
+-> K4, ``csrc/flash_attention_tiled_bwd.cu``. At head dim 64 (the wav2vec2
+and RoBERTa heads), with 16-byte aligned tensors, K1 and K3 launch the same
+Hopper forwards (``csrc/flash_attention_hopper.cuh``, ``wgmma`` and TMA into
+an ``mbarrier`` ring filled by a producer warp; ``csrc/sm90.cuh``): in bf16
+one launch that makes the key biases from the mask's bytes, in f32 a prep
+pass that splits K and V^T into TF32 halves, then both products as three
+TF32 ``wgmma`` passes (3xTF32), bound by three TF32 products per f32 product
+at 495 TFLOP/s (0.148 ms at the f32 export's [32, 12, 499, 499, 64]). K4 in
+bf16 at head dim 64 is a Hopper design of its own, and in f32 at head dim 64
+runs the same three launches in 3xTF32 (a prep pass writes the TF32 halves
+of q, g, K, V and of the transposes q^T, g^T, K^T). Other head dims (the
+fusion model's 96 and 50) and unaligned tensors take two kernel templates,
+one forward for K1 and K3 (``csrc/flash_attention_forward.cuh``) and one
+backward for K2 and K4 (``csrc/flash_attention_backward.cuh``), on the
+tensor-core tile products of ``csrc/flash_attention_tiles.cuh`` in bf16
+(``mma.sync``; f32 by FMA on the CUDA cores, bound by the f32 rate); K2 is
+the template alone. All draw dropout with the Philox generator
+``csrc/philox.cuh``; the templates take several (b*h) slices a block for
+sequences up to 32 rows. Each source's header states its design and bound.
 
 Dispatch by key count: :func:`flash_attention_forward` runs K1 up to
 ``STREAM_THRESHOLD`` keys and K3 above; :func:`flash_attention_backward` runs
@@ -35,7 +37,7 @@ and :func:`flash_attention_tiled_backward` run K3 and K4 at any key count,
 :func:`flash_attention_fused_backward` K2 up to ``FUSED_KERNEL_MAX``. The
 two thresholds rest on the card's crossover rows
 (``python -m mer_tpu_torch.scripts.bench_attention --crossover``, PERF.md):
-K1 and K3 are one template and time alike, so the forward keeps
+K1 and K3 run one design at head dim 64, so the forward keeps
 ``mer_tpu``'s place (``_flash_impl`` ``:510``); K4's Hopper design beats K2
 from 48 keys up, so the backward takes K2 for the fusion model's dialogue
 buckets alone (``mer_tpu``'s ``_flash_bwd_impl`` switches at 2,048 keys,
@@ -46,7 +48,8 @@ version only for CPU tensors, so the CPU runs the algebra the card runs;
 either device. Each wrapper counts its kernel's launches in ``.launches``:
 :func:`flash_attention_forward` K1's, :func:`flash_attention_stream` K3's,
 :func:`flash_attention_backward` K2's, :func:`flash_attention_tiled_backward`
-K4's.
+K4's; K1's and K4's ``.routes`` count them again by the design their C entry
+took.
 
 Semantics (every version): q [B, H, Sq, Dh], k/v [B, H, Sk, Dh] in float32 or
 bfloat16 (the plain versions also take float64); ``key_padding_mask`` [B, Sk]
@@ -83,11 +86,11 @@ from mer_tpu_torch.ops import _build
 NEG_INF = -1e30  # additive bias on ignored keys (finite, as the TPU kernel's)
 MAX_HEAD_DIM = 128
 # Above this many keys the forward is K3, up to it K1; above BWD_FUSED_MAX keys the backward is K4, up to it K2. Both
-# rest on the card's crossover rows (bench_attention --crossover, recorded in PERF.md). K1 and K3 are one template and
-# time alike at 256-4,096 keys, so STREAM_THRESHOLD keeps mer_tpu's value. K4's Hopper design (bf16, Dh 64) is faster
-# than K2 at every row from 48 keys up (B x H = 192 at 48-499 keys, down to 24 at 2,048; dropout 0 and 0.1), so
-# BWD_FUSED_MAX is the fusion model's largest dialogue bucket, 33: K2 keeps the buckets, where it packs 2 or 4 slices
-# a block, and its kernel still takes up to FUSED_KERNEL_MAX keys for the crossover rows.
+# rest on the card's crossover rows (bench_attention --crossover, recorded in PERF.md). At head dim 64 K1 and K3
+# launch one design (csrc/flash_attention_hopper.cuh), so STREAM_THRESHOLD keeps mer_tpu's value. K4's Hopper design
+# (bf16, Dh 64) is faster than K2 at every row from 48 keys up (B x H = 192 at 48-499 keys, down to 24 at 2,048;
+# dropout 0 and 0.1), so BWD_FUSED_MAX is the fusion model's largest dialogue bucket, 33: K2 keeps the buckets, where
+# it packs 2 or 4 slices a block, and its kernel still takes up to FUSED_KERNEL_MAX keys for the crossover rows.
 STREAM_THRESHOLD = 4096
 BWD_FUSED_MAX = 33
 FUSED_KERNEL_MAX = 2048
@@ -353,43 +356,63 @@ def _launch(name: str, q, pointers, sk: int, drop) -> None:
 
 
 def _forward_outputs(q, sk: int):
-    """out, lse and the f32 scratch of a K1 or K3 call: :func:`tf32_scratch_numel` floats in f32 at head dim 64,
-    else :func:`stream_scratch_numel` (read by K3's bf16 Hopper design alone)."""
+    """out, lse and the f32 scratch of a K1 or K3 call: :func:`tf32_scratch_numel` floats in f32 at head dim 64 (the
+    3xTF32 forward's prep pass), else none."""
     b, h, _, dh = q.shape
-    n = tf32_scratch_numel(b, h, sk) if q.dtype == torch.float32 and dh == 64 else stream_scratch_numel(b, sk)
+    n = tf32_scratch_numel(b, h, sk) if q.dtype == torch.float32 and dh == 64 else 0
     return (torch.empty_like(q), torch.empty(q.shape[:3], dtype=torch.float32, device=q.device),
             torch.empty(n, dtype=torch.float32, device=q.device))
+
+
+FORWARD_ROUTES = ("template", "wgmma_bf16", "wgmma_tf32")  # K1's designs, by the route code its C entry writes
 
 
 def flash_attention_forward(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
     """``(out, lse)`` of masked attention. Above ``STREAM_THRESHOLD`` keys
     through :func:`flash_attention_stream` (K3); else K1 for CUDA tensors,
     its plain version for CPU tensors. ``flash_attention_forward.launches``
-    counts K1's launches (one per call; in f32 at head dim 64 a prep pass
-    splits K and V^T into TF32 halves, ``tf32_scratch_numel`` floats, then
-    the forward runs)."""
+    counts K1's launches (one per call), ``.routes`` the same by the design
+    that the C entry took (``FORWARD_ROUTES``): ``wgmma_bf16`` for bf16 at
+    head dim 64 with 16-byte aligned q, k, v and out (the Hopper forward K3
+    shares: one launch), ``wgmma_tf32`` for f32 at head dim 64 with 16-byte
+    aligned tensors (a prep pass splits K and V^T into TF32 halves,
+    ``tf32_scratch_numel`` floats, then the 3xTF32 forward runs),
+    ``template`` otherwise (the fusion model's head dims 96 and 50)."""
     if k.shape[2] > STREAM_THRESHOLD:
         return flash_attention_stream(q, k, v, key_padding_mask, seed, dropout_rate)
     if not _device_or_raise(q):
         return flash_attention_reference(q, k, v, key_padding_mask, seed, dropout_rate)
+    return _k1(q, k, v, key_padding_mask, seed, dropout_rate)
+
+
+def _k1(q, k, v, key_padding_mask, seed, dropout_rate: float, route: int = -1):
+    """One K1 launch on CUDA tensors, counted in ``flash_attention_forward.launches`` and ``.routes``. ``route``
+    -1 takes the C entry's design; 0 takes the template whatever the call, a hook for timing the designs against
+    each other on the same inputs (``bench_attention --crossover``)."""
     _check(q, k, v, key_padding_mask)
     drop = _dropout_args(seed, dropout_rate)
     out, lse, scratch = _forward_outputs(q, k.shape[2])
+    taken = ctypes.c_int(route)  # in: the design asked for; out: the design launched
     _launch("flash_attention_fwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
-                                       out.data_ptr(), lse.data_ptr(), scratch.data_ptr()], k.shape[2], drop)
+                                       out.data_ptr(), lse.data_ptr(), scratch.data_ptr(), ctypes.addressof(taken)],
+            k.shape[2], drop)
     flash_attention_forward.launches += 1
+    flash_attention_forward.routes[FORWARD_ROUTES[taken.value]] += 1
     return out, lse
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.routes = dict.fromkeys(FORWARD_ROUTES, 0)
 
 
 def flash_attention_stream(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
     """``(out, lse)`` through the streaming forward K3 for CUDA tensors, its
     plain version for CPU tensors. ``flash_attention_stream.launches`` counts
-    K3's launches (one per call; at head dim 64 a prep pass writes the keys'
-    biases, in bf16 ``stream_scratch_numel`` floats, in f32 with K's and V^T's
-    TF32 halves ``tf32_scratch_numel``, then the forward runs)."""
+    K3's launches (one per call). At head dim 64 with 16-byte aligned
+    tensors it runs K1's Hopper designs: in bf16 one launch, in f32 a prep
+    pass writing the keys' biases and K's and V^T's TF32 halves
+    (``tf32_scratch_numel`` floats), then the 3xTF32 forward; other head
+    dims take the template K1 shares."""
     if not _device_or_raise(q):
         return flash_attention_stream_reference(q, k, v, key_padding_mask, seed, dropout_rate)
     _check(q, k, v, key_padding_mask)
@@ -404,17 +427,11 @@ def flash_attention_stream(q, k, v, key_padding_mask=None, seed=None, dropout_ra
 flash_attention_stream.launches = 0
 
 
-def stream_scratch_numel(b: int, sk: int) -> int:
-    """f32 scratch of one K3 call in bf16: per key of each batch element its
-    bias in log2 units, keys padded to 64 (the Hopper design's prep pass)."""
-    return b * (-(-sk // 64) * 64)
-
-
 def tf32_scratch_numel(b: int, h: int, sk: int) -> int:
     """f32 scratch of one K1 or K3 call in f32 at head dim 64 (the 3xTF32
-    Hopper forward's prep pass): the key biases as :func:`stream_scratch_numel`,
-    then K's TF32 halves [2, B*H, Sk padded, 64] and V^T's [2, B*H, 64, Sk
-    padded], keys padded to 64."""
+    Hopper forward's prep pass): per key of each batch element its bias in
+    log2 units, then K's TF32 halves [2, B*H, Sk padded, 64] and V^T's [2,
+    B*H, 64, Sk padded], keys padded to 64."""
     pad = -(-sk // 64) * 64
     return b * pad + 4 * b * h * pad * 64
 

@@ -22,14 +22,22 @@ labelled so. One JSON line per shape and dtype.
 times, instead, the kernels on either side of the two dispatch thresholds on
 the same inputs, bf16, the same 10% key mask, dropout 0 and 0.1: the
 single-pass forward K1 against the streaming K3 at the fusion buckets (S 8-33,
-Dh 96) and at 256-4,096 keys (Dh 64; ``CROSSOVER_FORWARD``), the fused
+Dh 96) and at 4,096 keys (Dh 64, where both launch one design;
+``CROSSOVER_FORWARD``), the fused
 backward K2 against the key-tiled K4 at the fusion buckets, at 48-499 keys
 (B 16, the text and wav2vec2 fine-tune batches) and at 512-2,048
 (``CROSSOVER_BACKWARD``), each kernel's own wrapper called whatever the
 dispatch would pick (K2's: ``flash_attention_fused_backward``). One JSON line
 per key count and rate, both kernels named. ``STREAM_THRESHOLD`` and
 ``BWD_FUSED_MAX`` rest on these rows. K1 is timed only up to
-``STREAM_THRESHOLD``: its wrapper hands longer calls to K3.
+``STREAM_THRESHOLD``: its wrapper hands longer calls to K3. Then K1's two
+bf16 designs at head dim 64 on the same inputs (``CROSSOVER_DESIGNS``: the
+RoBERTa and wav2vec2 export batch of 32 at 64-499 keys, and 1,024 keys):
+the template (reached through the route argument of K1's C entry, a hook for
+this comparison) against the Hopper forward the dispatch takes, with SDPA's
+bf16 forward and the template on inputs one element off 16-byte alignment
+(``template_unaligned_ms``, the only way to it without the hook: its
+element-wise loads, not the aligned template's cp.async) beside them.
 
     python -m mer_tpu_torch.scripts.bench_attention --digest [--device cuda|cpu]
 
@@ -71,14 +79,16 @@ SHAPES = [
 ]
 KEY_MASK_FRACTION = 0.1  # scripts/bench_attention.py:85
 # (B, H, S, Dh): the fusion model's dialogue buckets (S 8-33, where K1 and K2 take several (b*h) slices a block
-# up to 32 rows), then B*H 96-24 at Dh 64 up to STREAM_THRESHOLD (4,096 keys) and to K2's kernel range
-# (FUSED_KERNEL_MAX, 2,048); 2,999 is the 60 s bucket of wav2vec2 on long clips; the backward also at the text and
-# wav2vec2 fine-tune batch (16 x 12 heads) at 48-499 keys, 48 closing the gap above the dialogue buckets
+# up to 32 rows), then B*H 96-24 at Dh 64 up to K2's kernel range (FUSED_KERNEL_MAX, 2,048); the backward also at
+# the text and wav2vec2 fine-tune batch (16 x 12 heads) at 48-499 keys, 48 closing the gap above the dialogue
+# buckets. The forward at Dh 64 only at STREAM_THRESHOLD (4,096 keys): K1 and K3 launch one design there, and
+# timed alike at every Dh-64 row of 256-4,096 keys (0.98-1.00 when the crossover still ran those rows)
 FUSION_ROWS = [(32, 8, s, 96) for s in (8, 16, 24, 33)]
-CROSSOVER_FORWARD = FUSION_ROWS + [(8, 12, 256, 64), (8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64),
-                                   (2, 12, 2999, 64), (2, 12, 3072, 64), (2, 12, 4096, 64)]
+CROSSOVER_FORWARD = FUSION_ROWS + [(2, 12, 4096, 64)]
 CROSSOVER_BACKWARD = FUSION_ROWS + [(16, 12, s, 64) for s in (48, 64, 128, 256, 499)] + [
     (8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64)]
+# (B, H, S, Dh): K1's template against its Hopper forward (bf16, Dh 64)
+CROSSOVER_DESIGNS = [(32, 12, s, 64) for s in (64, 99, 128, 199, 256, 499)] + [(8, 12, 1024, 64)]
 CROSSOVER_RATES = (0.0, 0.1)
 # --digest: (kernel, B, H, Sq, Sk) at head dim 64: K1 at the wav2vec2 export's frames, K3 at the 90 s clips'
 DIGEST_CASES = [("K1", 2, 12, 499, 499), ("K3", 2, 12, 4499, 4499)]
@@ -154,11 +164,17 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def timing_inputs(b: int, h: int, s: int, dh: int, dtype: torch.dtype, device: torch.device):
+    """q, k, v, g [b, h, s, dh] of unit normals in ``dtype`` and a key mask [b, s] ignoring each key with
+    probability ``KEY_MASK_FRACTION``, drawn from seed 0 on ``device`` (on the card in milliseconds where numpy
+    takes seconds at the long shapes)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k, v, g = (torch.randn(b, h, s, dh, generator=gen, device=device).to(dtype) for _ in range(4))
+    return q, k, v, g, torch.rand(b, s, generator=gen, device=device) < KEY_MASK_FRACTION
+
+
 def bench_shape(name: str, b: int, h: int, s: int, dh: int, dtype: torch.dtype, device: torch.device) -> dict:
-    rng = np.random.default_rng(0)
-    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, h, s, dh)).astype(np.float32)).to(device, dtype)
-                  for _ in range(4))
-    mask = torch.from_numpy(rng.random((b, s)) < KEY_MASK_FRACTION).to(device)
+    q, k, v, g, mask = timing_inputs(b, h, s, dh, dtype, device)
     attend = ~mask[:, None, None, :]
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
@@ -198,15 +214,21 @@ def bench_shape(name: str, b: int, h: int, s: int, dh: int, dtype: torch.dtype, 
     return row
 
 
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:].copy_(t.reshape(-1))
+    return flat[1:].view(t.shape)
+
+
 def crossover_row(direction: str, b: int, h: int, s: int, dh: int, rate: float, device: torch.device) -> dict:
     """Both kernels of one side of a threshold at ``s`` keys on the same
     inputs: K1 against K3 (``direction`` "forward") or K2 against K4
-    ("backward"), bf16, device ms per call (host ms on the CPU)."""
+    ("backward"), or K1's template against its Hopper forward ("designs",
+    SDPA's forward beside them), bf16, device ms per call (host ms on the
+    CPU)."""
     dtype = torch.bfloat16
-    rng = np.random.default_rng(0)
-    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, h, s, dh)).astype(np.float32)).to(device, dtype)
-                  for _ in range(4))
-    mask = torch.from_numpy(rng.random((b, s)) < KEY_MASK_FRACTION).to(device)
+    q, k, v, g, mask = timing_inputs(b, h, s, dh, dtype, device)
     seed = (0x5EED, s) if rate else None
     timer = (lambda fn: device_ms(fn, 5, 4)) if device.type == "cuda" else (lambda fn: host_ms(fn, 1))
     row = {"direction": direction, "B": b, "H": h, "S": s, "Dh": dh, "dtype": "bfloat16", "dropout": rate,
@@ -216,6 +238,16 @@ def crossover_row(direction: str, b: int, h: int, s: int, dh: int, rate: float, 
         if s > fa.STREAM_THRESHOLD:
             raise ValueError(f"K1 takes at most STREAM_THRESHOLD = {fa.STREAM_THRESHOLD} keys, not {s}")
         fns = [lambda c=c: c(q, k, v, mask, seed, rate) for c in calls]
+    elif direction == "designs":
+        names = ("template", "K1")
+        k1 = lambda: fa.flash_attention_forward(q, k, v, mask, seed, rate)
+        # on the card the template through the route argument of K1's C entry; on the CPU both are the plain version
+        fns = [(lambda: fa._k1(q, k, v, mask, seed, rate, route=0)) if device.type == "cuda" else k1, k1]
+        # the template as a caller reaches it without the hook: q, k, v one element off 16-byte alignment
+        views = [unaligned(t) for t in (q, k, v)]
+        row["template_unaligned_ms"] = timer(lambda: fa.flash_attention_forward(*views, mask, seed, rate))
+        row["sdpa_ms"] = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=~mask[:, None, None, :], dropout_p=rate))
     else:
         names, calls = ("K2", "K4"), (fa.flash_attention_fused_backward, fa.flash_attention_tiled_backward)
         out, lse = fa.flash_attention_stream(q, k, v, mask, seed, rate)
@@ -229,9 +261,11 @@ def crossover_row(direction: str, b: int, h: int, s: int, dh: int, rate: float, 
 
 def crossover(device: torch.device) -> list[dict]:
     """The rows of ``--crossover``: K1 | K3 at ``CROSSOVER_FORWARD`` key
-    counts up to the forward's threshold, K2 | K4 at ``CROSSOVER_BACKWARD``."""
+    counts up to the forward's threshold, K2 | K4 at ``CROSSOVER_BACKWARD``,
+    K1's template | its Hopper forward at ``CROSSOVER_DESIGNS``."""
     rows = []
-    for direction, shapes in (("forward", CROSSOVER_FORWARD), ("backward", CROSSOVER_BACKWARD)):
+    for direction, shapes in (("forward", CROSSOVER_FORWARD), ("backward", CROSSOVER_BACKWARD),
+                              ("designs", CROSSOVER_DESIGNS)):
         for b, h, s, dh in shapes:
             for rate in CROSSOVER_RATES:
                 rows.append(crossover_row(direction, b, h, s, dh, rate, device))

@@ -197,7 +197,7 @@ def test_cpu_dispatch_and_gradients_through_out_and_lse(sk, forward_plain, backw
 def test_k3_k4_wrappers_run_at_any_key_count():
     """Below the thresholds the dispatch picks K1 and K2; K3's and K4's own
     wrappers take any key count and agree with them. The thresholds: 4,096
-    keys for the forward (K1 | K3 time alike), 33 for the backward (K4's
+    keys for the forward (K1 and K3 run one design at head dim 64), 33 for the backward (K4's
     Hopper design is faster than K2 at every crossover row from 48 keys,
     bench_attention.CROSSOVER_BACKWARD, recorded in PERF.md)."""
     q, k, v, g, mask = _t(*_inputs(1, 2, 8, 30, 8, seed=7))
@@ -216,8 +216,8 @@ def test_k3_k4_wrappers_run_at_any_key_count():
 
 def test_dispatch_thresholds_equal_mer_tpu(jax_side):
     """The port's thresholds rest on the card's crossover rows
-    (``bench_attention --crossover``): K1 and K3 time alike on either side,
-    so the forward keeps mer_tpu's 4,096 keys (and the plain tiles its 512);
+    (``bench_attention --crossover``): K1 and K3 run one design at head dim
+    64, so the forward keeps mer_tpu's 4,096 keys (and the plain tiles its 512);
     K4's Hopper design beats K2 at every row from 48 keys ([16, 12, S, 64] at
     S = 48-499, [8-2, 12, 512-2,048, 64]; dropout 0 and 0.1), so the
     backward switches at the fusion buckets' 33 keys, below mer_tpu's 2,048."""

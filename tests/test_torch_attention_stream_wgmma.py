@@ -1,9 +1,11 @@
 """K3's Hopper design (bf16, head dim 64), restated on the CPU; the kernel
 against its plain version on a card.
 
-The design (``csrc/flash_attention_stream.cu``) takes a prep pass's key
+The design (``csrc/flash_attention_hopper.cuh``, which K1 launches too; its
+own tests: ``tests/test_torch_attention_k1_wgmma.py``) takes each tile's key
 biases in log2 units (0, -1e30 log2 e on an ignored key, -inf past Sk, keys
-padded to 64), walks 64-key tiles with an online softmax in log2 units (exp2
+padded to 64; the producer warp makes them from the mask's bytes), walks
+64-key tiles with an online softmax in log2 units (exp2
 of scale log2 e q.k + bias - m, a running max and a row sum of the undropped
 probabilities), multiplies each tile's P o D, rounded to v's dtype, by V, and
 writes out = O / l and lse = m ln 2 + ln l (a fully masked row: -1e30 + ln l,
@@ -61,8 +63,8 @@ def _inputs(b, h, sq, sk, dh=64, seed=0, fully_masked=False):
     return q, k, v, mask
 
 
-def _prep_bias(mask: np.ndarray) -> torch.Tensor:
-    """The prep pass: [B, Sk padded to 64] f32 biases in log2 units."""
+def _key_biases(mask: np.ndarray) -> torch.Tensor:
+    """The key biases of every tile: [B, Sk padded to 64] f32 in log2 units."""
     b, sk = mask.shape
     pad = -(-sk // TILE) * TILE
     bias = torch.full((b, pad), float("-inf"), dtype=torch.float32)
@@ -75,7 +77,7 @@ def _k3_restated(q, k, v, mask, seed=None, rate=0.0, acc=torch.float32):
     arithmetic's dtype. Returns (out in q's dtype, lse in ``acc``)."""
     b, h, sq, dh = q.shape
     sk = k.shape[2]
-    bias = _prep_bias(mask.numpy()).to(acc)
+    bias = _key_biases(mask.numpy()).to(acc)
     c_log2 = LOG2E / math.sqrt(dh)
     m = torch.full((b, h, sq, 1), float("-inf"), dtype=acc)
     l = torch.zeros((b, h, sq, 1), dtype=acc)
@@ -130,7 +132,7 @@ def test_fully_masked_row_is_the_mean_of_v_and_padding_keys_weigh_nothing():
     assert torch.all(lse[0] == torch.tensor(fa.NEG_INF, dtype=torch.float32))
     assert torch.all(lse[1] > fa.FULLY_MASKED_LSE)
     # keys 100..127 of the padded tile are -inf: the last 36 keys' worth of zeros change nothing
-    bias = _prep_bias(mask)
+    bias = _key_biases(mask)
     assert torch.isinf(bias[:, 100:]).all() and (bias[:, 100:] < 0).all() and torch.isfinite(bias[:, :100]).all()
 
 
@@ -211,11 +213,6 @@ def test_warpgroup_philox_draw_covers_each_block_once(q0):
     assert torch.equal(covered, torch.ones_like(covered))
     blocks = {(c, r) for c in range(k0 // 2, (k0 + TILE) // 2) for r in range(q0 // 2, q0 // 2 + 32)}
     assert sorted(drawn) == sorted(blocks)
-
-
-def test_stream_scratch_holds_the_padded_key_biases():
-    assert fa.stream_scratch_numel(2, 4499) == 2 * 4544
-    assert fa.stream_scratch_numel(1, 64) == 64 and fa.stream_scratch_numel(3, 65) == 3 * 128
 
 
 # -- on the card ------------------------------------------------------------------------------
