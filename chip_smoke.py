@@ -28,9 +28,11 @@ that two runs see the same tokens:
    ``preflight`` finds every source built);
 3. hold each kernel against its plain PyTorch version on the card at the
    dialogue buckets (B=32), f32 and bf16, dropout off and on (K1 the
-   forward, K2 the backward), K1 bf16 and its plain version each against
-   an f64 witness over 16 seeds a shape (``rounding_witness``), and read
-   the kernels' dropout masks off exactly; K5 at [32, 64, 47 and 3 clips,
+   forward, K2 the backward: at head dim 96 its one-pass stacked design,
+   each K2 check holding the design its C entry took), K1 bf16 and its plain version
+   each against an f64 witness over 16 seeds a shape (``rounding_witness``),
+   and read the kernels' dropout masks off exactly (K2's also at Dh 96, its
+   stacked design in bf16 and f32); K5 at [32, 64, 47 and 3 clips,
    1001 or 37 frames, 400 taps], on the ``unfold`` view of reflect-padded
    clips and on materialised frames; time kernel, plain version and library call (K5's: the
    torch.stft -> abs -> baddbmm -> log chain); K7 and K6 at [32, 16 and 2
@@ -71,7 +73,9 @@ that two runs see the same tokens:
    dialogue count, several micro-batches);
 6. training: ``mer_tpu_torch.train.main(--synthetic --epochs 2)`` with the
    checkpoints in a temporary directory: 17 K1 (dropout 0.4) and 17 K2
-   launches per step, 17 K1 launches per validation batch, finite losses,
+   launches per step, every K2 launch through its stacked design (as on
+   every counted path: ``main_path_run`` checks each launch's design), 17 K1
+   launches per validation batch, finite losses,
    the last epoch's train loss below the first, and a checkpoint that
    ``mer_tpu_torch.test --checkpoint`` reads; an f32, dropout-0 parity leg
    (3 steps through the kernels against 3 through the plain attention);
@@ -217,17 +221,21 @@ that two runs see the same tokens:
    within 1e-5 of each frame's largest band in the linear domain, exactly
    log(eps) (rounded once from float64) on silence, the same bits from two
    calls;
-8. K6 in f32 against cuDNN's f32 chain, K3 against SDPA, and K1, K3 and K4
-   in f32 at head dim 64 against SDPA's f32 at every phase-3 shape; per
-   main-path shape of each kernel its launches, time, bound, plain and
-   library time, then one ``{"kernels": [...]}`` line, whose times and bound
-   are per launch, averaged over the main paths' launches at their own shapes
-   (K6, K1, K3 and K4 an entry per dtype, ``w2v_conv_tail``,
-   ``flash_attention_fwd``, ``flash_attention_stream`` and
-   ``flash_attention_tiled_bwd`` bf16 and the same names with ``_f32``, whose
-   bounds count three TF32 products per f32 product at the TF32 peak
-   (``utils/profiling.py``'s ``PEAK_TF32X3``): K6 and, at head dim 64, K1, K3
-   and K4; K5's bound from the function's least work, a
+8. K6 in f32 against cuDNN's f32 chain, K3 against SDPA, K2 (its stacked
+   design, in bf16 and f32) against SDPA's backward,
+   and K1, K3 and K4 in f32 at head dim 64 against SDPA's f32 at every
+   phase-3 shape; per main-path shape of each kernel its launches, time,
+   bound, plain and library time, then one ``{"kernels": [...]}`` line, whose
+   times and bound are per launch, averaged over the main paths' launches at
+   their own shapes (K6, K1, K2, K3 and K4 an entry per dtype,
+   ``w2v_conv_tail``, ``flash_attention_fwd``, ``flash_attention_bwd``,
+   ``flash_attention_stream`` and ``flash_attention_tiled_bwd`` bf16 and the
+   same names with ``_f32``, whose bounds count three TF32 products per f32
+   product at the TF32 peak (``utils/profiling.py``'s ``PEAK_TF32X3``): K6
+   and, at head dim 64, K1, K3 and K4; K1's and K2's template routes an entry
+   ``_template`` where a counted path launched them (K2's template against
+   its stacked design at the same shapes: phase 6j's ``k2 designs`` rows);
+   K5's bound from the function's least work, a
    real FFT and the mel product over the filterbank's nonzeros; P's averaged
    over its six probes, each probe's row beside it); then the device line
    last.
@@ -571,6 +579,14 @@ def k1_routed(fa, call, route: str):
     return result
 
 
+def backward_route(shape, dtype: str) -> str:
+    """The design K2's C entry takes (``fa.FUSED_ROUTES``) for 16-byte aligned tensors, as every main path hands
+    them: its one-pass stacked design in bf16 and f32 at Sq, Sk <= 64 and head dims 64 and 96, else the template."""
+    from mer_tpu_torch.ops import flash_attention as fa
+
+    return fa._fused_route(DTYPES[dtype], shape[2], shape[3], shape[4], True)
+
+
 def backward_kernel(fa, keys: int) -> str:
     """The backward kernel the dispatch picks at ``keys`` keys: K2 up to
     ``BWD_FUSED_MAX`` (the dialogue buckets), K4 above."""
@@ -622,14 +638,19 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
         plain = lambda: plain_fn(q, k, v, mask, seed, rate)
         library = (lambda: time_device(lambda: sdpa_forward(q, k, v, mask, rate)))
     else:
-        routes = dict(fa.flash_attention_tiled_backward.routes)
+        wrapper = fa.flash_attention_tiled_backward if kernel == TILED else fa.flash_attention_backward
+        routes = dict(wrapper.routes)
         grads = call_fn(q, k, v, mask, out, lse, g, seed, rate)
         torch.cuda.synchronize()
-        if kernel == TILED:  # the design K4's C entry took: its Hopper designs at head dim 64, else the template
+        # the design the C entry took: K4's Hopper designs at head dim 64, K2's stacked design at the fusion
+        # model's dialogues, else the template
+        if kernel == TILED:
             route = ("wgmma_tf32" if dtype == "float32" else "wgmma_bf16") if shape[4] == 64 else "template"
-            if fa.flash_attention_tiled_backward.routes != {**routes, route: routes[route] + 1}:
-                raise AssertionError(f"K4 at {shape} {dtype}: expected its {route} route, took "
-                                     f"{fa.flash_attention_tiled_backward.routes} after {routes}")
+        else:
+            route = backward_route(shape, dtype)
+        if wrapper.routes != {**routes, route: routes[route] + 1}:
+            raise AssertionError(f"{'K4' if kernel == TILED else 'K2'} at {shape} {dtype}: expected its {route} "
+                                 f"route, took {wrapper.routes} after {routes}")
         ref = plain_fn(q, k, v, mask, out, lse, g, seed, rate)
         errs = attention_errors(("dq", "dk", "dv"), grads, ref, dtype)
         max_abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref))
@@ -715,7 +736,8 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
     """Read the kernels' dropout masks off exactly: with v = I the forward's
     out[i, j] is P_ij D_ij; with g one-hot, g[i, i - i0] = 1 for the query
     rows i0 .. i0 + Dh - 1 of a window, the backward's dv[j, i - i0] is too.
-    K1 and K2 (Dh = Sq: one window), or with ``long`` K3 and K4 (their
+    K1 and K2 (Dh = Sq: one window; K2 also at Dh 96, its stacked design in
+    bf16 and f32, up to 64 keys), or with ``long`` K3 and K4 (their
     wrappers, at this key count; Dh 64, K4's Hopper design in bf16, so
     ceil(Sq / 64) windows). With ``long`` K3 and K1 are also read at Dh 64
     (their Hopper designs: K3's in bf16, the 3xTF32 forward both launch in
@@ -740,6 +762,19 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
         g = torch.zeros(b, h, sq, dh, device="cuda", dtype=dtype)
         g[:, :, i0:i0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
         bwd_mask[:, :, i0:i0 + n] = backward(q, k, v, None, out, lse, g, seed, rate)[2][..., :n].transpose(2, 3) > 0
+    # K2's stacked design at the fusion model's head dim (96 >= Sq: one window), bf16 and f32, wherever it takes the
+    # size (Sq, Sk <= 64; through K2's own wrapper, which the dispatch skips above 33 keys)
+    stacked_bad = 0
+    for dtype_name, stacked_dtype in DTYPES.items() if not long and max(sq, sk) <= fa.STACKED_MAX else ():
+        q, k, v = (randn(b, h, n, 96).to(stacked_dtype) for n in (sq, sk, sk))
+        out, lse = forward(q, k, v, None, seed, rate)
+        g = torch.zeros(b, h, sq, 96, device="cuda", dtype=stacked_dtype)
+        g[:, :, :, :sq] = torch.eye(sq, device="cuda", dtype=stacked_dtype)
+        before, route = dict(fa.flash_attention_backward.routes), backward_route((b, h, sq, sk, 96), dtype_name)
+        dv = fa.flash_attention_fused_backward(q, k, v, None, out, lse, g, seed, rate)[2]
+        if fa.flash_attention_backward.routes != {**before, route: before[route] + 1}:
+            raise AssertionError(f"K2's dropout read-off at Dh 96 missed its {route} design")
+        stacked_bad += int(((dv[..., :sq].transpose(2, 3) > 0) != want).sum())
     windowed = {}  # K3's and K1's mismatches at Dh 64, read in key windows
     for name, fwd in (("K3", forward), ("K1", fa.flash_attention_forward)) if long else ():
         window_mask = want.clone()
@@ -754,8 +789,9 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
                 got = call()
             window_mask[..., j0:j0 + n] = got[..., :n] > 0
         windowed[name] = int((window_mask != want).sum())
-    bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum()), sum(windowed.values())
-    log(f"dropout masks of {'K3, K4' if long else 'K1, K2'} {DTYPE_LABELS[dtype]} at B={b} H={h} Sq={sq} Sk={sk} "
+    bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum()) + stacked_bad, sum(windowed.values())
+    log(f"dropout masks of {'K3, K4' if long else 'K1, K2 (K2 also at Dh 96, its stacked design in bf16 and f32)'} "
+        f"{DTYPE_LABELS[dtype]} at B={b} H={h} Sq={sq} Sk={sk} "
         f"rate {rate}: {want.numel()} probabilities, keep rate {want.float().mean().item()}, mismatches forward "
         f"{bad[0]}, backward {bad[1]}" + (f", forwards at Dh 64 in key windows {windowed}" if long else ""))
     if bad != (0, 0, 0):
@@ -971,11 +1007,14 @@ def main_path_run():
             rate = round(1.0 - 1.0 / keep_scale, 6) if on else 0.0
             PATH_SHAPES[(name, dims, DTYPE_NAMES[args[0]], rate)] += 1
             rc = fn(*args)
-            if name == FWD and rc == 0:  # K1's last pointer: the design its C entry launched
-                route, want = fa.FORWARD_ROUTES[ctypes.c_int.from_address(args[n_pointers]).value], forward_route(
-                    dims, DTYPE_NAMES[args[0]])
+            if name in (FWD, BWD) and rc == 0:  # K1's and K2's last pointer: the design their C entry launched
+                routes, expected = (fa.FORWARD_ROUTES, forward_route) if name == FWD else (fa.FUSED_ROUTES,
+                                                                                            backward_route)
+                route = routes[ctypes.c_int.from_address(args[n_pointers]).value]
+                want = expected(dims, DTYPE_NAMES[args[0]])
                 if route != want:
-                    raise AssertionError(f"K1 at {dims} {DTYPE_NAMES[args[0]]} took its {route} design, not {want}")
+                    raise AssertionError(f"{'K1' if name == FWD else 'K2'} at {dims} {DTYPE_NAMES[args[0]]} took "
+                                         f"its {route} design, not {want}")
             return rc
 
         return launch
@@ -1160,18 +1199,24 @@ def training_phase(fa, card: str) -> dict:
         argv = ["--synthetic", "--config", cfg_path]
 
         t0 = time.perf_counter()
+        k2_before = dict(fa.flash_attention_backward.routes)
         with main_path_run() as run:
             state, history = train_entry.main([*argv, "--epochs", str(TRAIN_EPOCHS)])
         seconds = time.perf_counter() - t0
         _, batchers, solver = build(parse_args(argv))
         steps, val_batches = TRAIN_EPOCHS * len(batchers["train"]), TRAIN_EPOCHS * len(batchers["val"])
         want = {**ZERO, FWD: per_forward * (steps + val_batches), BWD: per_forward * steps}
+        # every K2 launch of a step through the stacked design (the fusion model's 8 heads of 96, Sq = Sk <= 33)
+        k2_routes = {r: fa.flash_attention_backward.routes[r] - k2_before[r] for r in fa.FUSED_ROUTES}
+        want_routes = {**dict.fromkeys(fa.FUSED_ROUTES, 0),
+                       backward_route((1, 1, max(BUCKETS), max(BUCKETS), 96), config.tpu.compute_dtype): want[BWD]}
         losses = history["loss_values"]
         log(f"training: {TRAIN_EPOCHS} epochs of {len(batchers['train'])} steps in {seconds} s (model build, "
             f"checkpoints and validation included); losses {json.dumps(history)}; launches {run} "
-            f"(want {want}: {per_forward} K1 + {per_forward} K2 per step, {per_forward} K1 per validation batch)")
-        if run != want:
-            raise AssertionError(f"training launches {run}, want {want}")
+            f"(want {want}: {per_forward} K1 + {per_forward} K2 per step, {per_forward} K1 per validation batch); "
+            f"K2 by design {k2_routes} (want {want_routes})")
+        if run != want or k2_routes != want_routes:
+            raise AssertionError(f"training launches {run}, want {want}; K2 designs {k2_routes}, want {want_routes}")
         if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses + history["val_loss_values"]):
             raise AssertionError(f"training losses not finite or epochs missing: {history}")
         if not losses[-1] < losses[0]:
@@ -2867,8 +2912,9 @@ def parallel_phase(fa, card: str) -> dict:
                 f"losses {got_losses} vs {losses}, max diff {loss_diff} (tol {loss_tol}); weights {json.dumps(held)} "
                 f"(beyond {parallel_check.F32_TOL}: at most {parallel_check.STRAY_SHARE[DTYPES[dtype]]} of those "
                 f"held); launches a rank {[r[name]['launches'] for r in ranks]} (want {want_run}: "
-                f"{per_step} K1 + {per_step} K2 a step); optimizer bytes a rank "
-                f"{[r[name]['optimizer_bytes'] for r in ranks]}")
+                f"{per_step} K1 + {per_step} K2 a step, every K2 launch through its "
+                f"{backward_route((1, 1, 8, 8, 96), dtype)} design, as main_path_run checks each); optimizer bytes "
+                f"a rank {[r[name]['optimizer_bytes'] for r in ranks]}")
             if not (loss_diff <= loss_tol and held["excess"] <= 0):
                 raise AssertionError(f"parallel {name} departs from the single-process steps")
             for r in ranks:
@@ -3137,7 +3183,8 @@ def log_k4_f32_breakdown(fa, card: str, calls: int = 5) -> None:
 def attention_bench_phase(card: str) -> None:
     """Phase 6j: the attention bench entry point at all its shapes, f32 and
     bf16, and its crossover rows (K1 | K3, K2 | K4 on either side of the
-    dispatch thresholds)."""
+    dispatch thresholds; K1's and K2's templates against their Hopper
+    designs)."""
     from mer_tpu_torch.scripts import bench_attention
 
     t0 = time.perf_counter()
@@ -3157,9 +3204,12 @@ def attention_bench_phase(card: str) -> None:
         if not all(math.isfinite(t) and t > 0 for t in times):
             raise AssertionError(f"bench_attention crossover row without times: {r}")
         sdpa = (f", SDPA {r['sdpa_ms']} ms, {b} / SDPA {times[1] / r['sdpa_ms']}, template on unaligned inputs "
-                f"{r['template_unaligned_ms']} ms" if r["direction"] == "designs" else "")
-        log(f"crossover {r['direction']} [{r['B']}, {r['H']}, {r['S']}, {r['Dh']}] bf16 dropout {r['dropout']}: "
-            f"{a} {times[0]} ms, {b} {times[1]} ms, {b} / {a} {times[1] / times[0]}{sdpa} ({card})")
+                f"{r['template_unaligned_ms']} ms" if r["direction"] == "designs" else
+                f", SDPA's backward {r['sdpa_backward_ms']} ms, {b} / SDPA {times[1] / r['sdpa_backward_ms']}"
+                if r["direction"] == "k2 designs" else "")
+        log(f"crossover {r['direction']} [{r['B']}, {r['H']}, {r['S']}, {r['Dh']}] {r.get('dtype', 'bfloat16')} "
+            f"dropout {r['dropout']}: {a} {times[0]} ms, {b} {times[1]} ms, {b} / {a} {times[1] / times[0]}{sdpa} "
+            f"({card})")
     log(f"bench_attention --crossover in {time.perf_counter() - t0:.1f} s")
 
 
@@ -3356,31 +3406,43 @@ def main() -> None:
     # 8. kernel line (times per launch, averaged over the main paths' launches
     # at their own shapes), then the device line last
     dh64 = lambda case: case[1][-1] == 64
+    stacked = lambda case: backward_route(case[1], case[2]) != "template"  # K2's one-pass stacked design
     for what, kernel, dtype, only in (
             ("K6 f32 (3xTF32) against cuDNN's f32 chain, TF32 off", W2V_TAIL, "float32", None),
             ("K1 bf16, Hopper forward (Dh 64), against SDPA", FWD, "bfloat16", dh64),
             ("K1 bf16, template (other head dims), against SDPA", FWD, "bfloat16", lambda case: not dh64(case)),
+            ("K2 bf16, stacked design, against SDPA's backward", BWD, "bfloat16", stacked),
+            ("K2 f32, stacked design, against SDPA's f32 backward", BWD, "float32", stacked),
+            ("K2, template (other head dims), against SDPA's backward", BWD, None, lambda case: not stacked(case)),
             ("K3 against SDPA", STREAM, "bfloat16", None),
             ("K1 f32 (3xTF32) against SDPA's f32", FWD, "float32", dh64),
             ("K3 f32 (3xTF32) against SDPA's f32", STREAM, "float32", dh64),
             ("K4 f32 (3xTF32) against SDPA's f32 backward", TILED, "float32", dh64)):
         log(f"{what}, per phase-3 shape (launches: the counted paths'; ms a call, graph replay; {card}):")
         # the attention f32 rows: head dim 64 alone (the 3xTF32 design; other head dims run the template)
-        for case in sorted(c for c in by_case if c[0] == kernel and c[2] == dtype and (only is None or only(c))):
+        for case in sorted(c for c in by_case
+                           if c[0] == kernel and dtype in (None, c[2]) and (only is None or only(c))):
             r = by_case[case]
-            log(f"  {case[1]} dropout {case[3]}: launches {PATH_SHAPES.get(case, 0)}, kernel {r['kernel_ms']} ms, "
-                f"library {r['library_ms']} ms, kernel / library {r['kernel_ms'] / r['library_ms']}, bound "
-                f"{r['bound_us'] / 1e3} ms ({r['bound_by']}), share of bound {r['bound_us'] / 1e3 / r['kernel_ms']}")
+            log(f"  {case[1]} {case[2]} dropout {case[3]}: launches {PATH_SHAPES.get(case, 0)}, kernel "
+                f"{r['kernel_ms']} ms, library {r['library_ms']} ms, kernel / library "
+                f"{r['kernel_ms'] / r['library_ms']}, bound {r['bound_us'] / 1e3} ms ({r['bound_by']}), share of "
+                f"bound {r['bound_us'] / 1e3 / r['kernel_ms']}")
     kernels = []
     # K6's, K3's and K4's two dtypes are two routes each (bf16 wgmma or mma.sync, f32 3xTF32 or the f32 template),
-    # and K1's bf16 two more (its Hopper forward at head dim 64, the template at the fusion model's head dims): an
-    # entry each, together the kernel's launches
+    # K1's bf16 two more (its Hopper forward at head dim 64, the template at the fusion model's head dims), and K2's
+    # stacked design two (bf16 on wgmma, f32 by FMA) beside its template: an entry each, together the kernel's
+    # launches. K2's template entry stands only where a counted path launched it (every counted K2 call is at the
+    # fusion model's 8 heads of 96, which the stacked design takes)
     bf16, f32 = (lambda case: case[2] == "bfloat16"), (lambda case: case[2] == "float32")
-    entries = []
+    entries, optional = [], {BWD + "_template"}
     for name in KERNELS:
         if name == FWD:
             entries += [(FWD, FWD, lambda case: bf16(case) and dh64(case)),
                         (FWD + "_template", FWD, lambda case: bf16(case) and not dh64(case)), (FWD + "_f32", FWD, f32)]
+        elif name == BWD:
+            entries += [(BWD, BWD, lambda case: bf16(case) and stacked(case)),
+                        (BWD + "_f32", BWD, lambda case: f32(case) and stacked(case)),
+                        (BWD + "_template", BWD, lambda case: not stacked(case))]
         elif name in (W2V_TAIL, STREAM, TILED):
             entries += [(name, name, bf16), (name + "_f32", name, f32)]
         else:
@@ -3398,6 +3460,9 @@ def main() -> None:
         keys = ("kernel_ms", "plain_ms", "library_ms", "bound_bytes_us", "bound_ops_us")
         total = {key: sum(n * by_case[case][key] for case, n in path.items()) for key in keys}
         n = sum(path.values())  # launches[name] over all its entries (tallied = counted, checked above)
+        if n == 0 and entry in optional:
+            log(f"{entry}: no launch on the counted paths (none of their calls takes this design)")
+            continue
         if n == 0:
             raise AssertionError(f"{entry}: no launch on the counted paths")
         log(f"{entry} main path: {n} launches at {len(path)} cases; summed over them {json.dumps(total)} ({card})")

@@ -60,6 +60,19 @@ struct Dropout {
   int on;
 };
 
+// The lane's four keep bits from the words w of the 2 x 2 block it drew (see keep_bits), p the parity of its first
+// fragment row: lanes l and l ^ 4 swap rows.
+__device__ __forceinline__ uint32_t lane_keep_bits(const Dropout& d, const uint32_t (&w)[4], uint32_t p,
+                                                   bool transposed) {
+  // word 2 (query & 1) + (key & 1): the block's fragment row of parity r, columns c = 0, 1, as bits c
+  const auto keep = [&](int i) { return static_cast<uint32_t>(w[i] >= d.threshold); };
+  const uint32_t row0 = transposed ? keep(0) | (keep(2) << 1) : keep(0) | (keep(1) << 1);
+  const uint32_t row1 = transposed ? keep(1) | (keep(3) << 1) : keep(2) | (keep(3) << 1);
+  const uint32_t mine = p ? row1 : row0;                           // this lane's row of its own block
+  const uint32_t got = __shfl_xor_sync(0xffffffffu, p ? row0 : row1, 4);  // its row of lane ^ 4's block
+  return p ? got | (mine << 2) : mine | (got << 2);                   // rows g (bits 0, 1) and g + 8 (bits 2, 3)
+}
+
 // The keep bits of a lane's four scores in the accumulator layout: bit 2 h + c
 // is that of fragment row row + 8 h, fragment column col + c. `row` is the
 // lane's first fragment row (g), whose parity is g's (the tile starts on an
@@ -74,13 +87,17 @@ __device__ __forceinline__ uint32_t keep_bits(const Dropout& d, uint32_t bh, uin
   uint32_t w[4];
   if (transposed) philox4(d.seed0, d.seed1, pair, col >> 1, bh, w);
   else philox4(d.seed0, d.seed1, col >> 1, pair, bh, w);
-  // word 2 (query & 1) + (key & 1): the block's fragment row of parity r, columns c = 0, 1, as bits c
-  const auto keep = [&](int i) { return static_cast<uint32_t>(w[i] >= d.threshold); };
-  const uint32_t row0 = transposed ? keep(0) | (keep(2) << 1) : keep(0) | (keep(1) << 1);
-  const uint32_t row1 = transposed ? keep(1) | (keep(3) << 1) : keep(2) | (keep(3) << 1);
-  const uint32_t mine = p ? row1 : row0;                           // this lane's row of its own block
-  const uint32_t got = __shfl_xor_sync(0xffffffffu, p ? row0 : row1, 4);  // its row of lane ^ 4's block
-  return p ? got | (mine << 2) : mine | (got << 2);                   // rows g (bits 0, 1) and g + 8 (bits 2, 3)
+  return lane_keep_bits(d, w, p, transposed);
+}
+
+// keep_bits (not transposed) where a lane's block is not found from its fragment row alone, as in a tile that
+// stacks several (b*h) slices: the block the lane draws (fragment rows g, g + 1 for p = 0, or g + 7, g + 8 for
+// p = 1; columns col, col + 1) is head bh's query rows 2 pair, 2 pair + 1 at keys col, col + 1 (col even).
+__device__ __forceinline__ uint32_t keep_bits_at(const Dropout& d, uint32_t bh, uint32_t pair, uint32_t col,
+                                                 uint32_t p) {
+  uint32_t w[4];
+  philox4(d.seed0, d.seed1, col >> 1, pair, bh, w);
+  return lane_keep_bits(d, w, p, false);
 }
 
 // The factors D (keep_scale if kept, else 0) of those four scores: f[2 h + c].

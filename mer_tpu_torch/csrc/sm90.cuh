@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, named barriers,
 // programmatic dependent launch, TMA loads, the async-proxy fence, the wgmma
-// shared-memory descriptor, the bf16 m64nNk16 wgmma products (N = 64, 128),
+// shared-memory descriptors, the bf16 m64nNk16 wgmma products (N = 64, 96, 128;
+// both operands in shared memory, K-major or MN-major, or A from registers),
 // the tf32 m64n64k8 ones (A from shared memory or registers) and m64n128k8
 // one (A from registers), the f32 -> tf32 rounding and 3xTF32's splits, and
 // host helpers that
@@ -102,6 +103,12 @@ __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
          (uint64_t(1) << 62);
+}
+// The same for an MN-major operand wider than one 64-value atom: the atoms (tiles of 64 rows x 128 bytes) lie
+// `atom_bytes` apart, the leading byte offset of an MN-major swizzled layout (a width of 96 reads the first half of
+// the second atom)
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t atom_bytes) {
+  return (desc_sw128(p) & ~(uint64_t(0x3FFF) << 16)) | (static_cast<uint64_t>(atom_bytes >> 4) << 16);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -237,6 +244,35 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a
       : MER_WGMMA_D32_OPERANDS(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N] in bf16 with both operands in shared memory, each K-major (0) or MN-major
+// (1, the instruction's transpose bits kTransA, kTransB); N = 64 (d[32]) or 96 (d[48]), d's layout as wgmma_ss's
+// with the column groups j running to N / 8 - 1; accumulate = 0 overwrites d. An MN-major B of N = 96 takes its
+// descriptor from desc_sw128_mn.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MER_WGMMA_D32 ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : MER_WGMMA_D32_OPERANDS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+#define MER_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define MER_F16(d, i) MER_F4(d, i), MER_F4(d, i + 4), MER_F4(d, i + 8), MER_F4(d, i + 12)
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[48], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : MER_F16(d, 0), MER_F16(d, 16), MER_F16(d, 32)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+#undef MER_F4
+#undef MER_F16
 
 #undef MER_WGMMA_D32
 #undef MER_WGMMA_D32_OPERANDS

@@ -25,8 +25,13 @@ fusion model's 96 and 50) and unaligned tensors take two kernel templates,
 one forward for K1 and K3 (``csrc/flash_attention_forward.cuh``) and one
 backward for K2 and K4 (``csrc/flash_attention_backward.cuh``), on the
 tensor-core tile products of ``csrc/flash_attention_tiles.cuh`` in bf16
-(``mma.sync``; f32 by FMA on the CUDA cores, bound by the f32 rate); K2 is
-the template alone. All draw dropout with the Philox generator
+(``mma.sync``; f32 by FMA on the CUDA cores, bound by the f32 rate). K2 at
+Sq, Sk <= 64 and head dims 64 and 96 with 16-byte aligned tensors (the
+fusion model's dialogues) is a one-pass design of its own
+(``csrc/flash_attention_bwd_stacked.cuh``): one launch, a block a 64-row tile
+of whole (b*h) slices stacked block-diagonally, in bf16 TMA and five
+``wgmma`` products, in f32 bulk copies and FMA; other K2 calls take the
+backward template. All draw dropout with the Philox generator
 ``csrc/philox.cuh``; the templates take several (b*h) slices a block for
 sequences up to 32 rows. Each source's header states its design and bound.
 
@@ -48,8 +53,8 @@ version only for CPU tensors, so the CPU runs the algebra the card runs;
 either device. Each wrapper counts its kernel's launches in ``.launches``:
 :func:`flash_attention_forward` K1's, :func:`flash_attention_stream` K3's,
 :func:`flash_attention_backward` K2's, :func:`flash_attention_tiled_backward`
-K4's; K1's and K4's ``.routes`` count them again by the design their C entry
-took.
+K4's; K1's, K2's and K4's ``.routes`` count them again by the design their C
+entry took.
 
 Semantics (every version): q [B, H, Sq, Dh], k/v [B, H, Sk, Dh] in float32 or
 bfloat16 (the plain versions also take float64); ``key_padding_mask`` [B, Sk]
@@ -436,20 +441,15 @@ def tf32_scratch_numel(b: int, h: int, sk: int) -> int:
     return b * pad + 4 * b * h * pad * 64
 
 
-def _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse, scratch_numel=None):
-    """Checks a backward call; returns (dq, dk, dv, f32 scratch, dropout args).
-    The scratch is delta [B, H, Sq] between the two grids, or ``scratch_numel``
-    floats."""
+def _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse):
+    """Checks a backward call; returns (dq, dk, dv, dropout args)."""
     _check(q, k, v, key_padding_mask)
     _check_like("out", out, q.shape, q.dtype, q.device)
     _check_like("g", g, q.shape, q.dtype, q.device)
     _check_like("lse", lse, q.shape[:3], torch.float32, q.device)
     if g_lse is not None:
         _check_like("g_lse", g_lse, q.shape[:3], torch.float32, q.device)
-    drop = _dropout_args(seed, dropout_rate)
-    shape = q.shape[:3] if scratch_numel is None else (scratch_numel,)
-    scratch = torch.empty(shape, dtype=torch.float32, device=q.device)
-    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), scratch, drop
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), _dropout_args(seed, dropout_rate)
 
 
 def tiled_scratch_numel(b: int, h: int, sq: int, sk: int, dropout: bool, tf32: bool = False) -> int:
@@ -481,14 +481,26 @@ def flash_attention_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, 
     """``(dq, dk, dv)``. Above ``BWD_FUSED_MAX`` keys through
     :func:`flash_attention_tiled_backward` (K4), else through
     :func:`flash_attention_fused_backward` (K2).
-    ``flash_attention_backward.launches`` counts K2's launches (one per call:
-    the dq and the dk/dv grids)."""
+    ``flash_attention_backward.launches`` counts K2's launches (one per call),
+    ``.routes`` the same by the design its C entry took (``FUSED_ROUTES``)."""
     if k.shape[2] > BWD_FUSED_MAX:
         return flash_attention_tiled_backward(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
     return flash_attention_fused_backward(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
 
 
-flash_attention_backward.launches = 0
+FUSED_ROUTES = ("template", "stacked_bf16", "stacked_f32")  # K2's designs, by the route code its C entry writes
+STACKED_MAX = 64  # the stacked design's largest Sq and Sk
+STACKED_HEAD_DIMS = (64, 96)
+
+
+def _fused_route(dtype: torch.dtype, sq: int, sk: int, dh: int, aligned: bool) -> str:
+    """The design K2's C entry takes (``csrc/flash_attention_bwd.cu``, whose ``mer_stacked::takes`` this mirrors):
+    the one-pass stacked design in bf16 and f32 at Sq, Sk <= ``STACKED_MAX`` and a head dim in
+    ``STACKED_HEAD_DIMS`` with q, k, v, out, g, dq, dk, dv all 16-byte aligned (``aligned``), else the template."""
+    if aligned and dtype in _DTYPE_CODE and 1 <= sq <= STACKED_MAX and 1 <= sk <= STACKED_MAX \
+            and dh in STACKED_HEAD_DIMS:
+        return "stacked_bf16" if dtype == torch.bfloat16 else "stacked_f32"
+    return "template"
 
 
 def flash_attention_fused_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, dropout_rate: float = 0.0,
@@ -497,16 +509,39 @@ def flash_attention_fused_backward(q, k, v, key_padding_mask, out, lse, g, seed=
     kernel takes up to ``FUSED_KERNEL_MAX`` keys, whatever the dispatch
     picks: the crossover rows time it above ``BWD_FUSED_MAX``), its plain
     version for CPU tensors. Its launches count in
-    ``flash_attention_backward.launches``."""
+    ``flash_attention_backward.launches`` and ``.routes``: ``stacked_bf16``
+    and ``stacked_f32`` for the one-pass stacked design
+    (:func:`_fused_route`; no scratch), ``template`` otherwise (the two grids,
+    with delta [B, H, Sq] in f32 scratch between them)."""
     if not _device_or_raise(q):
         return flash_attention_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate,
                                                   g_lse)
-    dq, dk, dv, delta, drop = _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
+    return _k2(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
+
+
+def _k2(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate: float, g_lse, route: int = -1):
+    """One K2 launch on CUDA tensors, counted in ``flash_attention_backward.launches`` and ``.routes``. ``route``
+    -1 takes the C entry's design; 0 takes the template whatever the call, a hook for timing the designs against
+    each other on the same inputs (``bench_attention --crossover``)."""
+    dq, dk, dv, drop = _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, g, dq, dk, dv))
+    want = "template" if route == 0 else _fused_route(q.dtype, q.shape[2], k.shape[2], q.shape[3], aligned)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if want == "template" else None
+    taken = ctypes.c_int(route)  # in: the design asked for; out: the design launched
     _launch("flash_attention_bwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                                        out.data_ptr(), lse.data_ptr(), g.data_ptr(), _ptr(g_lse), dq.data_ptr(),
-                                       dk.data_ptr(), dv.data_ptr(), delta.data_ptr()], k.shape[2], drop)
+                                       dk.data_ptr(), dv.data_ptr(), _ptr(delta), ctypes.addressof(taken)],
+            k.shape[2], drop)
+    if FUSED_ROUTES[taken.value] != want:
+        raise RuntimeError(f"K2's C entry took its {FUSED_ROUTES[taken.value]} design where the wrapper expected "
+                           f"{want}")
     flash_attention_backward.launches += 1
+    flash_attention_backward.routes[want] += 1
     return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+flash_attention_backward.routes = dict.fromkeys(FUSED_ROUTES, 0)
 
 
 def flash_attention_tiled_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, dropout_rate: float = 0.0,
@@ -522,8 +557,9 @@ def flash_attention_tiled_backward(q, k, v, key_padding_mask, out, lse, g, seed=
         return flash_attention_tiled_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed,
                                                         dropout_rate, g_lse)
     tf32 = q.dtype == torch.float32 and q.shape[3] == 64
-    dq, dk, dv, scratch, drop = _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse,
-                                               tiled_scratch_numel(*q.shape[:3], k.shape[2], dropout_rate > 0, tf32))
+    dq, dk, dv, drop = _backward_args(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate, g_lse)
+    scratch = torch.empty(tiled_scratch_numel(*q.shape[:3], k.shape[2], dropout_rate > 0, tf32), dtype=torch.float32,
+                          device=q.device)
     _launch("flash_attention_tiled_bwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                                              out.data_ptr(), lse.data_ptr(), g.data_ptr(), _ptr(g_lse),
                                              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr()],

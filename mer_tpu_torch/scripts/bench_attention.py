@@ -24,7 +24,8 @@ the same inputs, bf16, the same 10% key mask, dropout 0 and 0.1: the
 single-pass forward K1 against the streaming K3 at the fusion buckets (S 8-33,
 Dh 96) and at 4,096 keys (Dh 64, where both launch one design;
 ``CROSSOVER_FORWARD``), the fused
-backward K2 against the key-tiled K4 at the fusion buckets, at 48-499 keys
+backward K2 against the key-tiled K4 at the fusion buckets, at 48 and 64 keys
+(the fusion width, where K2 still takes its stacked design), at 48-499 keys
 (B 16, the text and wav2vec2 fine-tune batches) and at 512-2,048
 (``CROSSOVER_BACKWARD``), each kernel's own wrapper called whatever the
 dispatch would pick (K2's: ``flash_attention_fused_backward``). One JSON line
@@ -37,7 +38,10 @@ the template (reached through the route argument of K1's C entry, a hook for
 this comparison) against the Hopper forward the dispatch takes, with SDPA's
 bf16 forward and the template on inputs one element off 16-byte alignment
 (``template_unaligned_ms``, the only way to it without the hook: its
-element-wise loads, not the aligned template's cp.async) beside them.
+element-wise loads, not the aligned template's cp.async) beside them. Last,
+K2's template (through the route argument of its C entry) against its
+one-pass stacked design at the counted fusion shapes, bf16 and f32, with
+SDPA's backward beside them (``CROSSOVER_K2``).
 
     python -m mer_tpu_torch.scripts.bench_attention --digest [--device cuda|cpu]
 
@@ -80,16 +84,25 @@ SHAPES = [
 KEY_MASK_FRACTION = 0.1  # scripts/bench_attention.py:85
 # (B, H, S, Dh): the fusion model's dialogue buckets (S 8-33, where K1 and K2 take several (b*h) slices a block
 # up to 32 rows), then B*H 96-24 at Dh 64 up to K2's kernel range (FUSED_KERNEL_MAX, 2,048); the backward also at
-# the text and wav2vec2 fine-tune batch (16 x 12 heads) at 48-499 keys, 48 closing the gap above the dialogue
-# buckets. The forward at Dh 64 only at STREAM_THRESHOLD (4,096 keys): K1 and K3 launch one design there, and
-# timed alike at every Dh-64 row of 256-4,096 keys (0.98-1.00 when the crossover still ran those rows)
+# the fusion width past the buckets (48 and 64 keys, K2's stacked design's last sizes) and at the text and wav2vec2
+# fine-tune batch (16 x 12 heads) at 48-499 keys, 48 closing the gap above the dialogue buckets. The forward at Dh
+# 64 only at STREAM_THRESHOLD (4,096 keys): K1 and K3 launch one design there, and timed alike at every Dh-64 row
+# of 256-4,096 keys (0.98-1.00 when the crossover still ran those rows)
 FUSION_ROWS = [(32, 8, s, 96) for s in (8, 16, 24, 33)]
 CROSSOVER_FORWARD = FUSION_ROWS + [(2, 12, 4096, 64)]
-CROSSOVER_BACKWARD = FUSION_ROWS + [(16, 12, s, 64) for s in (48, 64, 128, 256, 499)] + [
-    (8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64)]
+CROSSOVER_BACKWARD = FUSION_ROWS + [(32, 8, s, 96) for s in (48, 64)] + [
+    (16, 12, s, 64) for s in (48, 64, 128, 256, 499)] + [(8, 12, 512, 64), (4, 12, 1024, 64), (2, 12, 2048, 64)]
 # (B, H, S, Dh): K1's template against its Hopper forward (bf16, Dh 64)
 CROSSOVER_DESIGNS = [(32, 12, s, 64) for s in (64, 99, 128, 199, 256, 499)] + [(8, 12, 1024, 64)]
 CROSSOVER_RATES = (0.0, 0.1)
+# (B, H, S, dtype, dropout rate) at head dim 96: K2's template against its stacked design, the K2 calls of
+# chip_smoke.py's counted main paths (the fusion model's training and evaluation) and the 33 bucket
+CROSSOVER_K2 = ([(16, 8, 8, "bfloat16", 0.0), (16, 8, 16, "bfloat16", 0.0), (32, 4, 8, "bfloat16", 0.0),
+                 (32, 4, 16, "bfloat16", 0.0), (32, 8, 8, "bfloat16", 0.0), (32, 8, 8, "bfloat16", 0.4),
+                 (32, 8, 16, "bfloat16", 0.0), (32, 8, 16, "bfloat16", 0.4), (32, 8, 24, "bfloat16", 0.4),
+                 (32, 8, 33, "bfloat16", 0.0)]
+                + [(b, h, s, "float32", 0.0) for b, h, s in ((16, 8, 8), (32, 4, 8), (16, 8, 16), (32, 4, 16),
+                                                            (32, 8, 8), (32, 8, 16), (32, 8, 33))])
 # --digest: (kernel, B, H, Sq, Sk) at head dim 64: K1 at the wav2vec2 export's frames, K3 at the 90 s clips'
 DIGEST_CASES = [("K1", 2, 12, 499, 499), ("K3", 2, 12, 4499, 4499)]
 
@@ -259,10 +272,46 @@ def crossover_row(direction: str, b: int, h: int, s: int, dh: int, rate: float, 
     return row
 
 
+def k2_design_row(b: int, h: int, s: int, dtype_name: str, rate: float, device: torch.device) -> dict:
+    """K2's template (through the route argument of its C entry, a hook for this comparison) against the stacked
+    design the dispatch takes, with SDPA's backward (its forward and backward less its forward) beside them, on the
+    same inputs at [b, h, s, s, 96] (device ms per call; host ms on the CPU, where both are the plain version)."""
+    dtype = DTYPES[dtype_name]
+    q, k, v, g, mask = timing_inputs(b, h, s, 96, dtype, device)
+    seed = (0x5EED, s) if rate else None
+    timer = (lambda fn: device_ms(fn, 5, 4)) if device.type == "cuda" else (lambda fn: host_ms(fn, 1))
+    out, lse = fa.flash_attention_forward(q, k, v, mask, seed, rate)
+    stacked = lambda: fa.flash_attention_backward(q, k, v, mask, out, lse, g, seed, rate)
+    template = (lambda: fa._k2(q, k, v, mask, out, lse, g, seed, rate, None, route=0)) \
+        if device.type == "cuda" else stacked
+    row = {"direction": "k2 designs", "B": b, "H": h, "S": s, "Dh": 96, "dtype": dtype_name, "dropout": rate,
+           "clock": "device" if device.type == "cuda" else "host (cpu)", "kernels": "template | stacked",
+           "template_ms": timer(template), "stacked_ms": timer(stacked),
+           "sdpa_backward_ms": sdpa_backward_ms(q, k, v, mask, g, rate, timer)}
+    row["faster"] = "template" if row["template_ms"] <= row["stacked_ms"] else "stacked"
+    return row
+
+
+def sdpa_backward_ms(q, k, v, mask, g, rate: float, timer) -> float:
+    """SDPA's backward on these inputs: its forward and backward less its forward, each timed by ``timer`` (as
+    ``chip_smoke.py``'s library time of K2 and K4)."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    forward = lambda: torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=~mask[:, None, None, :],
+                                                                        dropout_p=rate)
+
+    def forward_backward():
+        for t in leaves:
+            t.grad = None
+        forward().backward(g)
+
+    return timer(forward_backward) - timer(forward)
+
+
 def crossover(device: torch.device) -> list[dict]:
     """The rows of ``--crossover``: K1 | K3 at ``CROSSOVER_FORWARD`` key
     counts up to the forward's threshold, K2 | K4 at ``CROSSOVER_BACKWARD``,
-    K1's template | its Hopper forward at ``CROSSOVER_DESIGNS``."""
+    K1's template | its Hopper forward at ``CROSSOVER_DESIGNS``, K2's
+    template | its stacked design at ``CROSSOVER_K2``."""
     rows = []
     for direction, shapes in (("forward", CROSSOVER_FORWARD), ("backward", CROSSOVER_BACKWARD),
                               ("designs", CROSSOVER_DESIGNS)):
@@ -270,6 +319,9 @@ def crossover(device: torch.device) -> list[dict]:
             for rate in CROSSOVER_RATES:
                 rows.append(crossover_row(direction, b, h, s, dh, rate, device))
                 print(json.dumps(rows[-1]), flush=True)
+    for case in CROSSOVER_K2:
+        rows.append(k2_design_row(*case, device))
+        print(json.dumps(rows[-1]), flush=True)
     return rows
 
 

@@ -20,6 +20,7 @@ plain versions, exactly for the mask:
     python -m pytest --noconftest -m cuda tests/test_torch_attention_bwd.py
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -319,11 +320,13 @@ def test_kernel_backward_raises_beyond_its_range(cuda):
     k = torch.zeros(1, 1, fa.FUSED_KERNEL_MAX + 1, 8, device=cuda)
     out, lse = fa.flash_attention_forward(q, k, k)
     g = torch.zeros_like(q)
-    dq, dk, dv, delta, drop = fa._backward_args(q, k, k, None, out, lse, g, None, 0.0, None)
+    dq, dk, dv, drop = fa._backward_args(q, k, k, None, out, lse, g, None, 0.0, None)
+    delta, route = torch.empty(q.shape[:3], device=cuda), ctypes.c_int(-1)
     with pytest.raises(RuntimeError, match="flash_attention_bwd launch failed"):
         fa._launch("flash_attention_bwd", q, [q.data_ptr(), k.data_ptr(), k.data_ptr(), None, out.data_ptr(),
                                               lse.data_ptr(), g.data_ptr(), None, dq.data_ptr(), dk.data_ptr(),
-                                              dv.data_ptr(), delta.data_ptr()], k.shape[2], drop)
+                                              dv.data_ptr(), delta.data_ptr(), ctypes.addressof(route)], k.shape[2],
+                   drop)
     launches = fa.flash_attention_backward.launches, fa.flash_attention_tiled_backward.launches
     fa.flash_attention_backward(q, k, k, None, out, lse, g)
     assert (fa.flash_attention_backward.launches, fa.flash_attention_tiled_backward.launches) == (
