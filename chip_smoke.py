@@ -28,11 +28,15 @@ that two runs see the same tokens:
    ``preflight`` finds every source built);
 3. hold each kernel against its plain PyTorch version on the card at the
    dialogue buckets (B=32), f32 and bf16, dropout off and on (K1 the
-   forward, K2 the backward: at head dim 96 its one-pass stacked design,
-   each K2 check holding the design its C entry took), K1 bf16 and its plain version
+   forward, K2 the backward: at head dims 96 and 50 their one-pass stacked
+   designs, each K1 and K2 check holding the design its C entry took, the
+   same bits from two calls, the template on the same inputs held to the
+   same limits and timed beside K1 and beside K2 at head dim 50), K1 bf16
+   and its plain version
    each against an f64 witness over 16 seeds a shape (``rounding_witness``),
-   and read the kernels' dropout masks off exactly (K2's also at Dh 96, its
-   stacked design in bf16 and f32); K5 at [32, 64, 47 and 3 clips,
+   the bf16 limit shown to fail K1 on rolled key slices,
+   and read the kernels' dropout masks off exactly (K1's and K2's also at Dh
+   96 and 50, their stacked designs in bf16 and f32); K5 at [32, 64, 47 and 3 clips,
    1001 or 37 frames, 400 taps], on the ``unfold`` view of reflect-padded
    clips and on materialised frames; time kernel, plain version and library call (K5's: the
    torch.stft -> abs -> baddbmm -> log chain); K7 and K6 at [32, 16 and 2
@@ -86,6 +90,11 @@ that two runs see the same tokens:
    reads with the checkpoint's own logits (bit for bit) and metrics, and
    ``preflight`` (the card, ``nvcc`` and every kernel source of ``csrc/``
    built ``[ok]``; exit 1, the card's machine having no MELD);
+6p. the mel variant of the fusion model (300-d audio embeddings in 6 heads
+   of 50, ``src/config.yaml`` overridden in a temporary file):
+   ``mer_tpu_torch.train.main(--synthetic --epochs 1)`` and one offline
+   evaluation of its checkpoint, counted: per step 6 K1 and 6 K2 launches at
+   head dim 50 and 11 of each at 96, each through its stacked design;
 6b. mel training: a synthetic MELD root from ``mer_tpu_torch.data.synthetic``
    (100 train and 20 dev dialogues; the test split MELD-shaped, 2,608
    clips), ``mer_tpu_torch.feature_extractors.audio_mel.train`` for 2 epochs
@@ -157,7 +166,10 @@ that two runs see the same tokens:
    every shape, f32 and bf16, then ``--crossover``: K1 | K3 and K2 | K4 on
    the same inputs at the fusion buckets and up to each threshold, bf16,
    dropout 0 and 0.1); 6k. the probes P
-   (``mer_tpu_torch.scripts.probe_strided``), each exact, counted on their own;
+   (``mer_tpu_torch.scripts.probe_strided``), each exact, counted on their own
+   (``--crossover`` also times K1's and K2's templates against their stacked
+   designs on the same inputs at the counted fusion shapes: ``k1 designs``
+   and ``k2 designs`` rows);
 6l. the e2e stream, ``python -m mer_tpu_torch.e2e_stream --toy-tokenizer``
    over the MELD-shaped test split (2,608 utterances in 82 batches of 32,
    280 dialogues) at full width: RoBERTa-base, wav2vec2-base or the mel
@@ -221,8 +233,10 @@ that two runs see the same tokens:
    within 1e-5 of each frame's largest band in the linear domain, exactly
    log(eps) (rounded once from float64) on silence, the same bits from two
    calls;
-8. K6 in f32 against cuDNN's f32 chain, K3 against SDPA, K2 (its stacked
-   design, in bf16 and f32) against SDPA's backward,
+8. K6 in f32 against cuDNN's f32 chain, K3 against SDPA, K1's stacked
+   forward (bf16, f32) against its template on the same inputs and SDPA, K2
+   (its stacked design, in bf16 and f32; beside its template at head dim 50)
+   against SDPA's backward,
    and K1, K3 and K4 in f32 at head dim 64 against SDPA's f32 at every
    phase-3 shape; per main-path shape of each kernel its launches, time,
    bound, plain and library time, then one ``{"kernels": [...]}`` line, whose
@@ -232,9 +246,12 @@ that two runs see the same tokens:
    ``flash_attention_stream`` and ``flash_attention_tiled_bwd`` bf16 and the
    same names with ``_f32``, whose bounds count three TF32 products per f32
    product at the TF32 peak (``utils/profiling.py``'s ``PEAK_TF32X3``): K6
-   and, at head dim 64, K1, K3 and K4; K1's and K2's template routes an entry
-   ``_template`` where a counted path launched them (K2's template against
-   its stacked design at the same shapes: phase 6j's ``k2 designs`` rows);
+   and, at head dim 64, K1, K3 and K4; K1's stacked forward the entries
+   ``flash_attention_fwd_stacked`` and ``_stacked_f32`` (with the template's
+   time at the same launches); K1's and K2's template routes an entry
+   ``_template`` where a counted path launched them (the templates against
+   the stacked designs at the same shapes: phase 6j's ``k1 designs`` and
+   ``k2 designs`` rows);
    K5's bound from the function's least work, a
    real FFT and the mel product over the filterbank's nonzeros; P's averaged
    over its six probes, each probe's row beside it); then the device line
@@ -394,6 +411,7 @@ ROUNDING_SEEDS = 16
 ROUNDING_RMS_RATIO = 1.1
 ONLINE_REQUESTS = (64, 280)  # one micro-batch at --max-batch 64; the MELD test split's dialogue count
 TRAIN_EPOCHS = 2
+MEL_VARIANT = (300, 6)  # the mel variant's AUDIO embedding_size and n_head (e2e_stream.py's --audio mel override)
 # phase 6m: (name, dp, tp, tpu.zero1, compute dtype) of the two-rank fusion runs, each parallel_check.STEPS steps
 PARALLEL_CASES = [("dp2_f32", 2, 1, False, "float32"), ("tp2_f32", 1, 2, False, "float32"),
                   ("dp2_bf16", 2, 1, False, "bfloat16"), ("tp2_bf16", 1, 2, False, "bfloat16"),
@@ -415,27 +433,13 @@ def log(msg: str) -> None:
 
 
 def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
-    """Device time per call: ``reps`` calls captured in one CUDA graph,
-    replayed ``replays`` times between CUDA events (no host launch cost)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+    """Device time per call (no host launch cost): ``reps`` calls captured in
+    one CUDA graph, the median of ``replays`` replays each between an event
+    pair of its own (``bench_attention.device_ms``: a host stall between
+    replays is not device time)."""
+    from mer_tpu_torch.scripts.bench_attention import device_ms as timed
+
+    return timed(fn, reps, replays)
 
 
 def eager_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -563,10 +567,11 @@ def attention_calls(fa, kernel: str):
 
 def forward_route(shape, dtype: str) -> str:
     """The design K1's C entry takes (``fa.FORWARD_ROUTES``) for 16-byte aligned tensors, as every main path hands
-    them: its Hopper forwards at head dim 64 (bf16 on wgmma, f32 in 3xTF32), the template at other head dims."""
-    if shape[-1] != 64:
-        return "template"
-    return "wgmma_bf16" if dtype == "bfloat16" else "wgmma_tf32"
+    them: its Hopper forwards at head dim 64 (bf16 on wgmma, f32 in 3xTF32), its one-pass stacked forward in bf16 and
+    f32 at Sq, Sk <= 64 and head dims 96 and 50 (the fusion model's dialogues), else the template."""
+    from mer_tpu_torch.ops import flash_attention as fa
+
+    return fa._forward_route(DTYPES[dtype], shape[2], shape[3], shape[4], True)
 
 
 def k1_routed(fa, call, route: str):
@@ -581,7 +586,8 @@ def k1_routed(fa, call, route: str):
 
 def backward_route(shape, dtype: str) -> str:
     """The design K2's C entry takes (``fa.FUSED_ROUTES``) for 16-byte aligned tensors, as every main path hands
-    them: its one-pass stacked design in bf16 and f32 at Sq, Sk <= 64 and head dims 64 and 96, else the template."""
+    them: its one-pass stacked design in bf16 and f32 at Sq, Sk <= 64 and head dims 50, 64 and 96, else the
+    template."""
     from mer_tpu_torch.ops import flash_attention as fa
 
     return fa._fused_route(DTYPES[dtype], shape[2], shape[3], shape[4], True)
@@ -598,7 +604,12 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
     """One attention kernel (K1-K4) against its plain version at one case,
     with times unless ``timed`` is off; raises on a disagreement. The plain
     versions run on the inputs themselves (they round P, and the backwards dS,
-    to their dtype, as the kernels do)."""
+    to their dtype, as the kernels do). K3, and K1 and K2 on their stacked
+    designs, also give the same bits from a second call; beside K1's stacked
+    forward and K2's stacked backward at head dim 50 the template runs on the
+    same inputs (through the C entries' route hook), is held to the same
+    limits against the same plain result (``excess``'s ``template_*``) and
+    is timed (``template_ms``)."""
     from mer_tpu_torch.scripts.parallel_check import sum_bound
 
     q, k, v, g, mask = attention_inputs(shape, DTYPES[dtype], seed=i, fully_masked=fully_masked,
@@ -620,16 +631,28 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
     elif scores > 1 << 22:
         time_device, time_eager = (functools.partial(device_ms, reps=4, replays=3),
                                    functools.partial(eager_ms, iters=10, warmup=2))
-    same = True  # K3: the same bits from a second call
-    if kernel == STREAM:
+    same = True  # K3, K1's stacked forward: the same bits from a second call
+    stacked = (forward_route if kernel == FWD else backward_route)(shape, dtype).startswith("stacked") \
+        if kernel in (FWD, BWD) else False
+    if kernel == STREAM or (kernel == FWD and stacked):
         again = call_fn(q, k, v, mask, seed, rate)
         same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         del again
+    template = None  # the template on the same inputs: K1's stacked forward, K2's stacked backward at head dim 50
+    if kernel == FWD and stacked:
+        template = lambda: fa._k1(q, k, v, mask, seed, rate, route=0)
+    elif kernel == BWD and stacked and shape[4] == 50:
+        template = lambda: fa._k2(q, k, v, mask, out, lse, g, seed, rate, None, route=0)
     if kernel in ATTENTION_FWD:
         torch.cuda.synchronize()
         ref_out, ref_lse = plain_fn(q, k, v, mask, seed, rate)
         sums = sum_bound(plain_fn, q, k, v, mask, seed, rate) if dtype == "bfloat16" else None
         errs = attention_errors(("out", "lse"), (out, lse), (ref_out, ref_lse), dtype, sums)
+        if template is not None:  # the template's 1-, 2- and 4-slice builds, at the rows of this shape
+            t_out, t_lse = k1_routed(fa, template, "template")
+            errs.update({f"template_{name}": e for name, e in attention_errors(
+                ("out", "lse"), (t_out, t_lse), (ref_out, ref_lse), dtype, sums).items()})
+            del t_out, t_lse
         del sums
         max_abs_err = (out.float() - ref_out.float()).abs().max().item()
         rel_err = {"out": max_abs_err / ref_out.float().abs().max().item()}
@@ -651,8 +674,19 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
         if wrapper.routes != {**routes, route: routes[route] + 1}:
             raise AssertionError(f"{'K4' if kernel == TILED else 'K2'} at {shape} {dtype}: expected its {route} "
                                  f"route, took {wrapper.routes} after {routes}")
+        if kernel == BWD and stacked:  # the same bits from a second call
+            same = all(torch.equal(a, b) for a, b in zip(grads, call_fn(q, k, v, mask, out, lse, g, seed, rate)))
         ref = plain_fn(q, k, v, mask, out, lse, g, seed, rate)
         errs = attention_errors(("dq", "dk", "dv"), grads, ref, dtype)
+        if template is not None:
+            routes = dict(wrapper.routes)
+            t_grads = template()
+            if wrapper.routes != {**routes, "template": routes["template"] + 1}:
+                raise AssertionError(f"K2 at {shape} {dtype}: expected its template route, took {wrapper.routes} "
+                                     f"after {routes}")
+            errs.update({f"template_{name}": e
+                         for name, e in attention_errors(("dq", "dk", "dv"), t_grads, ref, dtype).items()})
+            del t_grads
         max_abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref))
         rel_err = {name: (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
                    for name, a, b in zip(("dq", "dk", "dv"), grads, ref)}
@@ -665,6 +699,8 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
     if timed:
         row.update(kernel_ms=time_device(call), kernel_eager_ms=time_eager(call), plain_ms=time_device(plain),
                    library_ms=library())
+        if template is not None:
+            row["template_ms"] = time_device(template)
     bytes_us, ops_us = attention_bound(kernel, shape, DTYPES[dtype])
     row.update(bound_bytes_us=bytes_us, bound_ops_us=ops_us, bound_us=max(bytes_us, ops_us),
                bound_by="bytes" if bytes_us >= ops_us else "operations")
@@ -672,7 +708,8 @@ def check_case(fa, kernel: str, shape, dtype: str, rate: float, i: int, timed: b
     if not (all(e <= 0 for e in errs.values()) and same):
         raise AssertionError(f"{kernel} disagrees with its plain version at {shape} {dtype} dropout {rate}"
                              f"{' (a fully masked batch element)' if fully_masked else ''}: excess over tolerance "
-                             f"{errs}, the same bits from two calls {same}")
+                             f"{errs} (template_*: the template on the same inputs), the same bits from two calls "
+                             f"{same}")
     return row
 
 
@@ -731,13 +768,34 @@ def rounding_witness(fa, seeds: int = ROUNDING_SEEDS) -> dict:
     return {**summary, "case": row}
 
 
+def check_limit_fails_rolled_slices(fa) -> None:
+    """The bf16 limits shown to fail K1's stacked forward when it is handed K and V whose (b*h) slices are rolled by
+    one (a tile reading its neighbour's keys), at the 16 bucket (two slices a tile at B H = 256) in both head dims:
+    the excess over the limit of attention_errors must be positive, where the same call on the right keys passes
+    (phase 3)."""
+    from mer_tpu_torch.scripts.parallel_check import sum_bound
+
+    for shape in ((32, 8, 16, 16, 96), (32, 6, 16, 16, 50)):
+        q, k, v, _, mask = attention_inputs(shape, torch.bfloat16, seed=11)
+        want = fa.flash_attention_reference(q, k, v, mask)
+        sums = sum_bound(fa.flash_attention_reference, q, k, v, mask, None, 0.0)
+        rolled = [t.reshape(-1, *t.shape[2:]).roll(1, 0).reshape(t.shape).contiguous() for t in (k, v)]
+        got = k1_routed(fa, lambda: fa.flash_attention_forward(q, *rolled, mask), forward_route(shape, "bfloat16"))
+        excess = attention_errors(("out",), got[:1], want[:1], "bfloat16", sums)["out"]
+        log(f"K1's stacked forward on rolled key slices at {list(shape)} bf16: excess over the limit {excess} "
+            "(must be > 0)")
+        if not excess > 0:
+            raise AssertionError(f"the bf16 limit does not catch K1 reading rolled key slices at {shape}")
+
+
 def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROPOUT, long: bool = False,
                         dtype=torch.float32) -> None:
     """Read the kernels' dropout masks off exactly: with v = I the forward's
     out[i, j] is P_ij D_ij; with g one-hot, g[i, i - i0] = 1 for the query
     rows i0 .. i0 + Dh - 1 of a window, the backward's dv[j, i - i0] is too.
-    K1 and K2 (Dh = Sq: one window; K2 also at Dh 96, its stacked design in
-    bf16 and f32, up to 64 keys), or with ``long`` K3 and K4 (their
+    K1 and K2 (Dh = Sq: one window; both also at Dh 96 and, up to 50 keys,
+    50, their stacked designs in bf16 and f32, up to 64 keys), or with
+    ``long`` K3 and K4 (their
     wrappers, at this key count; Dh 64, K4's Hopper design in bf16, so
     ceil(Sq / 64) windows). With ``long`` K3 and K1 are also read at Dh 64
     (their Hopper designs: K3's in bf16, the 3xTF32 forward both launch in
@@ -762,19 +820,27 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
         g = torch.zeros(b, h, sq, dh, device="cuda", dtype=dtype)
         g[:, :, i0:i0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
         bwd_mask[:, :, i0:i0 + n] = backward(q, k, v, None, out, lse, g, seed, rate)[2][..., :n].transpose(2, 3) > 0
-    # K2's stacked design at the fusion model's head dim (96 >= Sq: one window), bf16 and f32, wherever it takes the
-    # size (Sq, Sk <= 64; through K2's own wrapper, which the dispatch skips above 33 keys)
+    # K1's and K2's stacked designs at the fusion model's head dims (96 and 50 >= Sq, Sk: one window), bf16 and f32,
+    # wherever they take the size (Sq, Sk <= 64; K2 through its own wrapper, which the dispatch skips above 33 keys):
+    # v one-hot, v[j, j] = 1, gives the forward's out[i, j] = P_ij D_ij; g one-hot the backward's dv[j, i]
     stacked_bad = 0
     for dtype_name, stacked_dtype in DTYPES.items() if not long and max(sq, sk) <= fa.STACKED_MAX else ():
-        q, k, v = (randn(b, h, n, 96).to(stacked_dtype) for n in (sq, sk, sk))
-        out, lse = forward(q, k, v, None, seed, rate)
-        g = torch.zeros(b, h, sq, 96, device="cuda", dtype=stacked_dtype)
-        g[:, :, :, :sq] = torch.eye(sq, device="cuda", dtype=stacked_dtype)
-        before, route = dict(fa.flash_attention_backward.routes), backward_route((b, h, sq, sk, 96), dtype_name)
-        dv = fa.flash_attention_fused_backward(q, k, v, None, out, lse, g, seed, rate)[2]
-        if fa.flash_attention_backward.routes != {**before, route: before[route] + 1}:
-            raise AssertionError(f"K2's dropout read-off at Dh 96 missed its {route} design")
-        stacked_bad += int(((dv[..., :sq].transpose(2, 3) > 0) != want).sum())
+        for sdh in (96, 50) if max(sq, sk) <= 50 else (96,):
+            shape = (b, h, sq, sk, sdh)
+            q, k = (randn(b, h, n, sdh).to(stacked_dtype) for n in (sq, sk))
+            v = torch.zeros(b, h, sk, sdh, device="cuda", dtype=stacked_dtype)
+            v[..., :sk] = torch.eye(sk, device="cuda", dtype=stacked_dtype)
+            got = k1_routed(fa, lambda: forward(q, k, v, None, seed, rate)[0], forward_route(shape, dtype_name))
+            stacked_bad += int(((got[..., :sk] > 0) != want).sum())
+            v = randn(b, h, sk, sdh).to(stacked_dtype)
+            out, lse = forward(q, k, v, None, seed, rate)
+            g = torch.zeros(b, h, sq, sdh, device="cuda", dtype=stacked_dtype)
+            g[:, :, :, :sq] = torch.eye(sq, device="cuda", dtype=stacked_dtype)
+            before, route = dict(fa.flash_attention_backward.routes), backward_route(shape, dtype_name)
+            dv = fa.flash_attention_fused_backward(q, k, v, None, out, lse, g, seed, rate)[2]
+            if fa.flash_attention_backward.routes != {**before, route: before[route] + 1}:
+                raise AssertionError(f"K2's dropout read-off at Dh {sdh} missed its {route} design")
+            stacked_bad += int(((dv[..., :sq].transpose(2, 3) > 0) != want).sum())
     windowed = {}  # K3's and K1's mismatches at Dh 64, read in key windows
     for name, fwd in (("K3", forward), ("K1", fa.flash_attention_forward)) if long else ():
         window_mask = want.clone()
@@ -784,16 +850,18 @@ def check_dropout_masks(fa, b: int, h: int, sq: int, sk: int, rate: float = DROP
             v[:, :, j0:j0 + n, :n] = torch.eye(n, device="cuda", dtype=dtype)
             call = lambda: fwd(q, k, v, None, seed, rate)[0]
             if name == "K1":
-                got = k1_routed(fa, call, forward_route((dh,), "bfloat16" if dtype == torch.bfloat16 else "float32"))
+                got = k1_routed(fa, call, forward_route((b, h, sq, sk, dh), DTYPE_NAMES[dtype == torch.bfloat16]))
             else:
                 got = call()
             window_mask[..., j0:j0 + n] = got[..., :n] > 0
         windowed[name] = int((window_mask != want).sum())
-    bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum()) + stacked_bad, sum(windowed.values())
-    log(f"dropout masks of {'K3, K4' if long else 'K1, K2 (K2 also at Dh 96, its stacked design in bf16 and f32)'} "
+    bad = int((fwd_mask != want).sum()), int((bwd_mask != want).sum()), sum(windowed.values()) + stacked_bad
+    what = "K3, K4" if long else "K1, K2 (also at Dh 96 and 50, their stacked designs in bf16 and f32)"
+    log(f"dropout masks of {what} "
         f"{DTYPE_LABELS[dtype]} at B={b} H={h} Sq={sq} Sk={sk} "
         f"rate {rate}: {want.numel()} probabilities, keep rate {want.float().mean().item()}, mismatches forward "
-        f"{bad[0]}, backward {bad[1]}" + (f", forwards at Dh 64 in key windows {windowed}" if long else ""))
+        f"{bad[0]}, backward {bad[1]}" + (f", forwards at Dh 64 in key windows {windowed}" if long else
+                                          f", stacked designs {stacked_bad}"))
     if bad != (0, 0, 0):
         raise AssertionError(f"kernel dropout masks differ from the plain Philox mask: {bad}")
 
@@ -1166,7 +1234,8 @@ def log_profile(kernels: dict[str, float], count: int) -> None:
     busy = sum(kernels.values())
     share = lambda fragment: sum(t for n, t in kernels.items() if fragment in n) / busy
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {share('flash_attention_fwd')}, "
+    log(f"  profiler: {count} kernels, {busy} us of kernels, K1 share {share('flash_attention_fwd')} (its stacked "
+        f"forward {share('flash_attention_fwd_stacked')}), "
         f"K2 share {share('flash_attention_bwd')}, K3 share {share('flash_attention_stream')}, "
         f"K4 share {share('flash_attention_tiled_bwd')}, K1 and K3 f32 prep pass share {share('prep_tf32_kernel')}, "
         f"K5 share {share('logmel_fwd')}, "
@@ -1278,6 +1347,64 @@ def training_phase(fa, card: str) -> dict:
         f"{int((diffs > lr / 50).sum())} of {diffs.numel()} beyond lr/50")
     if not (loss_diff <= 1e-4 and diffs.max().item() <= 2 * lr * 3 + 1e-6):
         raise AssertionError("training through the kernels departs from training through the plain attention")
+    return run
+
+
+def mel_variant_phase(fa, card: str) -> dict:
+    """Phase 6p: the mel variant of the fusion model (``e2e_stream --audio mel``'s: 300-d audio embeddings in 6
+    heads of 50, ``MEL_VARIANT``), ``src/config.yaml`` overridden in a temporary file as ``e2e_stream`` overrides it
+    in memory: ``mer_tpu_torch.train.main(--synthetic --epochs 1)`` and one offline evaluation of its checkpoint,
+    counted. Per step 6 K1 and 6 K2 launches at head dim 50 (the audio encoder) and 11 of each at 96 (the text
+    encoder and the FAM layers), per validation and evaluation batch the same K1 launches, every one through its
+    stacked design (``main_path_run`` checks each launch's); finite losses and metrics. Returns the launches."""
+    import yaml
+
+    from mer_tpu_torch import test as eval_entry
+    from mer_tpu_torch import train as train_entry
+    from mer_tpu_torch.core import CONFIG_PATH, load_config
+    from mer_tpu_torch.train.pipeline import build, parse_args
+
+    width, heads = MEL_VARIANT
+    config = load_config(CONFIG_PATH).override(model__AUDIO__embedding_size=width, model__AUDIO__n_head=heads)
+    audio = int(config.model.AUDIO.n_encoder_layers) * int(config.model.AUDIO.n_transformers)
+    per_forward = attention_calls_per_forward(config)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "m2fnet_mel.ckpt")
+        cfg_path = os.path.join(tmp, "config_mel.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(config.override(checkpoint__save_path=ckpt, checkpoint__load_path=ckpt).to_dict(), f)
+        argv = ["--synthetic", "--config", cfg_path]
+        before = collections.Counter(PATH_SHAPES)
+        k1_before, k2_before = dict(fa.flash_attention_forward.routes), dict(fa.flash_attention_backward.routes)
+        with main_path_run() as run:
+            _, history = train_entry.main([*argv, "--epochs", "1"])
+            summary = eval_entry.main([*argv, "--checkpoint", ckpt])
+        _, batchers, _ = build(parse_args(argv))
+        forwards = len(batchers["train"]) + len(batchers["val"]) + len(
+            eval_entry.eval_batches(config, eval_entry.eval_dataset(config, synthetic=True)))
+    steps = len(batchers["train"])
+    launched = collections.Counter(PATH_SHAPES)
+    launched.subtract(before)
+    by_dh = {(name, dh): sum(n for (kernel, shape, *_), n in launched.items() if kernel == name and shape[4] == dh)
+             for name in (FWD, BWD) for dh in (50, 96)}
+    want_dh = {(FWD, 50): audio * forwards, (FWD, 96): (per_forward - audio) * forwards, (BWD, 50): audio * steps,
+               (BWD, 96): (per_forward - audio) * steps}
+    want = {**ZERO, FWD: per_forward * forwards, BWD: per_forward * steps}
+    routes = {name: {r: wrapper.routes[r] - was[r] for r in wrapper.routes if wrapper.routes[r] != was[r]}
+              for name, wrapper, was in ((FWD, fa.flash_attention_forward, k1_before),
+                                         (BWD, fa.flash_attention_backward, k2_before))}
+    want_routes = {FWD: {"stacked_bf16": want[FWD]}, BWD: {"stacked_bf16": want[BWD]}}
+    log(f"mel variant (AUDIO {width} wide in {heads} heads): 1 epoch of {steps} steps and one offline evaluation in "
+        f"{time.perf_counter() - t0:.1f} s; losses {json.dumps(history)}; {json.dumps(summary)}; launches {run} (want "
+        f"{want}); by head dim {by_dh} (want {want_dh}: {audio} K1 and K2 a step at 50, {per_forward - audio} at 96); "
+        f"by design {routes} (want {want_routes}) ({card})")
+    if run != want or by_dh != want_dh or routes != want_routes:
+        raise AssertionError(f"mel variant: launches {run}, by head dim {by_dh}, designs {routes}; want {want}, "
+                             f"{want_dh}, {want_routes}")
+    if not all(math.isfinite(x) for x in history["loss_values"] + history["val_loss_values"]) \
+            or not math.isfinite(summary["accuracy"]):
+        raise AssertionError(f"mel variant: losses or metrics not finite: {history}, {summary}")
     return run
 
 
@@ -3205,6 +3332,7 @@ def attention_bench_phase(card: str) -> None:
             raise AssertionError(f"bench_attention crossover row without times: {r}")
         sdpa = (f", SDPA {r['sdpa_ms']} ms, {b} / SDPA {times[1] / r['sdpa_ms']}, template on unaligned inputs "
                 f"{r['template_unaligned_ms']} ms" if r["direction"] == "designs" else
+                f", SDPA {r['sdpa_ms']} ms, {b} / SDPA {times[1] / r['sdpa_ms']}" if r["direction"] == "k1 designs" else
                 f", SDPA's backward {r['sdpa_backward_ms']} ms, {b} / SDPA {times[1] / r['sdpa_backward_ms']}"
                 if r["direction"] == "k2 designs" else "")
         log(f"crossover {r['direction']} [{r['B']}, {r['H']}, {r['S']}, {r['Dh']}] {r.get('dtype', 'bfloat16')} "
@@ -3288,12 +3416,15 @@ def main() -> None:
         built = [name for name, new in zip(sources, pool.map(_build.build, sources)) if new]
     log(f"build: {built or 'all kernels already built'} in {time.perf_counter() - t0:.1f} s")
 
-    # 3. kernels against their plain versions at the dialogue buckets
+    # 3. kernels against their plain versions at the dialogue buckets (the head dims 50 after 96: the seeds of the
+    # cases before them stay as they were)
     cases = [(FWD, shape, dtype, 0.0) for shape in KERNEL_SHAPES for dtype in DTYPES]
-    cases += [(kernel, shape, dtype, rate) for shape in KERNEL_SHAPES if shape[-1] == 96 for dtype in DTYPES
-              for kernel, rate in ((FWD, DROPOUT), (BWD, 0.0), (BWD, DROPOUT))]
+    for dh in (96, 50):
+        cases += [(kernel, shape, dtype, rate) for shape in KERNEL_SHAPES if shape[-1] == dh for dtype in DTYPES
+                  for kernel, rate in ((FWD, DROPOUT), (BWD, 0.0), (BWD, DROPOUT))]
     rows = [check_case(fa, *case, i) for i, case in enumerate(cases)]
     rounding_witness(fa)
+    check_limit_fails_rolled_slices(fa)
     for s in BUCKETS:
         check_dropout_masks(fa, 32, 8, s, s)
     rows += [check_mel_case(lk, (b, f, layout), len(rows) + i)
@@ -3333,6 +3464,9 @@ def main() -> None:
                                  f"with launches {run}")
         launches[FWD] += run[FWD]
     for name, n in training_phase(fa, card).items():
+        launches[name] += n
+    # 6p. the mel variant of the fusion model: 6 audio heads of 50
+    for name, n in mel_variant_phase(fa, card).items():
         launches[name] += n
     # 6b. mel training, 6c. mel export, on a synthetic MELD root (MELD-shaped test split)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3407,11 +3541,16 @@ def main() -> None:
     # at their own shapes), then the device line last
     dh64 = lambda case: case[1][-1] == 64
     stacked = lambda case: backward_route(case[1], case[2]) != "template"  # K2's one-pass stacked design
+    k1_route = lambda route: (lambda case: forward_route(case[1], case[2]) == route)  # K1's design at a case
     for what, kernel, dtype, only in (
             ("K6 f32 (3xTF32) against cuDNN's f32 chain, TF32 off", W2V_TAIL, "float32", None),
             ("K1 bf16, Hopper forward (Dh 64), against SDPA", FWD, "bfloat16", dh64),
-            ("K1 bf16, template (other head dims), against SDPA", FWD, "bfloat16", lambda case: not dh64(case)),
-            ("K2 bf16, stacked design, against SDPA's backward", BWD, "bfloat16", stacked),
+            ("K1 bf16, stacked forward (Dh 96, 50), against its template and SDPA", FWD, "bfloat16",
+             k1_route("stacked_bf16")),
+            ("K1 f32, stacked forward (Dh 96, 50), against its template and SDPA's f32", FWD, "float32",
+             k1_route("stacked_f32")),
+            ("K1, template (other head dims), against SDPA", FWD, None, k1_route("template")),
+            ("K2 bf16, stacked design (its template at Dh 50), against SDPA's backward", BWD, "bfloat16", stacked),
             ("K2 f32, stacked design, against SDPA's f32 backward", BWD, "float32", stacked),
             ("K2, template (other head dims), against SDPA's backward", BWD, None, lambda case: not stacked(case)),
             ("K3 against SDPA", STREAM, "bfloat16", None),
@@ -3423,22 +3562,25 @@ def main() -> None:
         for case in sorted(c for c in by_case
                            if c[0] == kernel and dtype in (None, c[2]) and (only is None or only(c))):
             r = by_case[case]
+            template = (f", template {r['template_ms']} ms, kernel / template {r['kernel_ms'] / r['template_ms']}"
+                        if "template_ms" in r else "")
             log(f"  {case[1]} {case[2]} dropout {case[3]}: launches {PATH_SHAPES.get(case, 0)}, kernel "
-                f"{r['kernel_ms']} ms, library {r['library_ms']} ms, kernel / library "
+                f"{r['kernel_ms']} ms{template}, library {r['library_ms']} ms, kernel / library "
                 f"{r['kernel_ms'] / r['library_ms']}, bound {r['bound_us'] / 1e3} ms ({r['bound_by']}), share of "
                 f"bound {r['bound_us'] / 1e3 / r['kernel_ms']}")
     kernels = []
     # K6's, K3's and K4's two dtypes are two routes each (bf16 wgmma or mma.sync, f32 3xTF32 or the f32 template),
-    # K1's bf16 two more (its Hopper forward at head dim 64, the template at the fusion model's head dims), and K2's
-    # stacked design two (bf16 on wgmma, f32 by FMA) beside its template: an entry each, together the kernel's
-    # launches. K2's template entry stands only where a counted path launched it (every counted K2 call is at the
-    # fusion model's 8 heads of 96, which the stacked design takes)
+    # K1's four (its Hopper forwards at head dim 64, bf16 and 3xTF32, its stacked forward at the fusion model's
+    # head dims, bf16 and f32) beside its template, and K2's stacked design two (bf16 on wgmma, f32 by FMA) beside
+    # its template: an entry each, together the kernel's launches. The templates' entries stand only where a counted
+    # path launched them (every counted K1 and K2 call at the fusion model's dialogues takes a stacked design)
     bf16, f32 = (lambda case: case[2] == "bfloat16"), (lambda case: case[2] == "float32")
-    entries, optional = [], {BWD + "_template"}
+    entries, optional = [], {FWD + "_template", BWD + "_template"}
     for name in KERNELS:
         if name == FWD:
-            entries += [(FWD, FWD, lambda case: bf16(case) and dh64(case)),
-                        (FWD + "_template", FWD, lambda case: bf16(case) and not dh64(case)), (FWD + "_f32", FWD, f32)]
+            entries += [(FWD, FWD, k1_route("wgmma_bf16")), (FWD + "_stacked", FWD, k1_route("stacked_bf16")),
+                        (FWD + "_stacked_f32", FWD, k1_route("stacked_f32")),
+                        (FWD + "_f32", FWD, k1_route("wgmma_tf32")), (FWD + "_template", FWD, k1_route("template"))]
         elif name == BWD:
             entries += [(BWD, BWD, lambda case: bf16(case) and stacked(case)),
                         (BWD + "_f32", BWD, lambda case: f32(case) and stacked(case)),
@@ -3466,6 +3608,17 @@ def main() -> None:
         if n == 0:
             raise AssertionError(f"{entry}: no launch on the counted paths")
         log(f"{entry} main path: {n} launches at {len(path)} cases; summed over them {json.dumps(total)} ({card})")
+        # the template on the same inputs where phase 3 or 7 timed it (K1's stacked forward, K2's at head dim 50)
+        beside = {case: c for case, c in path.items() if "template_ms" in by_case[case]}
+        template = {}
+        if beside:
+            n_beside = sum(beside.values())
+            mean = {key: sum(c * by_case[case][key] for case, c in beside.items()) / n_beside
+                    for key in ("kernel_ms", "template_ms", "plain_ms", "library_ms", "bound_bytes_us", "bound_ops_us")}
+            template = {"template_ms": mean["template_ms"], "template_launches": n_beside}
+            log(f"{entry} against its template at the same {n_beside} launches (head dims "
+                f"{sorted({case[1][4] for case in beside})}), a launch: {json.dumps(mean)}; kernel / template "
+                f"{mean['kernel_ms'] / mean['template_ms']} ({card})")
         kernels.append({
             "name": entry,
             "route": "cuda",
@@ -3482,6 +3635,7 @@ def main() -> None:
                                                                  else ""): c
                        for (_, shape, dtype, rate), c in sorted(path.items())},
             "cases_checked": sum(map(selected, rows)),
+            **template,
             "card": card,
         })
     print(json.dumps({"kernels": kernels}))

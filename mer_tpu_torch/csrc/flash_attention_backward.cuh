@@ -69,8 +69,8 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlock = 16 * kWarps;  // rows (dq grid) or keys (dk/dv grid) a block, and a buffer's rows
 constexpr int kMaxDh = 128;
-constexpr float kMaskBias = -1e30f;        // as the TPU kernel's _NEG_INF
-constexpr float kFullyMaskedLse = -1e29f;  // lse below this: every key of the row ignored
+using mer_tiles::kFullyMaskedLse;
+using mer_tiles::kMaskBias;
 constexpr int kDqScratchLd = kBlock + 4;   // f32 dS scratch row, dq grid
 constexpr int kDkvScratchLd = 16 + 4;      // f32 P and dS scratch rows, dk/dv grid
 

@@ -17,17 +17,19 @@
 // Two designs, picked per call; the C entry writes which it launched to its
 // `route` argument:
 //
-// - bf16 and f32 at Sq, Sk <= 64 and Dh 64 or 96 with 16-byte aligned q, k, v,
-//   out, g, dq, dk, dv (the fusion model's dialogues, 8 heads of 96): the
-//   one-pass stacked design of flash_attention_bwd_stacked.cuh (route 1 in
-//   bf16, 2 in f32). One launch a call; a block owns a 64-row tile that stacks
-//   whole (b*h) slices block-diagonally (8, 4, 2, 1 at 8, 16, 24, 33 keys) and
-//   computes S, g v^T, P, D, dS and delta once each; in bf16 TMA boxes over
-//   the [B*H*S, Dh] views and five wgmma products (S and dP m64n64k16, dV, dK
-//   and dQ m64n96k16 with P o D and dS from shared memory), in f32 1-D bulk
-//   copies and FMA on the CUDA cores. No scratch.
-// - Anything else (the mel branch's head dim 50, an unaligned view, more than
-//   64 keys or rows): the two grids of flash_attention_backward.cuh (route 0),
+// - bf16 and f32 at Sq, Sk <= 64 and Dh 50, 64 or 96 with 16-byte aligned q,
+//   k, v, out, g, dq, dk, dv (the fusion model's dialogues, 8 heads of 96, and
+//   the mel variant's 6 audio heads of 50): the one-pass stacked design of
+//   flash_attention_bwd_stacked.cuh (route 1 in bf16, 2 in f32). One launch a
+//   call; a block owns a 64-row tile that stacks whole (b*h) slices
+//   block-diagonally (8, 4, 2, 1 at 8, 16, 24, 33 keys) and computes S, g v^T,
+//   P, D, dS and delta once each; in bf16 swizzled 64 x 64 boxes of the [B*H*S,
+//   Dh] views (by TMA, or at Dh 50 by 4-byte loads) and five wgmma products (S
+//   and dP m64n64k16, dV, dK and dQ m64n96k16, or m64n56k16 at Dh 50, with P o
+//   D and dS from shared memory), in f32 1-D bulk copies (8-byte loads at Dh
+//   50) and FMA on the CUDA cores. No scratch.
+// - Anything else (other head dims, an unaligned view, more than 64 keys or
+//   rows): the two grids of flash_attention_backward.cuh (route 0),
 //   which K4 shares: a dq grid that writes delta to the f32 scratch, then a
 //   dk/dv grid over the keys that walks the query rows in order with dk and dv
 //   in registers; all five products on mma.sync.m16n8k16 in bf16 (f32 by FMA),

@@ -29,9 +29,11 @@
 // output rows stay in f32 registers in the mma.sync.m16n8k16 accumulator
 // layout; in bf16 both products run on the tensor cores (the scores'
 // registers become P's A operand, V enters through ldmatrix.trans), in f32 as
-// FMA on the CUDA cores (bound by the f32 rate, 67 TFLOP/s). K1 and K3 take
-// this template at head dims other than 64 (the fusion model's 96 and 50) and
-// for tensors that are not 16-byte aligned; at 64 both launch the Hopper
+// FMA on the CUDA cores (bound by the f32 rate, 67 TFLOP/s). K3 takes this
+// template at head dims other than 64 and for tensors that are not 16-byte
+// aligned, K1 the same less the fusion model's dialogues (Sq, Sk <= 64 at head
+// dims 96 and 50, which take its stacked forward,
+// flash_attention_fwd_stacked.cuh); at 64 both launch the Hopper
 // forwards of flash_attention_hopper.cuh (bf16 on wgmma, f32 in 3xTF32,
 // bound at the TF32 rate, 495 TFLOP/s over three passes). Keys past Sk get a
 // -inf bias, so the zero- or stale-padded last tile adds nothing.
@@ -60,7 +62,7 @@ constexpr int kBlockRows = 16 * kWarps;  // query rows a block, over its slices
 constexpr int kBlockKeys = 64;           // key rows a buffer, over the slices
 constexpr int kMaxDh = 128;
 constexpr int kScratchLd = kBlockKeys + 4;  // f32 P scratch row
-constexpr float kMaskBias = -1e30f;         // as the TPU kernel's _NEG_INF
+using mer_tiles::kMaskBias;
 
 struct Layout {
   int dh_pad, stride;  // padded head dim, tile row stride (elements)

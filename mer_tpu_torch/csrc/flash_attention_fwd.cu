@@ -15,7 +15,7 @@
 // sum, which the online softmax makes last. D is the Philox4x32-10 keep mask
 // of (seed, b*H + h, row, column) (philox.cuh) that K2, K3 and K4 draw.
 //
-// Three designs, picked per call; the C entry writes which it launched to
+// Four designs, picked per call; the C entry writes which it launched to
 // its `route` argument:
 //
 // - bf16 with Dh = 64 (the wav2vec2 and RoBERTa heads) and 16-byte aligned
@@ -35,8 +35,15 @@
 //   a 64-row query tile, two blocks an SM: S = q K^T and P V each as three
 //   tf32 wgmma.m64n64k8 passes (lo hi + hi lo + hi hi), P V's into a fresh
 //   accumulator a key tile, the online softmax in log2 units between them.
-// - Anything else (the fusion model's head dims 96 and 50, in bf16 and f32;
-//   an unaligned tensor): the forward template of flash_attention_forward.cuh,
+// - bf16 and f32 at Sq, Sk <= 64 and Dh 96 or 50 with 16-byte aligned q, k, v
+//   and out (the fusion model's dialogues): the one-pass stacked forward of
+//   flash_attention_fwd_stacked.cuh (route 3 in bf16, 4 in f32). One launch;
+//   a block owns a 64-row tile that stacks whole (b*h) slices
+//   block-diagonally, every key of a row in the tile, so the softmax takes
+//   one pass; in bf16 S on wgmma m64n64k16 and (P o D) V on m64n96k16 or
+//   m64n56k16 with P from registers, in f32 FMA on the CUDA cores.
+// - Anything else (other head dims; an unaligned tensor; more than 64 keys
+//   at Dh 96 or 50): the forward template of flash_attention_forward.cuh,
 //   which K3 shares (route 0): an online softmax over double-buffered key
 //   tiles staged with cp.async in the input dtype, both bf16 products on the
 //   tensor cores (mma.sync.m16n8k16, f32 accumulation; P's A operand straight
@@ -44,10 +51,7 @@
 //   FMA on the CUDA cores in the same register layout. A block of 4 warps
 //   takes 1, 2 or 4 (b*h) slices by Sq: above 32 rows one slice of 64 rows
 //   and 64-key tiles; up to 32 two slices of 32 rows, up to 16 four of 16 (the
-//   TPU kernel's bh_block, :120-128), with 32- and 16-key tiles, so the fusion
-//   model's dialogues (Sq = 8-33) leave no warp idle. These calls are launch-
-//   and latency-bound (below), where a wgmma tile of 64 rows would hold one
-//   slice and leave most of its rows empty.
+//   TPU kernel's bh_block, :120-128), with 32- and 16-key tiles.
 //
 // Bound. At the wav2vec2 export's shape [32, 12, 499, 499, 64] bf16 one call
 // moves q, k, v, out (24.5 MB each), the lse and the mask: 98.9 MB, 29.5 us
@@ -62,11 +66,13 @@
 // MB (2 us) and does 0.11 GFLOP: launch and latency bound.
 
 #include "flash_attention_forward.cuh"
+#include "flash_attention_fwd_stacked.cuh"
 #include "flash_attention_hopper.cuh"
 
 namespace {
 
-struct flash_attention_fwd {};  // the kernels' tag: K1 in a profile
+struct flash_attention_fwd {};          // the kernels' tag: K1 in a profile
+struct flash_attention_fwd_stacked {};  // the stacked design's, so that a profile splits K1 by route
 
 // slices a block by the query rows: four strips of 16, two of 32, or one of 64
 template <typename T>
@@ -85,11 +91,11 @@ cudaError_t launch_by_rows(const void* q, const void* k, const void* v, const vo
 // each probability is Philox(seed0, seed1) >= threshold, kept ones scaled by
 // keep_scale. scratch: 16-byte aligned, mer_hopper::tf32_scratch_floats(B, H,
 // Sk) floats, read by the f32 Hopper design only (null in bf16). route: in,
-// -1 for the design picked below, or 0 for the template whatever the call (a
+// -1 for the design picked below, 0 for the template whatever the call (a
 // hook for timing the designs against each other on the same inputs,
 // scripts/bench_attention.py --crossover); out, the design launched: 0 the
-// template, 1 the bf16 Hopper forward, 2 the f32 3xTF32 one. Returns the
-// cudaError_t of the launches.
+// template, 1 the bf16 Hopper forward, 2 the f32 3xTF32 one, 3 the bf16
+// stacked forward, 4 the f32 one. Returns the cudaError_t of the launches.
 extern "C" int mer_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, const void* mask,
                                        void* out, void* lse, void* scratch, int* route, int B, int H, int Sq, int Sk,
                                        int Dh, float scale, int dropout, uint32_t seed0, uint32_t seed1,
@@ -100,9 +106,14 @@ extern "C" int mer_flash_attention_fwd(int dtype, const void* q, const void* k, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using K1 = flash_attention_fwd;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  const bool hopper = *route != 0 && Dh == mer_hopper::kD && aligned(q) && aligned(k) && aligned(v) &&
-                      aligned(out) && (dtype == 1 || aligned(scratch));
-  *route = hopper && (dtype == 0 || dtype == 1) ? 2 - dtype : 0;
+  const bool all_aligned = aligned(q) && aligned(k) && aligned(v) && aligned(out);
+  const bool hopper = *route != 0 && Dh == mer_hopper::kD && all_aligned && (dtype == 1 || aligned(scratch)) &&
+                      (dtype == 0 || dtype == 1);
+  const bool stacked = *route != 0 && mer_stacked_fwd::takes(dtype, Sq, Sk, Dh, all_aligned);
+  *route = hopper ? 2 - dtype : stacked ? 4 - dtype : 0;
+  if (stacked)
+    return static_cast<int>(mer_stacked_fwd::launch<flash_attention_fwd_stacked>(
+        dtype, q, k, v, mask, out, lse, B, H, Sq, Sk, Dh, scale, drop, s));
   if (hopper && dtype == 1)
     return static_cast<int>(mer_hopper::launch_bf16<K1>(q, k, v, mask, out, lse, B, H, Sq, Sk, scale, drop, s));
   if (hopper && dtype == 0)

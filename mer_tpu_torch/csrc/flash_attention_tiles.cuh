@@ -35,6 +35,11 @@ using bf16 = __nv_bfloat16;
 
 template <typename T> struct Pad { static constexpr int kElems = 16 / sizeof(T); };
 
+// The masking constants of every attention kernel, defined here once: a fully masked row's rule must be the
+// same in the templates and the stacked designs.
+constexpr float kMaskBias = -1e30f;        // an ignored key's bias, as the TPU kernel's _NEG_INF
+constexpr float kFullyMaskedLse = -1e29f;  // a row's lse below this: every key of the row ignored
+
 // e^x as exp2f(x log2 e): one ex2 instead of expf's range reduction, off by the
 // rounding of x log2 e (relative |x| 2^-24 or so). x is a difference of scores
 // (s - max, s - lse), so a fully masked row, whose scores all round to -1e30,

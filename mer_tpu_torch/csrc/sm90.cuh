@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, named barriers,
 // programmatic dependent launch, TMA loads, the async-proxy fence, the wgmma
-// shared-memory descriptors, the bf16 m64nNk16 wgmma products (N = 64, 96, 128;
-// both operands in shared memory, K-major or MN-major, or A from registers),
+// shared-memory descriptors, the bf16 m64nNk16 wgmma products (N = 56, 64, 96,
+// 128; both operands in shared memory, K-major or MN-major, or A from registers),
 // the tf32 m64n64k8 ones (A from shared memory or registers) and m64n128k8
 // one (A from registers), the f32 -> tf32 rounding and 3xTF32's splits, and
 // host helpers that
@@ -270,6 +270,42 @@ __device__ __forceinline__ void wgmma_ss_t(float (&d)[48], uint64_t desc_a, uint
       "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
       : MER_F16(d, 0), MER_F16(d, 16), MER_F16(d, 32)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+// The m64n56k16 form (d[28]: column groups j to 6), for a head dim of 50 held in a zero-filled 64-column tile
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[28], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+      "}, %28, %29, p, 1, 1, %31, %32;\n}\n"
+      : MER_F16(d, 0), MER_F4(d, 16), MER_F4(d, 20), MER_F4(d, 24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N], A from registers (the layout of wgmma_rs_mn's a), B MN-major in shared memory
+// (an N = 96 B takes its descriptor from desc_sw128_mn); N = 96 (d[48]) or 56 (d[28]); accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : MER_F16(d, 0), MER_F16(d, 16), MER_F16(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[28], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1, 1;\n}\n"
+      : MER_F16(d, 0), MER_F4(d, 16), MER_F4(d, 20), MER_F4(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 #undef MER_F4
 #undef MER_F16

@@ -20,20 +20,24 @@ TF32 ``wgmma`` passes (3xTF32), bound by three TF32 products per f32 product
 at 495 TFLOP/s (0.148 ms at the f32 export's [32, 12, 499, 499, 64]). K4 in
 bf16 at head dim 64 is a Hopper design of its own, and in f32 at head dim 64
 runs the same three launches in 3xTF32 (a prep pass writes the TF32 halves
-of q, g, K, V and of the transposes q^T, g^T, K^T). Other head dims (the
-fusion model's 96 and 50) and unaligned tensors take two kernel templates,
-one forward for K1 and K3 (``csrc/flash_attention_forward.cuh``) and one
-backward for K2 and K4 (``csrc/flash_attention_backward.cuh``), on the
-tensor-core tile products of ``csrc/flash_attention_tiles.cuh`` in bf16
-(``mma.sync``; f32 by FMA on the CUDA cores, bound by the f32 rate). K2 at
-Sq, Sk <= 64 and head dims 64 and 96 with 16-byte aligned tensors (the
-fusion model's dialogues) is a one-pass design of its own
-(``csrc/flash_attention_bwd_stacked.cuh``): one launch, a block a 64-row tile
-of whole (b*h) slices stacked block-diagonally, in bf16 TMA and five
-``wgmma`` products, in f32 bulk copies and FMA; other K2 calls take the
-backward template. All draw dropout with the Philox generator
-``csrc/philox.cuh``; the templates take several (b*h) slices a block for
-sequences up to 32 rows. Each source's header states its design and bound.
+of q, g, K, V and of the transposes q^T, g^T, K^T). At the fusion model's
+dialogues (Sq, Sk <= 64) with 16-byte aligned tensors K1 (head dims 96 and
+50) and K2 (50, 64 and 96) are one-pass designs of their own on one stacked
+tile (``csrc/flash_attention_stacked.cuh``): one launch, a block a 64-row
+tile of whole (b*h) slices stacked block-diagonally, in bf16 swizzled boxes
+(by TMA, or by 4-byte loads at head dim 50, whose 100-byte rows no tensor map
+takes) and ``wgmma`` products (K1's forward ``csrc/flash_attention_fwd_stacked.cuh``:
+S, then (P o D) V with P from registers, a one-pass softmax; K2's backward
+``csrc/flash_attention_bwd_stacked.cuh``: five products), in f32 bulk copies
+and FMA. Other head dims, unaligned tensors and longer sequences take two
+kernel templates, one forward for K1 and K3
+(``csrc/flash_attention_forward.cuh``) and one backward for K2 and K4
+(``csrc/flash_attention_backward.cuh``), on the tensor-core tile products of
+``csrc/flash_attention_tiles.cuh`` in bf16 (``mma.sync``; f32 by FMA on the
+CUDA cores, bound by the f32 rate). All draw dropout with the Philox
+generator ``csrc/philox.cuh``; the templates take several (b*h) slices a
+block for sequences up to 32 rows. Each source's header states its design
+and bound.
 
 Dispatch by key count: :func:`flash_attention_forward` runs K1 up to
 ``STREAM_THRESHOLD`` keys and K3 above; :func:`flash_attention_backward` runs
@@ -369,7 +373,25 @@ def _forward_outputs(q, sk: int):
             torch.empty(n, dtype=torch.float32, device=q.device))
 
 
-FORWARD_ROUTES = ("template", "wgmma_bf16", "wgmma_tf32")  # K1's designs, by the route code its C entry writes
+# K1's designs, by the route code its C entry writes
+FORWARD_ROUTES = ("template", "wgmma_bf16", "wgmma_tf32", "stacked_bf16", "stacked_f32")
+STACKED_MAX = 64  # the stacked designs' largest Sq and Sk
+FORWARD_STACKED_HEAD_DIMS = (96, 50)  # K1's stacked forward (head dim 64 takes the Hopper forward)
+
+
+def _forward_route(dtype: torch.dtype, sq: int, sk: int, dh: int, aligned: bool) -> str:
+    """The design K1's C entry takes (``csrc/flash_attention_fwd.cu``, which this mirrors) for q, k, v and out all
+    16-byte aligned (``aligned``) or not, f32 scratch aligned as :func:`_forward_outputs` allocates it: at head dim
+    64 the Hopper forwards (bf16 on ``wgmma``, f32 in 3xTF32); at Sq, Sk <= ``STACKED_MAX`` and a head dim in
+    ``FORWARD_STACKED_HEAD_DIMS`` the one-pass stacked forward in bf16 and f32; else the template."""
+    if not aligned or dtype not in _DTYPE_CODE:
+        return "template"
+    bf16 = dtype == torch.bfloat16
+    if dh == 64:
+        return "wgmma_bf16" if bf16 else "wgmma_tf32"
+    if 1 <= sq <= STACKED_MAX and 1 <= sk <= STACKED_MAX and dh in FORWARD_STACKED_HEAD_DIMS:
+        return "stacked_bf16" if bf16 else "stacked_f32"
+    return "template"
 
 
 def flash_attention_forward(q, k, v, key_padding_mask=None, seed=None, dropout_rate: float = 0.0):
@@ -377,12 +399,14 @@ def flash_attention_forward(q, k, v, key_padding_mask=None, seed=None, dropout_r
     through :func:`flash_attention_stream` (K3); else K1 for CUDA tensors,
     its plain version for CPU tensors. ``flash_attention_forward.launches``
     counts K1's launches (one per call), ``.routes`` the same by the design
-    that the C entry took (``FORWARD_ROUTES``): ``wgmma_bf16`` for bf16 at
-    head dim 64 with 16-byte aligned q, k, v and out (the Hopper forward K3
-    shares: one launch), ``wgmma_tf32`` for f32 at head dim 64 with 16-byte
-    aligned tensors (a prep pass splits K and V^T into TF32 halves,
-    ``tf32_scratch_numel`` floats, then the 3xTF32 forward runs),
-    ``template`` otherwise (the fusion model's head dims 96 and 50)."""
+    that the C entry took (``FORWARD_ROUTES``, :func:`_forward_route`):
+    ``wgmma_bf16`` for bf16 at head dim 64 with 16-byte aligned q, k, v and
+    out (the Hopper forward K3 shares: one launch), ``wgmma_tf32`` for f32 at
+    head dim 64 with 16-byte aligned tensors (a prep pass splits K and V^T
+    into TF32 halves, ``tf32_scratch_numel`` floats, then the 3xTF32 forward
+    runs), ``stacked_bf16`` and ``stacked_f32`` for the fusion model's
+    dialogues (Sq, Sk <= 64, head dims 96 and 50, aligned tensors: the
+    one-pass stacked forward, no scratch), ``template`` otherwise."""
     if k.shape[2] > STREAM_THRESHOLD:
         return flash_attention_stream(q, k, v, key_padding_mask, seed, dropout_rate)
     if not _device_or_raise(q):
@@ -391,18 +415,24 @@ def flash_attention_forward(q, k, v, key_padding_mask=None, seed=None, dropout_r
 
 
 def _k1(q, k, v, key_padding_mask, seed, dropout_rate: float, route: int = -1):
-    """One K1 launch on CUDA tensors, counted in ``flash_attention_forward.launches`` and ``.routes``. ``route``
-    -1 takes the C entry's design; 0 takes the template whatever the call, a hook for timing the designs against
-    each other on the same inputs (``bench_attention --crossover``)."""
+    """One K1 launch on CUDA tensors, counted in ``flash_attention_forward.launches`` and ``.routes``; raises if
+    the C entry took another design than :func:`_forward_route` names. ``route`` -1 takes the C entry's design; 0
+    takes the template whatever the call, a hook for timing the designs against each other on the same inputs
+    (``bench_attention --crossover``)."""
     _check(q, k, v, key_padding_mask)
     drop = _dropout_args(seed, dropout_rate)
     out, lse, scratch = _forward_outputs(q, k.shape[2])
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+    want = "template" if route == 0 else _forward_route(q.dtype, q.shape[2], k.shape[2], q.shape[3], aligned)
     taken = ctypes.c_int(route)  # in: the design asked for; out: the design launched
     _launch("flash_attention_fwd", q, [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                                        out.data_ptr(), lse.data_ptr(), scratch.data_ptr(), ctypes.addressof(taken)],
             k.shape[2], drop)
+    if FORWARD_ROUTES[taken.value] != want:
+        raise RuntimeError(f"K1's C entry took its {FORWARD_ROUTES[taken.value]} design where the wrapper expected "
+                           f"{want}")
     flash_attention_forward.launches += 1
-    flash_attention_forward.routes[FORWARD_ROUTES[taken.value]] += 1
+    flash_attention_forward.routes[want] += 1
     return out, lse
 
 
@@ -489,8 +519,7 @@ def flash_attention_backward(q, k, v, key_padding_mask, out, lse, g, seed=None, 
 
 
 FUSED_ROUTES = ("template", "stacked_bf16", "stacked_f32")  # K2's designs, by the route code its C entry writes
-STACKED_MAX = 64  # the stacked design's largest Sq and Sk
-STACKED_HEAD_DIMS = (64, 96)
+STACKED_HEAD_DIMS = (50, 64, 96)  # K2's stacked backward
 
 
 def _fused_route(dtype: torch.dtype, sq: int, sk: int, dh: int, aligned: bool) -> str:
@@ -510,9 +539,10 @@ def flash_attention_fused_backward(q, k, v, key_padding_mask, out, lse, g, seed=
     picks: the crossover rows time it above ``BWD_FUSED_MAX``), its plain
     version for CPU tensors. Its launches count in
     ``flash_attention_backward.launches`` and ``.routes``: ``stacked_bf16``
-    and ``stacked_f32`` for the one-pass stacked design
-    (:func:`_fused_route`; no scratch), ``template`` otherwise (the two grids,
-    with delta [B, H, Sq] in f32 scratch between them)."""
+    and ``stacked_f32`` for the one-pass stacked design (:func:`_fused_route`:
+    Sq, Sk <= 64, head dims 50, 64 and 96, aligned tensors; no scratch),
+    ``template`` otherwise (the two grids, with delta [B, H, Sq] in f32
+    scratch between them)."""
     if not _device_or_raise(q):
         return flash_attention_backward_reference(q, k, v, key_padding_mask, out, lse, g, seed, dropout_rate,
                                                   g_lse)

@@ -13,8 +13,9 @@ backward), the same two through ``F.scaled_dot_product_attention`` with the
 same mask (a yardstick: the port never calls it), and the least time of each
 from bytes at 3.35 TB/s and products at 989 (bf16) or 67 (f32) TFLOP/s, the
 H100 SXM data sheet's. On the card times are device time per call: calls
-captured in a CUDA graph and replayed between CUDA events, or, above 100
-GFLOP a forward, eager calls between CUDA events; on the CPU the host clock,
+captured in a CUDA graph, each replay of it between its own pair of CUDA
+events, the median replay (:func:`device_ms`), or, above 100 GFLOP a
+forward, eager calls between CUDA events; on the CPU the host clock,
 labelled so. One JSON line per shape and dtype.
 
     python -m mer_tpu_torch.scripts.bench_attention --crossover [--device cuda|cpu]
@@ -41,7 +42,10 @@ bf16 forward and the template on inputs one element off 16-byte alignment
 element-wise loads, not the aligned template's cp.async) beside them. Last,
 K2's template (through the route argument of its C entry) against its
 one-pass stacked design at the counted fusion shapes, bf16 and f32, with
-SDPA's backward beside them (``CROSSOVER_K2``).
+SDPA's backward beside them (``CROSSOVER_K2``, and at the mel variant's head
+dim 50, ``CROSSOVER_K2_MEL``); and K1's template against its one-pass
+stacked forward at the counted fusion shapes (head dims 96 and 50), bf16 and
+f32, with SDPA's forward beside them (``CROSSOVER_K1``).
 
     python -m mer_tpu_torch.scripts.bench_attention --digest [--device cuda|cpu]
 
@@ -57,6 +61,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import statistics
 import time
 
 import numpy as np
@@ -103,6 +108,18 @@ CROSSOVER_K2 = ([(16, 8, 8, "bfloat16", 0.0), (16, 8, 16, "bfloat16", 0.0), (32,
                  (32, 8, 33, "bfloat16", 0.0)]
                 + [(b, h, s, "float32", 0.0) for b, h, s in ((16, 8, 8), (32, 4, 8), (16, 8, 16), (32, 4, 16),
                                                             (32, 8, 8), (32, 8, 16), (32, 8, 33))])
+# (B, H, S, dtype, dropout rate) at head dim 50: K2's designs at the mel variant's training calls (6 audio heads)
+CROSSOVER_K2_MEL = [(32, 6, s, "bfloat16", 0.4) for s in (8, 16, 24)] + [(32, 6, 33, "bfloat16", 0.0)]
+# (B, H, S, Dh, dtype, dropout rate): K1's template against its stacked forward at the K1 calls of chip_smoke.py's
+# counted main paths at the fusion model's head dims (evaluation and serving batches of 16-192 dialogues, 8 heads
+# of 96 or 4 under tp 2, training at dropout 0.4, the mel variant's 6 heads of 50) and the 33 bucket
+CROSSOVER_K1 = ([(b, h, s, 96, "bfloat16", 0.0) for b, h, s in (
+    (16, 8, 8), (16, 8, 16), (32, 4, 8), (32, 4, 16), (32, 8, 8), (32, 8, 16), (32, 8, 24), (32, 8, 33), (64, 8, 16),
+    (64, 8, 24), (96, 8, 16), (192, 8, 24))]
+                + [(32, 8, s, 96, "bfloat16", 0.4) for s in (8, 16, 24)]
+                + [(32, 6, s, 50, "bfloat16", rate) for s in (8, 16, 24, 33) for rate in (0.0, 0.4)]
+                + [(b, h, s, 96, "float32", 0.0) for b, h, s in (
+                    (16, 8, 8), (16, 8, 16), (32, 4, 8), (32, 4, 16), (32, 8, 8), (32, 8, 16), (32, 8, 33))])
 # --digest: (kernel, B, H, Sq, Sk) at head dim 64: K1 at the wav2vec2 export's frames, K3 at the 90 s clips'
 DIGEST_CASES = [("K1", 2, 12, 499, 499), ("K3", 2, 12, 4499, 4499)]
 
@@ -131,13 +148,22 @@ def bound_ms(b: int, h: int, s: int, dh: int, dtype: torch.dtype, backward: bool
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def device_ms(fn, reps: int, replays: int) -> float:
-    """Device time per call: ``reps`` calls captured in one CUDA graph,
-    replayed ``replays`` times between CUDA events."""
+SLEEP_CYCLES = 200_000  # about 0.1 ms of the card's clock ahead of each timed replay (torch.cuda._sleep)
+
+
+def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device time per call: ``reps`` calls (after three warm ones) captured in
+    one CUDA graph, replayed ``replays`` times, each replay between a CUDA
+    event pair of its own; the median replay over ``reps``. Each pair follows
+    a spin of ``SLEEP_CYCLES`` on the stream, so the card is still busy while
+    the host enqueues the pair and its replay: a host stall between two
+    replays, or one shorter than the spin inside a pair, leaves the card idle
+    outside every pair (one longer moves one replay, not the median)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for _ in range(3):
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -145,13 +171,14 @@ def device_ms(fn, reps: int, replays: int) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(replays)]
+    for start, end in pairs:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
         graph.replay()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+    return statistics.median(start.elapsed_time(end) for start, end in pairs) / reps
 
 
 def events_ms(fn, reps: int) -> float:
@@ -206,7 +233,7 @@ def bench_shape(name: str, b: int, h: int, s: int, dh: int, dtype: torch.dtype, 
     elif flops > 1e11:
         timer = lambda fn: events_ms(fn, 2)
     else:
-        timer = lambda fn: device_ms(fn, 5, 4)
+        timer = lambda fn: device_ms(fn, 5, 9)
     row = {"shape": name, "B": b, "H": h, "S": s, "Dh": dh, "dtype": str(dtype).removeprefix("torch."),
            "clock": "device" if device.type == "cuda" else "host (cpu)"}
     fwd_name, bwd_name = kernel_names(s)
@@ -243,7 +270,7 @@ def crossover_row(direction: str, b: int, h: int, s: int, dh: int, rate: float, 
     dtype = torch.bfloat16
     q, k, v, g, mask = timing_inputs(b, h, s, dh, dtype, device)
     seed = (0x5EED, s) if rate else None
-    timer = (lambda fn: device_ms(fn, 5, 4)) if device.type == "cuda" else (lambda fn: host_ms(fn, 1))
+    timer = (lambda fn: device_ms(fn, 5, 9)) if device.type == "cuda" else (lambda fn: host_ms(fn, 1))
     row = {"direction": direction, "B": b, "H": h, "S": s, "Dh": dh, "dtype": "bfloat16", "dropout": rate,
            "clock": "device" if device.type == "cuda" else "host (cpu)"}
     if direction == "forward":
@@ -272,22 +299,40 @@ def crossover_row(direction: str, b: int, h: int, s: int, dh: int, rate: float, 
     return row
 
 
-def k2_design_row(b: int, h: int, s: int, dtype_name: str, rate: float, device: torch.device) -> dict:
+def k2_design_row(b: int, h: int, s: int, dtype_name: str, rate: float, device: torch.device, dh: int = 96) -> dict:
     """K2's template (through the route argument of its C entry, a hook for this comparison) against the stacked
     design the dispatch takes, with SDPA's backward (its forward and backward less its forward) beside them, on the
-    same inputs at [b, h, s, s, 96] (device ms per call; host ms on the CPU, where both are the plain version)."""
+    same inputs at [b, h, s, s, dh] (device ms per call; host ms on the CPU, where both are the plain version)."""
     dtype = DTYPES[dtype_name]
-    q, k, v, g, mask = timing_inputs(b, h, s, 96, dtype, device)
+    q, k, v, g, mask = timing_inputs(b, h, s, dh, dtype, device)
     seed = (0x5EED, s) if rate else None
-    timer = (lambda fn: device_ms(fn, 5, 4)) if device.type == "cuda" else (lambda fn: host_ms(fn, 1))
+    timer = (lambda fn: device_ms(fn, 5, 9)) if device.type == "cuda" else (lambda fn: host_ms(fn, 1))
     out, lse = fa.flash_attention_forward(q, k, v, mask, seed, rate)
     stacked = lambda: fa.flash_attention_backward(q, k, v, mask, out, lse, g, seed, rate)
     template = (lambda: fa._k2(q, k, v, mask, out, lse, g, seed, rate, None, route=0)) \
         if device.type == "cuda" else stacked
-    row = {"direction": "k2 designs", "B": b, "H": h, "S": s, "Dh": 96, "dtype": dtype_name, "dropout": rate,
+    row = {"direction": "k2 designs", "B": b, "H": h, "S": s, "Dh": dh, "dtype": dtype_name, "dropout": rate,
            "clock": "device" if device.type == "cuda" else "host (cpu)", "kernels": "template | stacked",
            "template_ms": timer(template), "stacked_ms": timer(stacked),
            "sdpa_backward_ms": sdpa_backward_ms(q, k, v, mask, g, rate, timer)}
+    row["faster"] = "template" if row["template_ms"] <= row["stacked_ms"] else "stacked"
+    return row
+
+
+def k1_design_row(b: int, h: int, s: int, dh: int, dtype_name: str, rate: float, device: torch.device) -> dict:
+    """K1's template (through the route argument of its C entry, a hook for this comparison) against the stacked
+    forward the dispatch takes, with SDPA's forward beside them, on the same inputs at [b, h, s, s, dh] (device ms
+    per call; host ms on the CPU, where both are the plain version)."""
+    q, k, v, _, mask = timing_inputs(b, h, s, dh, DTYPES[dtype_name], device)
+    seed = (0x5EED, s) if rate else None
+    timer = (lambda fn: device_ms(fn, 5, 9)) if device.type == "cuda" else (lambda fn: host_ms(fn, 1))
+    stacked = lambda: fa.flash_attention_forward(q, k, v, mask, seed, rate)
+    template = (lambda: fa._k1(q, k, v, mask, seed, rate, route=0)) if device.type == "cuda" else stacked
+    row = {"direction": "k1 designs", "B": b, "H": h, "S": s, "Dh": dh, "dtype": dtype_name, "dropout": rate,
+           "clock": "device" if device.type == "cuda" else "host (cpu)", "kernels": "template | stacked",
+           "template_ms": timer(template), "stacked_ms": timer(stacked),
+           "sdpa_ms": timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, attn_mask=~mask[:, None, None, :], dropout_p=rate))}
     row["faster"] = "template" if row["template_ms"] <= row["stacked_ms"] else "stacked"
     return row
 
@@ -311,7 +356,9 @@ def crossover(device: torch.device) -> list[dict]:
     """The rows of ``--crossover``: K1 | K3 at ``CROSSOVER_FORWARD`` key
     counts up to the forward's threshold, K2 | K4 at ``CROSSOVER_BACKWARD``,
     K1's template | its Hopper forward at ``CROSSOVER_DESIGNS``, K2's
-    template | its stacked design at ``CROSSOVER_K2``."""
+    template | its stacked design at ``CROSSOVER_K2`` and
+    ``CROSSOVER_K2_MEL``, K1's template | its stacked forward at
+    ``CROSSOVER_K1``."""
     rows = []
     for direction, shapes in (("forward", CROSSOVER_FORWARD), ("backward", CROSSOVER_BACKWARD),
                               ("designs", CROSSOVER_DESIGNS)):
@@ -321,6 +368,12 @@ def crossover(device: torch.device) -> list[dict]:
                 print(json.dumps(rows[-1]), flush=True)
     for case in CROSSOVER_K2:
         rows.append(k2_design_row(*case, device))
+        print(json.dumps(rows[-1]), flush=True)
+    for case in CROSSOVER_K2_MEL:
+        rows.append(k2_design_row(*case, device, dh=50))
+        print(json.dumps(rows[-1]), flush=True)
+    for case in CROSSOVER_K1:
+        rows.append(k1_design_row(*case, device))
         print(json.dumps(rows[-1]), flush=True)
     return rows
 
@@ -352,7 +405,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--dtypes", default="float32,bfloat16")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--crossover", action="store_true",
-                   help="time K1 | K3 and K2 | K4 on either side of the dispatch thresholds instead")
+                   help="time K1 | K3 and K2 | K4 on either side of the dispatch thresholds, and K1's and K2's "
+                        "designs on the same inputs, instead")
     p.add_argument("--digest", action="store_true", help="print the sha256 of K1's and K3's outputs instead")
     args = p.parse_args(argv)
     device = resolve_device(args.device)

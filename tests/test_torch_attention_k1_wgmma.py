@@ -228,8 +228,8 @@ def test_cpu_calls_count_no_route():
     before = dict(fa.flash_attention_forward.routes), fa.flash_attention_forward.launches
     fa.flash_attention_forward(q, k, v, mask)
     assert (dict(fa.flash_attention_forward.routes), fa.flash_attention_forward.launches) == before
-    assert set(fa.FORWARD_ROUTES) == set(fa.flash_attention_forward.routes) == {"template", "wgmma_bf16",
-                                                                                 "wgmma_tf32"}
+    assert set(fa.FORWARD_ROUTES) == set(fa.flash_attention_forward.routes) == {
+        "template", "wgmma_bf16", "wgmma_tf32", "stacked_bf16", "stacked_f32"}
 
 
 def test_bench_design_rows_time_both_designs_on_cpu():
@@ -412,8 +412,9 @@ def test_k1_k3_seam(rate, cuda):
 
 @pytest.mark.cuda
 def test_routes_name_the_design_that_ran(cuda):
-    """bf16 at Dh 64: the Hopper forward; f32 at Dh 64: the 3xTF32 one; other head dims, a tensor that is not
-    16-byte aligned, and a call through the timing hook (route 0): the template. Each within the limits of the plain
+    """bf16 at Dh 64: the Hopper forward; f32 at Dh 64: the 3xTF32 one; the fusion model's head dim 96 at a
+    dialogue's 33 keys: the stacked forward (tests/test_torch_attention_k1_stacked.py); a tensor that is not 16-byte
+    aligned, and a call through the timing hook (route 0): the template. Each within the limits of the plain
     version."""
     q, k, v, mask = _card((2, 3, 99, 130), cuda, 8)
     want_out, want_lse = fa.flash_attention_reference(q, k, v, mask)
@@ -428,4 +429,4 @@ def test_routes_name_the_design_that_ran(cuda):
     assert _excess(out, want_out, fa.flash_attention_reference, q, k, v, mask) <= 0
     _routed(lambda: fa.flash_attention_forward(q.float(), k.float(), v.float(), mask), "wgmma_tf32")
     q, k, v, mask = _card((2, 3, 33, 33), cuda, 9, dh=96)
-    _routed(lambda: fa.flash_attention_forward(q, k, v, mask), "template")
+    _routed(lambda: fa.flash_attention_forward(q, k, v, mask), "stacked_bf16")

@@ -2,12 +2,14 @@
 plain version on a card.
 
 The design (``csrc/flash_attention_bwd_stacked.cuh``, which K2's C entry
-launches in bf16 and f32 at Sq, Sk <= 64 and head dims 64 and 96 with
+launches in bf16 and f32 at Sq, Sk <= 64 and head dims 50, 64 and 96 with
 16-byte aligned tensors) stacks n = 64 / max(Sq, Sk) consecutive (b*h)
 slices in one 64-row tile: in the [B, H, S, Dh] layout they are consecutive
 rows of the [B*H*S, Dh] view, which the bf16 design reads as TMA boxes of 64
 rows (rows past the tile's slices are the next slices', zeros past the
-tensor). S = q K^T and dP = g V^T run over the whole tile; a score whose row
+tensor), or at head dim 50 by 4-byte loads into the same boxes (columns
+50-63 and rows past the tile's real ones zero; the gradients' products are
+m64n56k16). S = q K^T and dP = g V^T run over the whole tile; a score whose row
 and key lie in different slices, or past the tile's real rows, gets P = 0
 and dS = 0, so the block-diagonal stack's dQ = dS K, dK = scale dS^T q and
 dV = (P o D)^T g are the slices' own, side by side. P uses the key biases in
@@ -22,14 +24,18 @@ one slice a tile: the bf16 design's rule with dropout at an odd size).
 On the CPU: that algorithm restated in float64, float32 and bf16 against
 ``flash_attention_backward_reference`` and in float32 against ``mer_tpu``'s
 K2 (``_flash_bwd_fused``) in interpret mode, at S = 8, 16, 24 and 33 and 24 x
-33, B H not a multiple of n (a partial last tile), a key mask, a fully
-masked element, an lse cotangent, dropout 0.4 drawn slice-locally (the draw
-equal to ``dropout_factor``), ``_fused_route`` over dtype, head dim, S and
-alignment, and CPU calls counting no route. On the card (``cuda`` marker):
-the stacked design against its plain version at every K2 shape of the
-counted main paths and at [32, 8, 33, 33, 96] in both dtypes, the same bits
-from two calls, its dropout mask read off exactly, the bf16 limit failing on
-rolled key slices, the K2 | K4 seam at 33 / 34 keys, and
+33, head dims 96, 64 and 50, B H not a multiple of n (a partial last tile), a
+key mask, a fully masked element, an lse cotangent, dropout 0.4 drawn
+slice-locally (the draw equal to ``dropout_factor``), ``_fused_route`` over
+dtype, head dim, S and alignment, and CPU calls counting no route; and a
+narrow mel-variant M2FNet (audio heads of 50, text and fusion heads of 96,
+the shapes whose attention the mel variant's training runs through K1's and
+K2's stacked designs) against ``mer_tpu``'s, forward and gradients. On the
+card (``cuda`` marker): the stacked design against its plain version at
+every K2 shape of the counted main paths (the mel variant's at head dim 50
+too) and at [32, 8, 33, 33, 96] in both dtypes, the same bits from two
+calls, its dropout mask read off exactly, the bf16 limit failing on rolled
+key slices, the K2 | K4 seam at 33 / 34 keys, and
 ``flash_attention_backward.routes`` naming the design that ran::
 
     python -m pytest --noconftest -m cuda tests/test_torch_attention_k2_hopper.py
@@ -162,9 +168,9 @@ def _k2_restated(q, k, v, mask, out, lse, g, seed=None, rate=0.0, g_lse=None, sp
 
 
 # (B, H, Sq, Sk, Dh): the buckets 8, 16, 24 and 33 with B H not a multiple of the most slices a tile (15 of 8, 6 of
-# 4, 9 of 3 at the odd 21), Sq != Sk (24 x 33), head dims 96 and 64
+# 4, 9 of 3 at the odd 21), Sq != Sk (24 x 33), head dims 96 and 64, then the mel variant's head dim 50
 CASES = [(3, 5, 8, 8, 96), (2, 3, 16, 16, 96), (2, 2, 24, 24, 64), (2, 2, 33, 33, 96), (3, 2, 24, 33, 96),
-         (3, 3, 21, 21, 64)]
+         (3, 3, 21, 21, 64), (2, 3, 16, 16, 50), (3, 3, 21, 21, 50), (3, 2, 24, 33, 50)]
 VARIANTS = [("dialogue", 0.0, False), ("fully_masked", 0.0, True), ("dialogue", RATE, False),
             ("fully_masked", RATE, True)]
 STACKS = ["one", "most"]  # one slice a tile, or the most a tile may stack (bf16's rule with dropout at odd sizes)
@@ -298,12 +304,13 @@ def test_slices_per_tile_at_the_buckets():
     (torch.bfloat16, 8, 8, 96, True, "stacked_bf16"), (torch.float32, 33, 33, 96, True, "stacked_f32"),
     (torch.bfloat16, 24, 33, 64, True, "stacked_bf16"), (torch.float32, 64, 64, 64, True, "stacked_f32"),
     (torch.bfloat16, 1, 1, 96, True, "stacked_bf16"), (torch.bfloat16, 65, 8, 96, True, "template"),
-    (torch.float32, 8, 65, 96, True, "template"), (torch.bfloat16, 16, 16, 50, True, "template"),
+    (torch.float32, 8, 65, 96, True, "template"), (torch.bfloat16, 16, 16, 50, True, "stacked_bf16"),
     (torch.float32, 16, 16, 128, True, "template"), (torch.bfloat16, 16, 16, 96, False, "template"),
-    (torch.float64, 16, 16, 96, True, "template")])
+    (torch.float64, 16, 16, 96, True, "template"), (torch.float32, 33, 33, 50, True, "stacked_f32"),
+    (torch.bfloat16, 16, 16, 50, False, "template"), (torch.bfloat16, 8, 65, 50, True, "template")])
 def test_fused_route(dtype, sq, sk, dh, aligned, want):
     """The design K2's C entry takes, as the wrapper mirrors it: the stacked design in bf16 and f32 at Sq, Sk <= 64,
-    head dims 64 and 96 and aligned tensors, the template otherwise (the mel branch's 50, unaligned views, longer
+    head dims 50, 64 and 96 and aligned tensors, the template otherwise (other head dims, unaligned views, longer
     sequences)."""
     assert fa._fused_route(dtype, sq, sk, dh, aligned) == want
     assert fa.FUSED_ROUTES == ("template", "stacked_bf16", "stacked_f32")
@@ -318,6 +325,19 @@ def test_cpu_calls_count_no_route():
     assert set(fa.flash_attention_backward.routes) == set(fa.FUSED_ROUTES)
     for a, w in zip(got, fa.flash_attention_backward_reference(*args)):
         assert torch.equal(a, w)
+
+
+def test_crossover_k2_mel_shapes_are_the_mel_variants_k2_rows():
+    """``bench_attention --crossover`` also times K2's designs at head dim 50, the mel variant's training calls (32
+    dialogues, 6 audio heads, dropout 0.4) and the 33 bucket, all on the stacked design."""
+    from mer_tpu_torch.scripts import bench_attention
+
+    shapes = bench_attention.CROSSOVER_K2_MEL
+    assert {s for _, _, s, _, _ in shapes} == {8, 16, 24, 33} and {h for _, h, *_ in shapes} == {6}
+    assert all(fa._fused_route(bench_attention.DTYPES[dt], s, s, 50, True) == "stacked_bf16"
+               for _, _, s, dt, _ in shapes)
+    row = bench_attention.k2_design_row(2, 2, 8, "bfloat16", RATE, torch.device("cpu"), dh=50)
+    assert row["Dh"] == 50 and row["kernels"] == "template | stacked" and row["template_ms"] > 0
 
 
 def test_crossover_k2_shapes_are_the_counted_k2_rows():
@@ -341,6 +361,64 @@ def test_bench_k2_design_rows_time_both_designs_on_cpu():
     assert row["kernels"] == "template | stacked" and row["clock"] == "host (cpu)"
     assert all(row[key] > 0 for key in ("template_ms", "stacked_ms")) and math.isfinite(row["sdpa_backward_ms"])
     assert fa.flash_attention_backward.launches == 0
+
+
+# the narrow mel variant: audio heads of 50 (K1's and K2's stacked designs at head dim 50 on the card), text and
+# fusion heads of 96, two encoder layers a modality, two FAM layers; tests/test_torch_m2fnet.py's batch of 3 x 9
+MEL_VARIANT = {
+    "dropout": 0.4,
+    "AUDIO": {"enabled": True, "embedding_size": 100, "n_head": 2, "n_transformers": 1, "n_encoder_layers": 2},
+    "TEXT": {"enabled": True, "embedding_size": 96, "n_head": 1, "n_transformers": 1, "n_encoder_layers": 2},
+    "FAM": {"enabled": True, "embedding_size": 96, "n_head": 1, "n_layers": 2},
+    "CLASSIFIER": {"hidden_size": 32, "output_size": 7, "n_layers": 2},
+}
+
+
+def test_mel_variant_m2fnet_matches_mer_tpu_forward_and_gradients():
+    """A narrow mel-variant M2FNet on ``mer_tpu``'s seeded weights: the port's eval logits, the gradients of a
+    seeded linear loss of them with respect to every weight (carried through ``state_dict_from_jax``, a linear map)
+    and to both embeddings, within tests/test_torch_m2fnet.py's 1e-4 of ``mer_tpu``'s (f32, CPU: the attention
+    through its plain versions, the algebra the stacked designs run on the card)."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from mer_tpu.core.config import Config as JaxConfig
+    from mer_tpu.models import M2FNet as JaxM2FNet
+    from mer_tpu_torch.core import Config
+    from mer_tpu_torch.models import M2FNet, state_dict_from_jax
+
+    b, u = 3, 9
+    rng = np.random.default_rng(0)
+    text = rng.normal(size=(b, u, 96)).astype(np.float32)
+    audio = rng.normal(size=(b, u, 100)).astype(np.float32)
+    mask = np.arange(u)[None, :] >= np.array([[u], [4], [0]])
+    mask[2, 0] = False  # an all-padding dialogue keeps key 0 attendable
+    cot = rng.normal(size=(b, u, 7)).astype(np.float32)
+
+    jax_model = JaxM2FNet.from_config(JaxConfig(MEL_VARIANT))
+    params = jax_model.init(jax.random.PRNGKey(0), jnp.asarray(text), jnp.asarray(audio), jnp.asarray(mask))["params"]
+
+    def loss(params, text, audio):
+        logits = jax_model.apply({"params": params}, text, audio, jnp.asarray(mask), deterministic=True)
+        return jnp.sum(logits * cot), logits
+
+    (_, want_logits), (g_params, g_text, g_audio) = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        params, jnp.asarray(text), jnp.asarray(audio))
+    port = M2FNet.from_config(Config(MEL_VARIANT))
+    port.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, params), Config(MEL_VARIANT)), strict=True)
+    port.eval()
+    t_text, t_audio = (torch.from_numpy(a).requires_grad_() for a in (text, audio))
+    logits = port(t_text, t_audio, torch.from_numpy(mask))
+    (logits * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want_logits), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(t_text.grad.numpy(), np.asarray(g_text), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(t_audio.grad.numpy(), np.asarray(g_audio), rtol=0, atol=1e-4)
+    want_grads = state_dict_from_jax(jax.tree.map(np.asarray, g_params), Config(MEL_VARIANT))
+    got_grads = {name: p.grad for name, p in port.named_parameters()}
+    assert set(got_grads) == set(want_grads)
+    for name, grad in got_grads.items():
+        np.testing.assert_allclose(grad.numpy(), want_grads[name].numpy(), rtol=0, atol=1e-4, err_msg=name)
 
 
 # -- on the card ------------------------------------------------------------------------------
@@ -405,6 +483,42 @@ def test_stacked_matches_plain_version(shape, dtype, rate, cuda):
         torch.cuda.synchronize()
         assert all(torch.isfinite(t.float()).all() for t in got)
         assert _excess(got, fa.flash_attention_backward_reference(*args), dtype) <= 0
+
+
+# the mel variant's K2 shapes ([B, H, S, S, 50]: 32 dialogues, 6 audio heads) at the buckets
+MEL_CARD_SHAPES = [(32, 6, 8), (32, 6, 16), (32, 6, 24), (32, 6, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MEL_CARD_SHAPES)
+def test_stacked_matches_plain_version_at_head_dim_50(shape, dtype, rate, cuda):
+    """The mel variant's head dim 50: operands by 4-byte loads zero-filled to 64 columns, the gradients on
+    m64n56k16 (bf16) or FMA over rows padded to 52 (f32), 50 columns stored."""
+    for mask_kind in ("dialogue", "fully_masked"):
+        args = _card(*shape, shape[2], 50, dtype, cuda, sum(shape), mask_kind, rate)
+        got = _routed(lambda: fa.flash_attention_backward(*args), _route(dtype))
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(t.float()).all() for t in got)
+        assert _excess(got, fa.flash_attention_backward_reference(*args), dtype) <= 0
+        assert all(torch.equal(a, b) for a, b in zip(got, fa.flash_attention_backward(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b, h, s", [(32, 6, 8), (32, 6, 24), (4, 6, 33), (3, 5, 21)])
+def test_stacked_dropout_mask_read_off_exactly_at_head_dim_50(b, h, s, dtype, cuda):
+    """g one-hot, g[i, i] = 1 (head dim 50 >= S): dv[j, i] = P_ij D_ij, the mask of every slice, exactly."""
+    seed = (0xC0FFEE, s)
+    want = fa.dropout_factor(seed, (b, h, s, s), RATE, cuda) > 0
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn(b, h, s, 50, device=cuda, generator=gen).to(dtype) for _ in range(3))
+    out, lse = fa.flash_attention_forward(q, k, v, None, seed, RATE)
+    g = torch.zeros(b, h, s, 50, device=cuda, dtype=dtype)
+    g[:, :, :, :s] = torch.eye(s, device=cuda, dtype=dtype)
+    dv = _routed(lambda: fa.flash_attention_backward(q, k, v, None, out, lse, g, seed, RATE), _route(dtype))[2]
+    assert torch.equal(dv[..., :s].transpose(2, 3) > 0, want)
 
 
 @pytest.mark.cuda
@@ -476,8 +590,8 @@ def test_k2_k4_seam(dtype, cuda):
 
 @pytest.mark.cuda
 def test_routes_name_the_design_that_ran(cuda):
-    """bf16 and f32 at head dim 96: the stacked designs; the mel branch's head dim 50, a view off 16-byte alignment,
-    65 keys through the fused backward and a call through the timing hook (route 0): the template, each within the
+    """bf16 and f32 at head dim 96 and the mel branch's 50: the stacked designs; a view off 16-byte alignment, 65
+    keys through the fused backward and a call through the timing hook (route 0): the template, each within the
     limits of the plain version."""
     args = _card(4, 8, 16, 16, 96, torch.bfloat16, cuda, 8)
     want = fa.flash_attention_backward_reference(*args)
@@ -494,7 +608,7 @@ def test_routes_name_the_design_that_ran(cuda):
     f32 = _card(4, 8, 16, 16, 96, torch.float32, cuda, 9)
     _routed(lambda: fa.flash_attention_backward(*f32), "stacked_f32")
     mel = _card(4, 6, 16, 16, 50, torch.bfloat16, cuda, 10)
-    _routed(lambda: fa.flash_attention_backward(*mel), "template")
+    _routed(lambda: fa.flash_attention_backward(*mel), "stacked_bf16")
     long = _card(2, 2, 16, 65, 96, torch.bfloat16, cuda, 11)
     got = _routed(lambda: fa.flash_attention_fused_backward(*long), "template")
     assert _excess(got, fa.flash_attention_backward_reference(*long), torch.bfloat16) <= 0
