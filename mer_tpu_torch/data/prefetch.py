@@ -15,6 +15,13 @@ without streams.
 
 A producer exception reaches the consumer after the batches made before it.
 
+Spans (``utils/tracing.py``): ``prefetch.host`` (the producer pulling the
+next host batch) and ``prefetch.h2d`` (``_to_device``: the slot's wait, the
+pinned staging and the copies issued; ``bytes``) on the producer thread,
+``stream.wait`` (the consumer waiting for a batch) on the consumer's. After
+an iteration, ``host_s`` and ``h2d_bytes`` hold its producer spans' seconds
+and bytes.
+
 ``sharding`` places each batch across the dp axis of a mesh, as
 ``mer_tpu``'s ``jax.device_put`` onto a batch sharding does: a ``(group,
 dp_rank)`` pair (the dp process group, None for one rank, and this rank's
@@ -25,6 +32,7 @@ size as ``pad_batch_to_dp`` pads) and copies only those to the device.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterable, Iterator
@@ -34,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from mer_tpu_torch.parallel.mesh import dp_row_shard
+from mer_tpu_torch.utils.tracing import span
 
 
 class _PinnedSlot:
@@ -99,13 +108,22 @@ class DevicePrefetcher:
         sentinel = object()
         error: list[BaseException] = []
         stop = threading.Event()
+        self.host_s, self.h2d_bytes = 0.0, 0
 
         def producer() -> None:
             try:
-                for i, batch in enumerate(self._batches):
-                    if stop.is_set():
+                batches = iter(self._batches)
+                for i in itertools.count():
+                    with span("prefetch.host", batch=i) as pulled:
+                        batch = next(batches, sentinel)
+                    self.host_s += pulled.seconds
+                    if batch is sentinel or stop.is_set():
                         return
-                    q.put(self._to_device(batch, slots[i % len(slots)] if on_card else None, stream))
+                    nbytes = sum(np.asarray(v).nbytes for v in batch.values())
+                    with span("prefetch.h2d", batch=i, bytes=nbytes):
+                        item = self._to_device(batch, slots[i % len(slots)] if on_card else None, stream)
+                    self.h2d_bytes += nbytes
+                    q.put(item)
             except BaseException as e:  # reaches the consumer after the batches before it
                 error.append(e)
             finally:
@@ -114,8 +132,9 @@ class DevicePrefetcher:
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         try:
-            while True:
-                item = q.get()
+            for i in itertools.count():
+                with span("stream.wait", batch=i):
+                    item = q.get()
                 if item is sentinel:
                     break
                 batch, event = item

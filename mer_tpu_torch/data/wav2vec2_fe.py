@@ -30,6 +30,7 @@ from mer_tpu_torch.core import get_text, map_emotions
 from mer_tpu_torch.data.audio_io import WaveformStore
 from mer_tpu_torch.data.mel_fe import to_device, wav_dir_for
 from mer_tpu_torch.data.process_sharding import local_num_batches, resolve_process, shard_batches
+from mer_tpu_torch.utils.tracing import span
 
 SAMPLE_RATE = 16000
 MAX_SECONDS = 10.0
@@ -118,7 +119,8 @@ class Wav2Vec2Batcher:
     smallest bucket that holds the batch's longest clip; the last batch is
     filled by repeating its last clip with ``emotion`` -1. With ``shuffle``, clips of similar length share a
     batch and the batch order is shuffled; without, the table's order is kept. ``seconds_buckets`` is the
-    width ladder in seconds (a clip longer than its last rung is cut to it)."""
+    width ladder in seconds (a clip longer than its last rung is cut to it). Forming a batch is a
+    ``data.batch`` span (``utils/tracing.py``), closed before the batch is handed on."""
 
     def __init__(self, dataset: Wav2Vec2FeatureDataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  seconds_buckets: tuple[float, ...] = SECONDS_BUCKETS, process_index: int | None = None,
@@ -149,18 +151,20 @@ class Wav2Vec2Batcher:
         batches = [order[i: i + self.batch_size] for i in range(0, n, self.batch_size)]
         if self.shuffle:
             self._rng.shuffle(batches)
-        for idx in shard_batches(batches, self.process_index, self.process_count):
-            pad = self.batch_size - len(idx)
-            full_idx = np.concatenate([idx, idx[-1:].repeat(pad)]) if pad else idx
-            waves = [self.dataset.waveform(j) for j in full_idx]
-            width = self._bucket(max(len(w) for w in waves))
-            audio = np.zeros((self.batch_size, width), dtype=np.int16)
-            lengths = np.zeros((self.batch_size,), dtype=np.int32)
-            for i, w in enumerate(waves):
-                w = w[:width]
-                audio[i, : len(w)] = np.clip(w * 32768.0, -32768, 32767).astype(np.int16)
-                lengths[i] = len(w)
-            emotion = self.dataset.labels[full_idx].astype(np.int32).copy()
-            if pad:
-                emotion[len(idx):] = -1
+        for k, idx in enumerate(shard_batches(batches, self.process_index, self.process_count)):
+            with span("data.batch", batch=k) as formed:
+                pad = self.batch_size - len(idx)
+                full_idx = np.concatenate([idx, idx[-1:].repeat(pad)]) if pad else idx
+                waves = [self.dataset.waveform(j) for j in full_idx]
+                width = self._bucket(max(len(w) for w in waves))
+                audio = np.zeros((self.batch_size, width), dtype=np.int16)
+                lengths = np.zeros((self.batch_size,), dtype=np.int32)
+                for i, w in enumerate(waves):
+                    w = w[:width]
+                    audio[i, : len(w)] = np.clip(w * 32768.0, -32768, 32767).astype(np.int16)
+                    lengths[i] = len(w)
+                emotion = self.dataset.labels[full_idx].astype(np.int32).copy()
+                if pad:
+                    emotion[len(idx):] = -1
+                formed.note(width=width, rows=self.batch_size)
             yield {"idx": full_idx, "audio": audio, "lengths": lengths, "emotion": emotion}

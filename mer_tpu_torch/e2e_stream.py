@@ -5,7 +5,7 @@ per utterance, with nothing written to the disk in between.
 
     python -m mer_tpu_torch.e2e_stream [--mode test] [--data-root DIR] [--toy-tokenizer]
         [--utterance-batch 32] [--audio wav2vec2|mel] [--wire int16|mulaw] [--corpus-order]
-        [--int8] [--device cuda|cpu]
+        [--int8] [--device cuda|cpu] [--trace-dir DIR]
 
 Reads the unchanged ``src/config.yaml`` (with ``--audio mel`` the fusion
 model takes 300-d audio embeddings with 6 heads). Weights: the port's own
@@ -19,6 +19,9 @@ engines (wav2vec2 branch only). A warm pass, then the timed pass; two result
 lines. ``--per-batch-stage1`` and ``--no-coalesce`` are accepted for
 ``mer_tpu``'s command lines: the port has one stage-1 mode, one batch at a
 time with one transfer each, which is what they select there.
+``--trace-dir DIR`` profiles the timed pass into ``DIR`` as one Chrome trace
+(``utils.profiling.trace``): the host ops and kernels, the port's spans on
+the main thread, and the prefetch thread's spans on a track of their own.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from mer_tpu_torch.models.roberta import RobertaConfig, text_erc_from_seed
 from mer_tpu_torch.models.wav2vec2 import Wav2Vec2Config, audio_erc_from_seed
 from mer_tpu_torch.pipelines import E2EModels, StreamingPipeline, mixed_utterance_batches
 from mer_tpu_torch.serving.engine import resolve_device
+from mer_tpu_torch.utils import trace
 from mer_tpu_torch.models.convert import load_model_state_dict
 
 FE_CONFIGS = {name: os.path.join(REPO_ROOT, "src", "feature_extractors", name, file)
@@ -65,6 +69,8 @@ def parse_args(argv=None):
     p.add_argument("--audio", default="wav2vec2", choices=("wav2vec2", "mel"),
                    help="audio embedder: wav2vec2 (768-d) or log-mel -> ResNet18 (300-d)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--trace-dir", default=None,
+                   help="profile the timed pass into this directory as a Chrome trace, every thread's spans in it")
     return p.parse_args(argv)
 
 
@@ -144,11 +150,13 @@ def setup(args, model_configs: tuple | None = None):
 
 
 def main(argv=None, model_configs: tuple | None = None) -> dict:
-    """A warm pass, then the timed pass, whose result this returns
-    (``model_configs``: :func:`setup`'s)."""
-    pipeline, batches, df = setup(parse_args(argv), model_configs)
+    """A warm pass, then the timed pass (profiled under ``--trace-dir``),
+    whose result this returns (``model_configs``: :func:`setup`'s)."""
+    args = parse_args(argv)
+    pipeline, batches, df = setup(args, model_configs)
     pipeline.run(batches(), df)  # warm pass: the allocator and every bucket's first call
-    result = pipeline.run(batches(), df)
+    with trace(args.trace_dir):
+        result = pipeline.run(batches(), df)
     print(f"e2e streaming: {result['n_utterances']} utterances in {result['seconds']:.2f}s "
           f"({result['utterances_per_sec']:.1f} utt/s) Accuracy=[{result['accuracy'] * 100:.3f}%] "
           f"Weighted_F1=[{result['weighted_f1'] * 100:.3f}%]")

@@ -18,7 +18,6 @@ one copy. Throughput: utterances per second end to end.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,6 +29,7 @@ from mer_tpu_torch.data.text_fe import pad_tokens_to
 from mer_tpu_torch.models.resnet import AudioMelFeatureExtractor
 from mer_tpu_torch.objectives.metrics import BatchAveragedMetrics
 from mer_tpu_torch.ops.mulaw import mulaw_decode, mulaw_encode_np
+from mer_tpu_torch.utils.tracing import span
 
 WIRES = ("int16", "mulaw")
 DEVICE_KEYS = ("text", "attention_mask", "audio", "lengths")
@@ -147,37 +147,33 @@ class StreamingPipeline:
         the prefetch thread: it overlaps the dispatch, it is not a phase of
         its own), ``embed_dispatch_s`` (the loop that issues the batches),
         ``embed_fetch_s`` (the device -> host copies, 0 for ``fetch=False``)
-        and ``embed_h2d_bytes`` (the bytes of the wire arrays sent)."""
-        from mer_tpu_torch.data.prefetch import prefetch
+        and ``embed_h2d_bytes`` (the bytes of the wire arrays sent), from the
+        spans ``prefetch.host`` and ``prefetch.h2d`` (the prefetcher's
+        totals), ``stream.dispatch`` and ``stream.fetch``; each batch's
+        dispatch of the two encoders is a ``stream.batch`` span."""
+        from mer_tpu_torch.data.prefetch import DevicePrefetcher
 
-        host, host_prep, h2d = [], [0.0], [0]
+        host = []
 
         def device_batches():
-            it = iter(batches)
-            while True:
-                t0 = time.perf_counter()
-                b = next(it, None)
-                host_prep[0] += time.perf_counter() - t0
-                if b is None:
-                    return
+            for b in batches:
                 if not host:
                     self._check_wire(b["audio"])
                 host.append((np.asarray(b["idx"]), np.asarray(b["emotion"])))
-                wire = {k: np.asarray(b[k]) for k in DEVICE_KEYS}
-                h2d[0] += sum(a.nbytes for a in wire.values())
-                yield wire
+                yield {k: np.asarray(b[k]) for k in DEVICE_KEYS}
 
         pending = []
-        t_dispatch = time.perf_counter()
-        for b in prefetch(device_batches(), device=self.device, buffer_size=4):
-            te = self._text_embed(b["text"].long(), b["attention_mask"]).float()
-            ae = self._audio_embed(b["audio"], b["lengths"])
-            pending.append((te, ae))
-        t_fetch = time.perf_counter()
+        prefetcher = DevicePrefetcher(device_batches(), device=self.device, buffer_size=4)
+        with span("stream.dispatch") as dispatch:
+            for i, b in enumerate(prefetcher):
+                with span("stream.batch", batch=i, tokens=b["text"].shape[1], samples=b["audio"].shape[1]):
+                    te = self._text_embed(b["text"].long(), b["attention_mask"]).float()
+                    ae = self._audio_embed(b["audio"], b["lengths"])
+                pending.append((te, ae))
         if stage_times is not None:
-            stage_times["embed_host_prep_s"] = host_prep[0]
-            stage_times["embed_dispatch_s"] = t_fetch - t_dispatch
-            stage_times["embed_h2d_bytes"] = h2d[0]
+            stage_times["embed_host_prep_s"] = prefetcher.host_s
+            stage_times["embed_dispatch_s"] = dispatch.seconds
+            stage_times["embed_h2d_bytes"] = prefetcher.h2d_bytes
         if not pending:
             raise ValueError("no utterance batches")
         if not fetch:
@@ -197,13 +193,14 @@ class StreamingPipeline:
                 stage_times["embed_fetch_s"] = 0.0
             return table_t, table_a, pos
         text_rows, audio_rows, idx_rows = [], [], []
-        for (idx, emotion), (te, ae) in zip(host, pending):  # fetched after every batch was issued
-            valid = emotion != -1
-            text_rows.append(te.cpu().numpy()[valid])
-            audio_rows.append(ae.cpu().numpy()[valid])
-            idx_rows.append(idx[valid])
+        with span("stream.fetch") as fetched:
+            for (idx, emotion), (te, ae) in zip(host, pending):  # fetched after every batch was issued
+                valid = emotion != -1
+                text_rows.append(te.cpu().numpy()[valid])
+                audio_rows.append(ae.cpu().numpy()[valid])
+                idx_rows.append(idx[valid])
         if stage_times is not None:
-            stage_times["embed_fetch_s"] = time.perf_counter() - t_fetch
+            stage_times["embed_fetch_s"] = fetched.seconds
         order = np.argsort(np.concatenate(idx_rows))
         return np.concatenate(text_rows)[order], np.concatenate(audio_rows)[order]
 
@@ -279,33 +276,36 @@ class StreamingPipeline:
         synchronize after the grouping: the stage-1 work still queued, so
         that it is not charged to stage 2; 0 on the host-table path, whose
         fetch waits already), ``stage2_fusion_s`` (the rest, to the last
-        prediction on the host)."""
+        prediction on the host): the spans ``stream.stage1``, ``stream.group``,
+        ``stream.device_wait`` and ``stream.stage2`` inside ``stream.pass``
+        (``seconds``)."""
         from mer_tpu_torch.core import dialogue_index
 
         stages: dict = {}
         labels = df["Emotion"].to_numpy()
-        t0 = time.perf_counter()
-        if device_resident:
-            table_t, table_a, pos = self.embed_utterances(utterance_batches, stage_times=stages, fetch=False)
-            t1 = time.perf_counter()
-            dialogues = [{"rows": pos[np.asarray(rows)], "emotion": labels[np.asarray(rows)].astype(np.int64)}
-                         for rows in dialogue_index(df).values()]
-            t2 = time.perf_counter()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            t_wait = time.perf_counter()
-            y_true, y_pred = self.predict_dialogues_from_tables(table_t, table_a, dialogues)
-        else:
-            text_emb, audio_emb = self.embed_utterances(utterance_batches, stage_times=stages)
-            t1 = time.perf_counter()
-            dialogues = [{"text": text_emb[np.asarray(rows)], "audio": audio_emb[np.asarray(rows)],
-                          "emotion": labels[np.asarray(rows)].astype(np.int64)}
-                         for rows in dialogue_index(df).values()]
-            t2 = t_wait = time.perf_counter()
-            y_true, y_pred = self.predict_dialogues(dialogues)
-        dt = time.perf_counter() - t0
-        stages.update(stage1_embed_s=t1 - t0, group_s=t2 - t1, stage1_device_wait_s=t_wait - t2,
-                      stage2_fusion_s=dt - (t_wait - t0))
+        wait_s = 0.0
+        with span("stream.pass", utterances=len(labels)) as whole:
+            with span("stream.stage1") as stage1:
+                tables = self.embed_utterances(utterance_batches, stage_times=stages, fetch=not device_resident)
+            with span("stream.group") as group:
+                index = [np.asarray(rows) for rows in dialogue_index(df).values()]
+                if device_resident:
+                    dialogues = [{"rows": tables[2][rows], "emotion": labels[rows].astype(np.int64)} for rows in index]
+                else:
+                    dialogues = [{"text": tables[0][rows], "audio": tables[1][rows],
+                                  "emotion": labels[rows].astype(np.int64)} for rows in index]
+            if device_resident and self.device.type == "cuda":
+                with span("stream.device_wait") as waited:
+                    torch.cuda.synchronize(self.device)
+                wait_s = waited.seconds
+            with span("stream.stage2") as stage2:
+                if device_resident:
+                    y_true, y_pred = self.predict_dialogues_from_tables(tables[0], tables[1], dialogues)
+                else:
+                    y_true, y_pred = self.predict_dialogues(dialogues)
+        dt = whole.seconds
+        stages.update(stage1_embed_s=stage1.seconds, group_s=group.seconds, stage1_device_wait_s=wait_s,
+                      stage2_fusion_s=stage2.seconds)
 
         metrics = BatchAveragedMetrics()
         metrics.update(y_true, y_pred, mask=np.ones_like(y_true, bool))

@@ -89,6 +89,7 @@ from mer_tpu_torch.train.checkpoint import load_checkpoint, write_checkpoint
 from mer_tpu_torch.train.solver import TrainState, accumulate_and_step, adamw, constant_with_warmup
 from mer_tpu_torch.utils import RunLogger, seed_dropout, seed_step
 from mer_tpu_torch.utils.logging import StepGradients, watch_norms
+from mer_tpu_torch.utils.tracing import span
 
 
 class FEState:
@@ -182,7 +183,10 @@ class FESolver:
 
     def train_epoch(self, state: FEState, batcher, epoch: int) -> tuple[FEState, float]:
         """One pass over ``batcher`` in the phase ``epoch`` belongs to; returns
-        the mean of the batches' losses."""
+        the mean of the batches' losses. Each batch is a ``fe.step`` span
+        (``utils/tracing.py``) from its arrival to the optimizer's return,
+        with the children ``fe.seed``, ``fe.inputs``, ``fe.forward`` (the
+        model and the loss), ``fe.backward`` and ``fe.update``."""
         phase = "frozen" if epoch < self.num_frozen_epochs else "finetune"
         if state.phase != phase:  # the other optimizer's accumulation window is not this one's
             state.model.zero_grad(set_to_none=True)
@@ -192,23 +196,31 @@ class FESolver:
         state.model.train()
         losses = []
         for batch in batcher:
-            seed_step(self.seed, state.micro_step, self._attention_generator, self.mesh.dp_rank, self.mesh.tp_rank)
-            if self.mesh.dp > 1:
-                if len(batch["emotion"]) % self.mesh.dp:
-                    raise ValueError(f"a batch of {len(batch['emotion'])} does not divide dp={self.mesh.dp}")
-                batch = dp_row_shard(batch, self.mesh.dp, self.mesh.dp_rank)
-            inputs = self.batch_to_inputs(batch, self.device)
-            watched = StepGradients(state.model) if self.logger.watch_step(len(losses)) else None
-            if self.pp_logits_fn is None:
-                logits = state.model(*inputs)
-            else:
-                logits = self.pp_logits_fn(*inputs, seed=(self.seed, state.micro_step, self.mesh.dp_rank))
-            loss, global_loss = global_ratio(*self.loss_terms(logits, self._labels(batch)), self.mesh)
-            loss.backward()
-            if self.pp_logits_fn is not None:
-                sync_replicated_grads(state.model, self.mesh, replicated_owner(state.model))
-            grads = watched.after_backward() if watched else None
-            accumulate_and_step(train_state, self.grad_accum, self._schedules[phase])
+            with span("fe.step", step=state.micro_step) as step:
+                with span("fe.seed"):
+                    seed_step(self.seed, state.micro_step, self._attention_generator, self.mesh.dp_rank,
+                              self.mesh.tp_rank)
+                if self.mesh.dp > 1:
+                    if len(batch["emotion"]) % self.mesh.dp:
+                        raise ValueError(f"a batch of {len(batch['emotion'])} does not divide dp={self.mesh.dp}")
+                    batch = dp_row_shard(batch, self.mesh.dp, self.mesh.dp_rank)
+                with span("fe.inputs"):
+                    inputs = self.batch_to_inputs(batch, self.device)
+                step.note(rows=inputs[0].shape[0], width=inputs[0].shape[-1])
+                watched = StepGradients(state.model) if self.logger.watch_step(len(losses)) else None
+                with span("fe.forward"):
+                    if self.pp_logits_fn is None:
+                        logits = state.model(*inputs)
+                    else:
+                        logits = self.pp_logits_fn(*inputs, seed=(self.seed, state.micro_step, self.mesh.dp_rank))
+                    loss, global_loss = global_ratio(*self.loss_terms(logits, self._labels(batch)), self.mesh)
+                with span("fe.backward"):
+                    loss.backward()
+                if self.pp_logits_fn is not None:
+                    sync_replicated_grads(state.model, self.mesh, replicated_owner(state.model))
+                grads = watched.after_backward() if watched else None
+                with span("fe.update"):
+                    accumulate_and_step(train_state, self.grad_accum, self._schedules[phase])
             if watched:
                 self.logger.log_watch(watch_norms(state.model, self.logger.watch_log, grads))
             state.micro_step += 1

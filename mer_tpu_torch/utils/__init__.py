@@ -1,7 +1,7 @@
-"""Run-time helpers: dropout generators, console logging, profiling and step timing."""
+"""Run-time helpers: dropout generators, console logging, profiling and host spans."""
 
 from mer_tpu_torch.utils.logging import RunLogger
-from mer_tpu_torch.utils.profiling import StepTimer, trace
+from mer_tpu_torch.utils.profiling import trace
 from mer_tpu_torch.utils.rng import seed_dropout, seed_step
 
-__all__ = ["RunLogger", "StepTimer", "seed_dropout", "seed_step", "trace"]
+__all__ = ["RunLogger", "seed_dropout", "seed_step", "trace"]

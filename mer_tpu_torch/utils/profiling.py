@@ -1,14 +1,13 @@
-"""Profiling and step timing, the analytic FLOP models, and the card's peaks.
+"""Profiling, the analytic FLOP models, and the card's peaks.
 
 Counterpart of ``mer_tpu/utils/profiling.py``: :func:`trace` captures a
 ``torch.profiler`` trace (CPU, and CUDA when a card is present) into a
-directory as a Chrome trace; :class:`StepTimer` times steps with a device
-synchronisation at the end of each (``torch.cuda.synchronize`` on the
-result's card, nothing for a CPU result); the FLOP models count the matrix
-FLOPs (2 per multiply-add) of each pipeline's forward from the model's dims,
-so a bench can report achieved TFLOP/s and the share of the card's peak
-(:func:`mfu`). Elementwise, softmax and LayerNorm work is excluded, as MFU
-conventionally does; a backward is about twice its forward.
+directory as a Chrome trace, with the port's spans (``utils/tracing.py``)
+of every thread; the FLOP models count the matrix FLOPs (2 per
+multiply-add) of each pipeline's forward from the model's dims, so a bench
+can report achieved TFLOP/s and the share of the card's peak (:func:`mfu`).
+Elementwise, softmax and LayerNorm work is excluded, as MFU conventionally
+does; a backward is about twice its forward.
 
 The card's peaks live here and nowhere else in the port: the NVIDIA H100 SXM
 data sheet's dense rates, which assume the card's full 700 W power limit (a
@@ -19,10 +18,13 @@ beside any share of these). ``chip_smoke.py`` and the scripts import them.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 
 import torch
+
+from mer_tpu_torch.utils import tracing
 
 CARD = "NVIDIA H100 SXM"  # the part the peaks below are for (data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -41,7 +43,10 @@ def trace(log_dir: str | None):
     """Capture a ``torch.profiler`` trace of the body into ``log_dir`` as a
     Chrome trace (``trace_<pid>_<ns>.json``; CUDA activity too when a card is
     present), yielding the profiler; a no-op yielding None when ``log_dir`` is
-    None or empty."""
+    None or empty. The spans of threads the profiler does not record (the
+    prefetcher's producer) are written into the file on their own ``tid``,
+    placed on the trace's clock by the spans it did record
+    (:func:`write_thread_spans`)."""
     if not log_dir:
         yield None
         return
@@ -49,9 +54,47 @@ def trace(log_dir: str | None):
 
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    tracing.reset()
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    write_thread_spans(path, tracing.spans())
+
+
+def write_thread_spans(path: str, records) -> int:
+    """Add to the Chrome trace at ``path`` each finished span of ``records``
+    whose name has no event there (``mer.<name>``: the threads the profiler
+    did not record), as a complete event on its thread's ``tid`` with its
+    ``attrs`` as ``args``, and name those threads. Returns the number added
+    (0 where no span of the trace's own pairs with an event: nothing places
+    the others)."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    # the host's ranges; a range's copy on a card's timeline ("gpu_user_annotation") starts when its kernels do
+    ranges = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    found = tracing.clock_offset_us(records, ((e["name"], e["ts"]) for e in ranges))
+    if found is None:
+        return 0
+    offset = found[0]
+    named = {e["name"] for e in ranges}
+    pid = next(e["pid"] for e in ranges if e["name"].startswith(tracing.PREFIX))
+    added, threads = 0, {}
+    for r in records:
+        if r.end_ns is None or tracing.PREFIX + r.name in named:
+            continue
+        threads[r.thread] = r.thread_name
+        events.append({"ph": "X", "cat": "mer_span", "name": tracing.PREFIX + r.name, "pid": pid, "tid": r.thread,
+                       "ts": r.start_ns / 1000.0 + offset, "dur": (r.end_ns - r.start_ns) / 1000.0,
+                       "args": dict(r.attrs)})
+        added += 1
+    for tid, name in threads.items():
+        events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                       "args": {"name": f"{name} (mer spans)"}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return added
 
 
 # -- analytic FLOP accounting (MFU) ------------------------------------------------------
@@ -128,49 +171,3 @@ def mfu(flops: float, seconds: float, peak: float = PEAK_BF16) -> tuple[float, f
     bf16 peak)."""
     achieved = flops / max(seconds, 1e-12)
     return achieved / 1e12, achieved / peak
-
-
-def _synchronize(result) -> None:
-    """Wait for the card(s) holding any tensor in ``result`` (nested lists,
-    tuples and dicts); nothing for CPU tensors."""
-    devices, stack = set(), [result]
-    while stack:
-        x = stack.pop()
-        if isinstance(x, torch.Tensor):
-            if x.device.type == "cuda":
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            stack.extend(x.values())
-        elif isinstance(x, (list, tuple)):
-            stack.extend(x)
-    for device in devices:
-        torch.cuda.synchronize(device)
-
-
-class StepTimer:
-    """Wall-clock timing with device-sync boundaries and simple stats."""
-
-    def __init__(self):
-        self.times: list[float] = []
-        self._t0: float | None = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, result=None) -> float:
-        if result is not None:
-            _synchronize(result)
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)
-
-    @property
-    def best(self) -> float:
-        return min(self.times) if self.times else float("nan")
-
-    def throughput(self, items_per_step: float) -> float:
-        return items_per_step / self.mean if self.times else 0.0

@@ -1,8 +1,8 @@
 """The port's ``utils/profiling.py`` against ``mer_tpu/utils/profiling.py``:
 the FLOP models equal ``mer_tpu``'s for the same dims (the fusion model of
 ``src/config.yaml``, RoBERTa-base, wav2vec2-base on 10 s clips), ``mfu``
-against the H100 peaks, ``StepTimer``'s statistics and ``trace`` on the CPU,
-and the card's peaks defined in one place."""
+against the H100 peaks, ``trace`` on the CPU, and the card's peaks defined
+in one place."""
 
 import glob
 import json
@@ -12,7 +12,7 @@ import re
 import pytest
 import torch
 
-from mer_tpu_torch.utils import StepTimer, trace
+from mer_tpu_torch.utils import trace
 from mer_tpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,42 +91,6 @@ def test_mfu_against_the_h100_peaks():
     assert peaks == (3.35e12, 989e12, 67e12, 495e12, 1979e12)
     assert profiling.PEAK_FLOPS == {torch.bfloat16: 989e12, torch.float32: 67e12}
     assert profiling.PEAK_TF32X3 == 495e12 / 3 and "H100" in profiling.CARD
-
-
-def test_step_timer_statistics_on_the_cpu(monkeypatch):
-    """start/stop on a fake clock; a CPU result needs no synchronisation (none is attempted: no card here)."""
-    clock = iter([10.0, 10.5, 20.0, 20.25, 30.0, 31.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: pytest.fail("synchronised for a CPU result"))
-    timer = StepTimer()
-    assert timer.mean == 0.0 and timer.best != timer.best and timer.throughput(32) == 0.0  # empty: nan best
-    for result in (torch.ones(3), {"loss": (torch.zeros(1), [torch.ones(2)])}, None):
-        timer.start()
-        timer.stop(result)
-    assert timer.times == [0.5, 0.25, 1.0]
-    assert timer.mean == pytest.approx(1.75 / 3) and timer.best == 0.25
-    assert timer.throughput(35) == pytest.approx(35 / (1.75 / 3))
-
-
-def test_step_timer_synchronises_each_card_of_the_result(monkeypatch):
-    """The devices found in a nested result are each synchronised once (no card needed: the tensors are fakes
-    with a CUDA device)."""
-
-    class Fake(torch.Tensor):
-        pass
-
-    seen = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: seen.append(device))
-    fakes = []
-    for index in (0, 1, 0):
-        t = torch.zeros(1).as_subclass(Fake)
-        t.__dict__["_device"] = torch.device("cuda", index)
-        fakes.append(t)
-    monkeypatch.setattr(Fake, "device", property(lambda self: self.__dict__["_device"]), raising=False)
-    timer = StepTimer()
-    timer.start()
-    timer.stop([fakes[0], {"b": (fakes[1], fakes[2])}, torch.zeros(1)])
-    assert sorted(d.index for d in seen) == [0, 1]
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
