@@ -46,7 +46,10 @@ that two runs see the same tokens:
    limit shown to fail its output against the plain version of its input
    shifted by one frame; K8 on the stock layer-0 conv output at [32, 31999,
    512], [2, 12799, 512] and [3, 301, 512] with 7 valid rows (library:
-   F.group_norm + F.gelu); K1 at the wav2vec2 encoder's shapes [32 or 2, 12, S, S, 64],
+   F.group_norm + F.gelu); 3c. K9, the positional conv, through its op at the
+   fine-tune's [16, T, 768], T = 99 .. 499 (every wave bucket), forward, dx,
+   dW and db against the plain version, each launch timed beside cuDNN's
+   F.conv1d forward and convolution_backward with its bound; K1 at the wav2vec2 encoder's shapes [32 or 2, 12, S, S, 64],
    S = 99 .. 499, and at RoBERTa's batches of 32 on every rung of the token
    ladder (S = 64 .. 512), with padded keys (clip masks: each row keeps
    L >= S / 2 keys);
@@ -120,10 +123,11 @@ that two runs see the same tokens:
 6d. wav2vec2 export: a seeded ``AudioERC`` checkpoint, then
    ``mer_tpu_torch.feature_extractors.audio_wav2vec2.embeddings`` over the
    three splits of that root in batches of 32 (per batch: K7 once, K6 once,
-   K1 12 times; no other kernel), [N, 768] finite tables that
+   K1 12 times, K9 once; no other kernel), [N, 768] finite tables that
    ``load_embeddings`` reads back; clips per second on the test split in
    bf16 and in f32 (the f32 export a counted path: K6's, K7's and K1's f32
-   launches) and one batch's eager vs device time with the shares of K6, K7
+   launches; K9 none, the positional conv taking cuDNN in f32) and one
+   batch's eager vs device time with the shares of K6, K7
    and K1, in bf16 and in f32; an f32 leg
    that embeds the same batches through the kernels and through the plain
    versions;
@@ -149,17 +153,18 @@ that two runs see the same tokens:
    and K4 at S = 99 .. 499): K7 and K6 once per frozen step
    and per validation batch and never in a fine-tune step (the stock
    differentiable convolutions run there), K1 12 per forward, K4 12 per
-   fine-tune step; an f32 leg of 2 frozen + 2 fine-tune steps through the
+   fine-tune step, K9 once per forward and twice per fine-tune step (the
+   data gradient, the weight and bias gradient); an f32 leg of 2 frozen + 2 fine-tune steps through the
    kernels against the plain versions (losses within 1e-4); clips per second,
    one profiled fine-tune step, peak device memory;
 6i. wav2vec2 on long clips: a root of one 45-90 s clip a dialogue (8 train,
    4 dev, 4 test), the dataset at ``max_seconds=90`` and the batcher at
    ``seconds_buckets=(60, 90)`` (2,999 and 4,499 frames). The export of the
    test clips in batches of 2 (per batch K7 1, K6 1 and 12 attention forwards:
-   K3 at 90 s, K1 at 60 s), in bf16 and in f32 (``--f32``: the 4 test clips
+   K3 at 90 s, K1 at 60 s; K9 1 in bf16), in bf16 and in f32 (``--f32``: the 4 test clips
    fill two 90 s batches, so 24 K3 f32 launches at 4,499 keys; clips per
    second); 4 fine-tune steps at batch 2, bf16, attention
-   dropout 0.1 (per step 12 forwards and 12 K4; no K2, K7, K6); clips per
+   dropout 0.1 (per step 12 forwards, 12 K4 and 3 K9; no K2, K7, K6); clips per
    second, one profiled step (eager, device, idle share), peak memory; one
    f32 step's loss and gradients through K3 and K4 against the plain versions;
 6j. the attention bench entry (``mer_tpu_torch.scripts.bench_attention``,
@@ -176,7 +181,8 @@ that two runs see the same tokens:
    extractor, the config's M2FNet; wav2vec2 with the int16 wire (the entry
    point: a warm pass and a timed one), with the mu-law wire (one timed
    pass), mel (the entry point) and the int8 engines (one timed pass). Each
-   run's launches exactly (per wav2vec2 batch K7 1, K6 1, K1 12; per text
+   run's launches exactly (per wav2vec2 batch K7 1, K6 1, K1 12, K9 1 but
+   under the int8 engines, whose positional conv is their own; per text
    batch K1 12; per mel batch K5 1; per fusion forward K1 17), utterances/s,
    stages, H2D bytes, and the device's idle share of the timed pass (kernel
    time from one more pass under the profiler); the first two batches of each
@@ -217,7 +223,8 @@ that two runs see the same tokens:
    bf16, dropout on, against the same steps in this process with the same
    per-(layer, microbatch) seeds: losses within 2e-2 of the loss, weights by
    ``parallel_check.weight_check``, and a rank's launches a step exactly
-   L / pp x M K1 and K4 (twice the K1 under remat); one f32 text step with
+   L / pp x M K1 and K4 (twice the K1 under remat), and on rank 0, whose
+   stage 0 holds wav2vec2's positional conv, K9 3 a step; one f32 text step with
    dropout on under ``--remat full`` and ``dots`` against none, the
    gradients to the bit (a tensor whose plain gradient does not repeat
    between two plain steps, atomic sums, within 4 x that spread), K1 twice
@@ -229,7 +236,8 @@ that two runs see the same tokens:
    on the card, two K5 launches a step and one a validation cache chunk;
 7. hold each kernel against its plain version again at every shape that
    phases 4-6i gave it (recorded at each launch), in float32 and bfloat16
-   (K5: float32, in both layouts), and K5 on pure tones and a silent clip:
+   (K5: float32, in both layouts; K9: bfloat16, each launch's part), and K5
+   on pure tones and a silent clip:
    within 1e-5 of each frame's largest band in the linear domain, exactly
    log(eps) (rounded once from float64) on silence, the same bits from two
    calls;
@@ -237,8 +245,8 @@ that two runs see the same tokens:
    forward (bf16, f32) against its template on the same inputs and SDPA, K2
    (its stacked design, in bf16 and f32; beside its template at head dim 50)
    against SDPA's backward,
-   and K1, K3 and K4 in f32 at head dim 64 against SDPA's f32 at every
-   phase-3 shape; per main-path shape of each kernel its launches, time,
+   K1, K3 and K4 in f32 at head dim 64 against SDPA's f32, and K9 against
+   cuDNN, at every phase-3 shape; per main-path shape of each kernel its launches, time,
    bound, plain and library time, then one ``{"kernels": [...]}`` line, whose
    times and bound are per launch, averaged over the main paths' launches at
    their own shapes (K6, K1, K2, K3 and K4 an entry per dtype,
@@ -350,14 +358,15 @@ MEL = "logmel_fwd"
 W2V0, W2V_TAIL, GN = "w2v_layer0_gn", "w2v_conv_tail", "w2v_gn_gelu"  # K7, K6, K8
 STREAM, TILED = "flash_attention_stream", "flash_attention_tiled_bwd"  # K3, K4
 PROBE = "probe_strided"  # P
-KERNELS = (FWD, BWD, MEL, W2V0, W2V_TAIL, GN, STREAM, TILED, PROBE)
+POS = "w2v_pos_conv"  # K9, the positional conv: the port's own, no TPU counterpart
+KERNELS = (FWD, BWD, MEL, W2V0, W2V_TAIL, GN, STREAM, TILED, PROBE, POS)
 ATTENTION_FWD, ATTENTION_BWD = (FWD, STREAM), (BWD, TILED)
 ZERO = dict.fromkeys(KERNELS, 0)
 REPLACES = {FWD: "mer_tpu/ops/flash_attention.py:72", BWD: "mer_tpu/ops/flash_attention.py:270",
             MEL: "mer_tpu/ops/logmel_pallas.py:78", W2V0: "mer_tpu/ops/w2v_conv_pallas.py:194",
             W2V_TAIL: "mer_tpu/ops/w2v_conv_pallas.py:135", GN: "mer_tpu/ops/w2v_conv_pallas.py:320",
             STREAM: "mer_tpu/ops/flash_attention.py:424", TILED: "mer_tpu/ops/flash_attention.py:579",
-            PROBE: "scripts/probe_pallas_strided.py:37"}
+            PROBE: "scripts/probe_pallas_strided.py:37", POS: "none (mer_tpu leaves the positional conv to XLA)"}
 # K3 and K4 against their plain versions: (B, H, Sq, Sk, Dh), B = 2 for a fully masked batch element, Dh 64 and 50
 STREAM_SHAPES = [(2, 1, s, s, 64) for s in (4097, 8192, 16384)] + [(2, 1, 4097, 4097, 50)]
 TILED_SHAPES = [(2, 1, s, s, 64) for s in (2049, 4499, 8192)] + [(2, 1, 2049, 2049, 50)]
@@ -375,6 +384,15 @@ W2V_SHAPES = [(b, n) for b in (32, 16, 2) for n in W2V_BUCKETS] + [(2, 40005)]
 # the shifted-input control of K6's bf16 limit: (clips, samples)
 W2V_SHIFT_SHAPES = [(2, 64000), (32, 160000)]
 W2V_EXPORT_BATCH, W2V_LAYERS, W2V_HEADS, W2V_HIDDEN = 32, 12, 12, 768
+# K9, the positional conv (ops/pos_conv.py): the fine-tune's batch of 16 at the frames of every wave bucket (2, 4,
+# ..., 10 s), wav2vec2-base's 16 groups of 48 channels; y and dx in bf16 within POS_CONV_REL of the plain
+# version's largest value (one bf16 rounding is 2^-8 of a value), dW and db (f32 sums over the same bf16
+# operands) within POS_CONV_F32_REL; the forward and the data gradient at POS_CONV_MIN_SHARE of their bound or
+# more at every shape, the data gradient POS_CONV_MIN_SPEEDUP times cuDNN's or more at the 10 s bucket
+POS_CONV_SHAPES = [(16, (n - 400) // 320 + 1) for n in W2V_BUCKETS]
+POS_CONV_REL, POS_CONV_F32_REL = 1e-2, 1e-4
+POS_CONV_PARTS = ("forward", "dgrad", "wgrad")  # K9's launches: forward, data gradient, weight and bias gradient
+POS_CONV_MIN_SHARE, POS_CONV_MIN_SPEEDUP = 0.25, 20.0
 # K8 (clips, rows, valid rows): the profile entry's batch, a short batch, a ragged one with few valid rows
 GN_SHAPES = [(32, 31999, 31999), (2, 12799, 12799), (3, 301, 7)]
 PROFILE_REPEATS = 5
@@ -1017,12 +1035,13 @@ def kernel_wrappers() -> dict:
     """Kernel name -> the wrapper whose ``launches`` counts it."""
     from mer_tpu_torch.ops import flash_attention as fa
     from mer_tpu_torch.ops import logmel_kernel as lk
+    from mer_tpu_torch.ops import pos_conv as pc
     from mer_tpu_torch.ops import w2v_conv as wc
     from mer_tpu_torch.scripts import probe_strided
 
     return {FWD: fa.flash_attention_forward, BWD: fa.flash_attention_backward, MEL: lk.logmel_frames,
             W2V0: wc.layer0_gn, W2V_TAIL: wc.conv_stack_fused, GN: wc.gn_gelu, STREAM: fa.flash_attention_stream,
-            TILED: fa.flash_attention_tiled_backward, PROBE: probe_strided.run_probe}
+            TILED: fa.flash_attention_tiled_backward, PROBE: probe_strided.run_probe, POS: pc.positional_conv}
 
 
 @contextlib.contextmanager
@@ -1030,16 +1049,19 @@ def main_path_run():
     """One counted run of a main path: the launch counts start at 0 and are
     read at the end into ``run``; every launch's shape, dtype and dropout
     rate (K5: clips, frames and layout; K7: clips and samples; K6: clips and
-    layer-0 frames; K8: clips, rows and valid rows; P: rows, columns and probe) is tallied in
-    ``PATH_SHAPES`` from the arguments the wrappers hand the kernels (the tally launches nothing)."""
+    layer-0 frames; K8: clips, rows and valid rows; P: rows, columns and probe; K9: clips, frames,
+    channels and part) is tallied in ``PATH_SHAPES`` from the arguments the wrappers hand the kernels (the
+    tally launches nothing)."""
     from mer_tpu_torch.ops import flash_attention as fa
     from mer_tpu_torch.ops import logmel_kernel as lk
+    from mer_tpu_torch.ops import pos_conv as pc
     from mer_tpu_torch.ops import w2v_conv as wc
     from mer_tpu_torch.scripts import probe_strided
 
     kernel_fn, mel_kernel_fn, l0_kernel_fn, tail_kernel_fn, gn_kernel_fn = fa._kernel_fn, lk._kernel_fn, \
         wc._l0_kernel_fn, wc._tail_kernel_fn, wc._gn_kernel_fn
     probe_kernel_fn = probe_strided._kernel_fn
+    conv_fn, wgrad_fn = pc._conv_fn, pc._wgrad_fn
 
     def tallying_by(name, get_fn, case):
         """``get_fn`` with every launch tallied under ``case(args)`` = (shape, dtype name)."""
@@ -1065,6 +1087,11 @@ def main_path_run():
     # P (probe, x, w, out, T, C, stream)
     probe_tallying = tallying_by(PROBE, probe_kernel_fn, lambda a: ((a[4], a[5], probe_strided.PROBES[a[0]]),
                                                                     "float32"))
+    # K9 (x, taps, bias, out, B, T, C, pad, stream): the forward at pad 64, the data gradient at 63; its weight
+    # gradient (x, dy, dw, db, B, T, C, pad, stream)
+    conv_tallying = tallying_by(POS, conv_fn, lambda a: (
+        (a[4], a[5], a[6], POS_CONV_PARTS[0] if a[7] == pc.TAPS // 2 else POS_CONV_PARTS[1]), "bfloat16"))
+    wgrad_tallying = tallying_by(POS, wgrad_fn, lambda a: ((a[4], a[5], a[6], POS_CONV_PARTS[2]), "bfloat16"))
 
     def tallying(name, n_pointers):
         fn = kernel_fn(name, n_pointers)
@@ -1095,7 +1122,8 @@ def main_path_run():
             mock.patch.object(wc, "_l0_kernel_fn", l0_tallying), \
             mock.patch.object(wc, "_tail_kernel_fn", tail_tallying), \
             mock.patch.object(wc, "_gn_kernel_fn", gn_tallying), \
-            mock.patch.object(probe_strided, "_kernel_fn", probe_tallying):
+            mock.patch.object(probe_strided, "_kernel_fn", probe_tallying), \
+            mock.patch.object(pc, "_conv_fn", conv_tallying), mock.patch.object(pc, "_wgrad_fn", wgrad_tallying):
         yield run
     run.update({name: wrapper.launches for name, wrapper in wrappers.items()})
 
@@ -1898,6 +1926,137 @@ def plain_w2v_conv(wc):
         yield
 
 
+def pos_conv_bound(b: int, t: int, c: int, part: str, cg: int = 48, taps: int = 128) -> tuple[float, float]:
+    """Least time (us) of one K9 launch (``part``: ``forward``, ``dgrad``,
+    ``wgrad``) at [b, t, c]: (bytes at the HBM rate, FLOPs at the bf16 peak).
+    Each is 2 b t c cg taps FLOPs. Bytes, each read or written once: forward
+    and data gradient an activation in and out (bf16) and the taps (bf16; the
+    forward's bias too); weight gradient x and dy in (bf16), dW and db out
+    (f32)."""
+    act, weights = b * t * c * 2, c * cg * taps
+    nbytes = {"forward": 2 * act + 2 * weights + 2 * c, "dgrad": 2 * act + 2 * weights,
+              "wgrad": 2 * act + 4 * weights + 4 * c}[part]
+    return nbytes / HBM_BYTES_PER_S * 1e6, 2 * b * t * c * cg * taps / PEAK_FLOPS[torch.bfloat16] * 1e6
+
+
+def pos_conv_inputs(b: int, t: int, c: int, seed: int):
+    """x, the weight [c, 48, 128] and bias (f32, as the model keeps them) and
+    an output gradient dy, at the model's scale: x and dy bf16 of unit
+    variance, the weight's products summing to unit variance."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, c, generator=gen).to("cuda", torch.bfloat16)
+    w = (torch.randn(c, 48, 128, generator=gen) / math.sqrt(48 * 128)).cuda()
+    bias = (0.1 * torch.randn(c, generator=gen)).cuda()
+    dy = torch.randn(b, t, c, generator=gen).to("cuda", torch.bfloat16)
+    return x, w, bias, dy
+
+
+def pos_conv_errors(pairs: dict) -> dict:
+    """For each name -> (got, plain) of ``pairs`` (y, dx, dW, db): the largest
+    |got - plain| as a share of the plain version's largest |value|; raises
+    past ``POS_CONV_REL`` (y, dx: bf16) or ``POS_CONV_F32_REL`` (dW, db: f32
+    sums)."""
+    errs = {}
+    for name, (a, ref) in pairs.items():
+        limit = POS_CONV_F32_REL if name in ("dW", "db") else POS_CONV_REL
+        errs[name] = ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        if not errs[name] <= limit:
+            raise AssertionError(f"K9 {name}: {errs[name]} of the plain version's largest value, limit {limit}")
+    return errs
+
+
+def check_pos_conv_case(shape, i: int) -> dict:
+    """K9 at ``shape`` = (clips, frames, channels, part), one launch of its
+    ``part`` (``POS_CONV_PARTS``) against the plain version (raises past the
+    limits of :func:`pos_conv_errors`), timed (graph replay) beside cuDNN's
+    ``F.conv1d`` forward on the transposed [B, C, T] view the model passed it,
+    or its ``convolution_backward`` (dx alone; dW and db together), and the
+    plain version. A row of the kernels table."""
+    import torch.nn.functional as F
+
+    from mer_tpu_torch.ops import pos_conv as pc
+    from mer_tpu_torch.scripts.bench_attention import events_ms
+
+    b, t, c, part = shape
+    groups, taps = c // 48, pc.TAPS
+    x, w, bias, dy = pos_conv_inputs(b, t, c, 900 + i)
+    if part == "forward":
+        kernel = functools.partial(pc._kernel_conv, x, pc.forward_taps(w, groups), bias, taps // 2)
+        plain = functools.partial(pc.positional_conv_reference, x, w, bias, groups)
+    elif part == "dgrad":
+        kernel = functools.partial(pc._kernel_conv, dy, pc.forward_taps(pc.transposed_taps(w, groups), groups), None,
+                                   taps - 1 - taps // 2)
+        plain = lambda: pc.positional_conv_reference_backward(dy, x, w, groups, (True, False, False))[0]
+    else:
+        kernel = functools.partial(pc._kernel_wgrad, dy, x, w, True)
+        plain = lambda: pc.positional_conv_reference_backward(dy, x, w, groups, (False, True, True))[1:]
+    names = {"forward": ("y",), "dgrad": ("dx",), "wgrad": ("dW", "db")}[part]
+    got, want = kernel(), plain()
+    got, want = (got, want) if part == "wgrad" else ((got,), (want,))
+    errs = pos_conv_errors(dict(zip(names, zip(got, want))))
+    max_err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, want))
+
+    xc, wb, bb = x.transpose(1, 2), w.to(torch.bfloat16), bias.to(torch.bfloat16)
+    gy = F.pad(dy.transpose(1, 2), (0, 1))  # the dropped frame's zero gradient
+    backward = lambda mask: torch.ops.aten.convolution_backward(gy, xc, wb, [c], [1], [taps // 2], [1], False, [0],
+                                                                 groups, mask)
+    library = {"forward": (lambda: F.conv1d(xc, wb, bb, padding=taps // 2, groups=groups), 5, 5),
+               "dgrad": (lambda: backward([True, False, False]), 1, 3),  # cuDNN's dgrad_engine: tens of ms a call
+               "wgrad": (lambda: backward([False, True, True]), 5, 5)}[part]
+    kernel_ms, library_ms, plain_ms = device_ms(kernel), device_ms(*library), events_ms(plain, 3)
+    bytes_us, ops_us = pos_conv_bound(b, t, c, part)
+    bound_us = max(bytes_us, ops_us)
+    row = {"kernel": POS, "shape": shape, "dtype": "bfloat16", "rate": 0.0, "kernel_ms": kernel_ms,
+           "library_ms": library_ms, "plain_ms": plain_ms, "bound_bytes_us": bytes_us, "bound_ops_us": ops_us,
+           "bound_us": bound_us, "bound_by": "bytes" if bytes_us >= ops_us else "operations",
+           "max_abs_err": max_err, "errors": errs}
+    log(f"K9 {part} [{b}, {t}, {c}] bf16: kernel {kernel_ms} ms, bound {bound_us / 1e3} ms ({row['bound_by']}), "
+        f"share of bound {bound_us / 1e3 / kernel_ms}, cuDNN {library_ms} ms (kernel / cuDNN "
+        f"{kernel_ms / library_ms}), plain {plain_ms} ms; errors {json.dumps(errs)}")
+    del x, w, bias, dy, got, want
+    return row
+
+
+def pos_conv_phase(card: str, first_case: int) -> list[dict]:
+    """Phase 3c: K9, the positional conv, at ``POS_CONV_SHAPES``. Through the
+    op (autograd; route ``kernel``, three launches) y, dx, dW and db against
+    the plain version; then each part as a kernels-table row
+    (:func:`check_pos_conv_case`). Raises on a disagreement, a share of the
+    bound under ``POS_CONV_MIN_SHARE`` (forward, data gradient) or a data
+    gradient under ``POS_CONV_MIN_SPEEDUP`` times cuDNN's at the last shape."""
+    from mer_tpu_torch.ops import pos_conv as pc
+
+    t_start = time.perf_counter()
+    groups = W2V_HIDDEN // 48
+    rows = []
+    for i, (b, t) in enumerate(POS_CONV_SHAPES):
+        x, w, bias, dy = pos_conv_inputs(b, t, W2V_HIDDEN, i)
+        leaves = [v.clone().requires_grad_() for v in (x, w, bias)]
+        routes, launches = pc.positional_conv.routes["kernel"], pc.positional_conv.launches
+        y = pc.positional_conv(*leaves, groups)
+        got = (y, *torch.autograd.grad(y, leaves, dy))
+        if pc.positional_conv.routes["kernel"] != routes + 1 or pc.positional_conv.launches != launches + 3:
+            raise AssertionError(f"K9 at {(b, t)}: the op did not take its kernel route (routes "
+                                 f"{pc.positional_conv.routes}, {pc.positional_conv.launches - launches} launches)")
+        want = (pc.positional_conv_reference(x, w, bias, groups),
+                *pc.positional_conv_reference_backward(dy, x, w, groups))
+        errs = pos_conv_errors(dict(zip(("y", "dx", "dW", "db"), zip(got, want))))
+        log(f"K9 through the op at [{b}, {t}, {W2V_HIDDEN}] bf16: errors {json.dumps(errs)}")
+        for part in POS_CONV_PARTS:
+            row = check_pos_conv_case((b, t, W2V_HIDDEN, part), first_case + len(rows))
+            rows.append(row)
+            share = row["bound_us"] / 1e3 / row["kernel_ms"]
+            if part != "wgrad" and share < POS_CONV_MIN_SHARE:
+                raise AssertionError(f"K9 {part} at {(b, t)}: {share} of its bound, under {POS_CONV_MIN_SHARE}")
+    last = rows[-2]  # the data gradient at the last shape
+    speedup = last["library_ms"] / last["kernel_ms"]
+    log(f"K9 data gradient at {POS_CONV_SHAPES[-1]}: {speedup} times cuDNN's; phase 3c in "
+        f"{time.perf_counter() - t_start:.1f} s ({card})")
+    if speedup < POS_CONV_MIN_SPEEDUP:
+        raise AssertionError(f"K9's data gradient is {speedup} times cuDNN's, under {POS_CONV_MIN_SPEEDUP}")
+    return rows
+
+
 def w2v_config(tmp: str) -> str:
     """audio_wav2vec2/config.yaml, unchanged but for the checkpoint under ``tmp``."""
     import yaml
@@ -1928,7 +2087,7 @@ def w2v_phase(fa, wc, card: str, root: str, tmp: str, model) -> dict:
     log(f"wav2vec2: AudioERC base config, {n_params} parameters, seeded checkpoint "
         f"{os.path.getsize(config.checkpoint.save_path)} bytes")
     argv = ["--config", cfg, "--data-root", root, "--random-init"]
-    per_batch = {**ZERO, W2V0: 1, W2V_TAIL: 1, FWD: W2V_LAYERS}
+    per_batch = {**ZERO, W2V0: 1, W2V_TAIL: 1, FWD: W2V_LAYERS, POS: 1}  # bf16; in f32 the stock positional conv
     launches = dict(ZERO)
 
     # 6d. export: the three splits, bf16 (the config's compute dtype)
@@ -1942,7 +2101,7 @@ def w2v_phase(fa, wc, card: str, root: str, tmp: str, model) -> dict:
     want = {name: n * n_batches for name, n in per_batch.items()}
     log(f"wav2vec2 export: splits {sizes} in {seconds} s = {sum(sizes.values()) / seconds} clips/s (model build and "
         f"load included); launches {run} (want {want}: per batch of {W2V_EXPORT_BATCH} K7 once, K6 once, K1 "
-        f"{W2V_LAYERS} times)")
+        f"{W2V_LAYERS} times, K9 once)")
     if run != want or sizes["test"] != 2608:
         raise AssertionError(f"wav2vec2 export launches {run}, want {want}; test split {sizes['test']} clips")
     for mode, table in tables.items():
@@ -1988,7 +2147,7 @@ def w2v_phase(fa, wc, card: str, root: str, tmp: str, model) -> dict:
             f"{seconds * 1e3} ms = {len(test) / seconds} clips/s; batch widths {dict(sorted(widths.items()))}"
             + (f"; launches {run}" if run else "") + f" ({card})")
         if dtype == torch.float32:
-            want = {name: n * sum(widths.values()) for name, n in per_batch.items()}
+            want = {name: n * sum(widths.values()) for name, n in {**per_batch, POS: 0}.items()}
             if run != want:
                 raise AssertionError(f"wav2vec2 f32 export launches {run}, want {want}")
             for name in KERNELS:
@@ -2321,19 +2480,22 @@ def w2v_training_phase(fa, wc, card: str, root: str, tmp: str) -> dict:
     served = FE_FROZEN * steps + FE_EPOCHS * val_batches  # forwards whose frontend runs K7 and K6
     bwd = backward_kernel(fa, 99)  # every wave bucket (99-499 frames) on one side of the threshold
     want = {**ZERO, FWD: W2V_LAYERS * FE_EPOCHS * (steps + val_batches),
-            bwd: W2V_LAYERS * (FE_EPOCHS - FE_FROZEN) * steps, W2V0: served, W2V_TAIL: served}
+            bwd: W2V_LAYERS * (FE_EPOCHS - FE_FROZEN) * steps, W2V0: served, W2V_TAIL: served,
+            POS: FE_EPOCHS * (steps + val_batches) + 2 * (FE_EPOCHS - FE_FROZEN) * steps}
     log(f"wav2vec2 training: {sizes['train']} train / {sizes['val']} val clips, {FE_EPOCHS} epochs of {steps} steps "
         f"of {batch} in {seconds} s (model build, wav decode, validation, checkpoints included) = "
         f"{FE_EPOCHS * sizes['train'] / seconds} clips/s; peak device memory {peak} bytes; losses "
         f"{json.dumps(history)}; launches {run} (want {want}: K7 and K6 once per frozen step and validation batch, "
-        f"never in a fine-tune step; K1 {W2V_LAYERS} per forward, {bwd} {W2V_LAYERS} per fine-tune step) ({card})")
+        f"never in a fine-tune step; K1 {W2V_LAYERS} per forward, {bwd} {W2V_LAYERS} per fine-tune step; K9 once per "
+        f"forward and twice per fine-tune step) ({card})")
     if run != want:
         raise AssertionError(f"wav2vec2 training launches {run}, want {want}")
     if len(history["loss_values"]) != FE_EPOCHS or not all(
             math.isfinite(x) for x in history["loss_values"] + history["val_loss_values"]):
         raise AssertionError(f"wav2vec2 training losses not finite or epochs missing: {history}")
     check_fe_phases("wav2vec2 training", probe, "wav2vec2",
-                    {"frozen": {FWD: W2V_LAYERS, W2V0: 1, W2V_TAIL: 1}, "finetune": {FWD: W2V_LAYERS, bwd: W2V_LAYERS}})
+                    {"frozen": {FWD: W2V_LAYERS, W2V0: 1, W2V_TAIL: 1, POS: 1},
+                     "finetune": {FWD: W2V_LAYERS, bwd: W2V_LAYERS, POS: 3}})
     saved = load_checkpoint(config.checkpoint.save_path)
     if set(saved) != {"epoch", "model_state_dict"} or saved["epoch"] != FE_EPOCHS - 1:
         raise AssertionError(f"wav2vec2 checkpoint holds {set(saved)} at epoch {saved.get('epoch')}")
@@ -2465,7 +2627,8 @@ def e2e_phase(fa, wc, lk, card: str, root: str) -> dict:
         if mel:
             per_pass[MEL] = n_batches
         else:
-            per_pass.update({FWD: per_pass[FWD] + n_batches * W2V_LAYERS, W2V0: n_batches, W2V_TAIL: n_batches})
+            per_pass.update({FWD: per_pass[FWD] + n_batches * W2V_LAYERS, W2V0: n_batches, W2V_TAIL: n_batches,
+                             POS: 0 if "--int8" in flags else n_batches})  # the int8 engine's conv is its own
         want = {name: passes * n for name, n in per_pass.items()}
         made = []  # the entry point's pipeline, batches and table, for the passes after the counted run
         setup = lambda *a, **k: made.append(real_setup(*a, **k)) or made[-1]
@@ -2479,7 +2642,7 @@ def e2e_phase(fa, wc, lk, card: str, root: str) -> dict:
         log_e2e(what, result, card)
         log(f"  launches {run} (want {want}: per pass {n_batches} text batches x K1 {TEXT_LAYERS}, "
             + (f"{n_batches} mel batches x K5 1, " if mel else
-               f"{n_batches} wav2vec2 batches x (K7 1, K6 1, K1 {W2V_LAYERS}), ")
+               f"{n_batches} wav2vec2 batches x (K7 1, K6 1, K1 {W2V_LAYERS}, K9 1 but under --int8), ")
             + f"{forwards} fusion forwards x K1 {per_forward})")
         if run != want or result["n_utterances"] != n_utt or not 0.0 <= result["accuracy"] <= 1.0:
             raise AssertionError(f"e2e {what}: launches {run}, want {want}; result {result}")
@@ -2725,7 +2888,7 @@ def long_clip_phase(fa, wc, card: str, tmp: str) -> dict:
     # export of the test clips, bf16 (the config's), batches of 2: K7, K6 and 12 attention forwards a batch
     model = audio_erc_from_seed(0, dtype=torch.bfloat16).cuda().eval()
     widths = [b["audio"].shape[1] for b in Wav2Vec2Batcher(data["test"], LONG_BATCH, seconds_buckets=LONG_BUCKETS)]
-    want = {**ZERO, W2V0: len(widths), W2V_TAIL: len(widths)}
+    want = {**ZERO, W2V0: len(widths), W2V_TAIL: len(widths), POS: len(widths)}
     for width in widths:
         want[forward_kernel(width)] += W2V_LAYERS
     torch.cuda.synchronize()
@@ -2752,6 +2915,7 @@ def long_clip_phase(fa, wc, card: str, tmp: str) -> dict:
     with main_path_run() as run:
         table = export_split(model, data["test"], LONG_BATCH, LONG_BUCKETS)  # ends in a device-to-host fetch
     seconds = time.perf_counter() - t0
+    want[POS] = 0  # the stock positional conv in f32
     log(f"long-clip export f32: {len(data['test'])} test clips in batches of {LONG_BATCH} in {seconds * 1e3} ms = "
         f"{len(data['test']) / seconds} clips/s; launches {run} (want {want}: per batch K7 1, K6 1, 12 forwards) "
         f"({card})")
@@ -2772,14 +2936,15 @@ def long_clip_phase(fa, wc, card: str, tmp: str) -> dict:
     solver = FESolver(model, config, backbone_key="wav2vec2", batch_to_inputs=w2v_batch_to_inputs)
     state = solver.init_state(LONG_STEPS)
     batches = list(Wav2Vec2Batcher(data["train"], LONG_BATCH, shuffle=True, seconds_buckets=LONG_BUCKETS))
-    want = {**ZERO, TILED: W2V_LAYERS * len(batches)}
+    want = {**ZERO, TILED: W2V_LAYERS * len(batches), POS: 3 * len(batches)}
     for b in batches:
         want[forward_kernel(b["audio"].shape[1])] += W2V_LAYERS
     torch.cuda.reset_peak_memory_stats()
     with main_path_run() as run:
         state, loss = solver.train_epoch(state, batches, epoch=FE_FROZEN)
     log(f"long-clip fine-tune: {len(batches)} steps of {LONG_BATCH} at widths {[b['audio'].shape[1] for b in batches]}, "
-        f"loss {loss}; launches {run} (want {want}: per step 12 K1 (60 s) or K3 (90 s) and 12 K4; no K2, K7, K6)")
+        f"loss {loss}; launches {run} (want {want}: per step 12 K1 (60 s) or K3 (90 s), 12 K4, 3 K9; no K2, K7, "
+        f"K6)")
     if run != want or len(batches) != LONG_STEPS or not math.isfinite(loss):
         raise AssertionError(f"long-clip fine-tune launches {run}, want {want}; loss {loss}")
     for name, n in run.items():
@@ -3102,17 +3267,19 @@ def pipeline_phase(fa, card: str) -> dict:
             held = parallel_check.weight_check(torch.load(os.path.join(tmp, f"{name}.pt")), weights,
                                                parallel_check.STRAY_SHARE[torch.bfloat16])
             per_rank = PP_LAYERS // 2 * m * steps  # L / pp layers x M microbatches a step
-            want_run = {**ZERO, FWD: per_rank * (2 if remat else 1), TILED: per_rank}
-            want_single = {**ZERO, FWD: PP_LAYERS * m * steps, TILED: PP_LAYERS * m * steps}
+            # wav2vec2's positional conv runs in stage 0's pre-stack, on the whole batch: K9 3 a step on rank 0
+            pos = 3 * steps if kind == "wav2vec2" else 0
+            want_ranks = [{**ZERO, FWD: per_rank * (2 if remat else 1), TILED: per_rank, POS: n} for n in (pos, 0)]
+            want_single = {**ZERO, FWD: PP_LAYERS * m * steps, TILED: PP_LAYERS * m * steps, POS: pos}
             log(f"pipeline {name} (pp 2, {m} microbatches of {batch // m}, remat {remat}, bf16, dropout on; 2 ranks "
                 f"over gloo on one card) against one process, {steps} steps: losses {got} vs {losses}, max diff "
                 f"{loss_diff} (tol {loss_tol}); weights {json.dumps(held)}; launches a rank "
-                f"{[r[name]['launches'] for r in ranks]} (want {want_run}), one process {one_run} (want "
+                f"{[r[name]['launches'] for r in ranks]} (want {want_ranks}), one process {one_run} (want "
                 f"{want_single}); step s rank 0 {ranks[0][name]['seconds']}, one process {one_seconds} (both ranks "
                 f"and this process share the card: no speed) ({card})")
             if not (loss_diff <= loss_tol and held["excess"] <= 0):
                 raise AssertionError(f"pipeline {name} departs from the single-process steps")
-            if one_run != want_single or any(r[name]["launches"] != want_run for r in ranks):
+            if one_run != want_single or [r[name]["launches"] for r in ranks] != want_ranks:
                 raise AssertionError(f"pipeline {name}: launches {[r[name]['launches'] for r in ranks]}, "
                                      f"one process {one_run}")
             for r in ranks:
@@ -3438,6 +3605,8 @@ def main() -> None:
             t0 = wc.conv_out_length(n, wc.L0_TAPS, wc.L0_STRIDE)
             rows.append(check_w2v_case(wc, frontend, W2V_TAIL, (b, t0), dtype, len(rows)))
     check_w2v_limit_fails_shifted(wc, frontend)
+    # 3c. K9, the positional conv, at the fine-tune's shapes
+    rows += pos_conv_phase(card, len(rows))
     for shape in GN_SHAPES:
         for dtype in DTYPES:
             rows.append(check_w2v_case(wc, frontend, GN, shape, dtype, len(rows)))
@@ -3519,8 +3688,9 @@ def main() -> None:
 
     # 7. kernels against their plain versions at every case the paths gave them
     checked = {(r["kernel"], r["shape"], r["dtype"], r["rate"]) for r in rows if "kernel_ms" in r}
-    more = {(kernel, shape, dtype, rate) for kernel, shape, _, rate in PATH_SHAPES if kernel not in (MEL, PROBE)
+    more = {(kernel, shape, dtype, rate) for kernel, shape, _, rate in PATH_SHAPES if kernel not in (MEL, PROBE, POS)
             for dtype in DTYPES}  # K1-K4, K6, K7, K8: both dtypes at every shape (P checks itself, phase 6k)
+    more |= {case for case in PATH_SHAPES if case[0] == POS}  # K9: bf16 alone (f32 takes the stock conv)
     more |= {(MEL, (*shape[:2], layout), "float32", 0.0) for kernel, shape, _, _ in PATH_SHAPES if kernel == MEL
              for layout in MEL_LAYOUTS}
     for i, (kernel, shape, dtype, rate) in enumerate(sorted(more - checked), len(rows)):
@@ -3528,6 +3698,8 @@ def main() -> None:
             rows.append(check_mel_case(lk, shape, i))
         elif kernel in (W2V0, W2V_TAIL, GN):
             rows.append(check_w2v_case(wc, frontend, kernel, shape, dtype, i))
+        elif kernel == POS:
+            rows.append(check_pos_conv_case(shape, i))
         else:
             rows.append(check_case(fa, kernel, shape, dtype, rate, i))
     # the exact read-off needs v = I, so Sk as a head dim; wider shapes are held by value (check_case with dropout)
@@ -3556,7 +3728,8 @@ def main() -> None:
             ("K3 against SDPA", STREAM, "bfloat16", None),
             ("K1 f32 (3xTF32) against SDPA's f32", FWD, "float32", dh64),
             ("K3 f32 (3xTF32) against SDPA's f32", STREAM, "float32", dh64),
-            ("K4 f32 (3xTF32) against SDPA's f32 backward", TILED, "float32", dh64)):
+            ("K4 f32 (3xTF32) against SDPA's f32 backward", TILED, "float32", dh64),
+            ("K9 bf16 (forward, data gradient, weight and bias gradient) against cuDNN", POS, "bfloat16", None)):
         log(f"{what}, per phase-3 shape (launches: the counted paths'; ms a call, graph replay; {card}):")
         # the attention f32 rows: head dim 64 alone (the 3xTF32 design; other head dims run the template)
         for case in sorted(c for c in by_case

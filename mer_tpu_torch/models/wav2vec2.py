@@ -20,9 +20,11 @@ Padded frames are zeroed before the positional conv and masked as attention
 keys.
 
 On a CUDA tensor the conv frontend runs kernels K7 then K6
-(:mod:`mer_tpu_torch.ops.w2v_conv`) in [B, T, C] layout throughout, and the
-attention kernels (K1 and K4 up to 4,096 frames, K3 and K4 above); on a CPU
-tensor their plain versions. K7 and K6
+(:mod:`mer_tpu_torch.ops.w2v_conv`) in [B, T, C] layout throughout, the
+positional conv kernel K9 (:mod:`mer_tpu_torch.ops.pos_conv`: forward, data
+and weight gradients, in bf16; stock ``F.conv1d`` in f32), and the attention
+kernels (K1 and K4 up to 4,096 frames, K3 and K4 above); on a CPU tensor
+their plain versions. K7 and K6
 are forward-only, as the TPU kernels they replace: when the frontend trains
 (grad enabled and one of its parameters requires grad) it takes the stock
 differentiable convolutions instead, as ``mer_tpu``'s training differentiates
@@ -53,6 +55,7 @@ from torch import nn
 from mer_tpu_torch.models.layers import SeededAttention, run_layer
 from mer_tpu_torch.ops import w2v_conv
 from mer_tpu_torch.ops.attention import dot_product_attention
+from mer_tpu_torch.ops.pos_conv import positional_conv
 from mer_tpu_torch.parallel.tensor import tp_linear
 from mer_tpu_torch.utils.remat import resolve_remat_policy
 
@@ -149,7 +152,9 @@ class FeatureProjection(nn.Module):
 class ConvPositionalEmbedding(nn.Module):
     """Grouped conv positional embedding over [B, T, H]: pad k / 2 on both
     sides, drop the last frame for an even k, exact GELU. ``conv.weight`` is
-    the folded kernel [H, H / groups, k]."""
+    the folded kernel [H, H / groups, k]. The conv and its bias run as one op,
+    :func:`~mer_tpu_torch.ops.pos_conv.positional_conv` (kernel K9 on the
+    card), in [B, T, H] layout."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
@@ -159,11 +164,7 @@ class ConvPositionalEmbedding(nn.Module):
 
     def forward(self, hidden: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         conv = self.conv
-        x = F.conv1d(hidden.to(dtype).transpose(1, 2), conv.weight.to(dtype), conv.bias.to(dtype),
-                     padding=conv.padding[0], groups=conv.groups)
-        if conv.kernel_size[0] % 2 == 0:
-            x = x[:, :, :-1]
-        return F.gelu(x).transpose(1, 2)
+        return F.gelu(positional_conv(hidden.to(dtype), conv.weight, conv.bias, conv.groups))
 
 
 class _Attention(SeededAttention):

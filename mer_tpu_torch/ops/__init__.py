@@ -1,6 +1,7 @@
 """Attention op and the port's hand-written kernels (the attention forwards
 K1, K3 and backwards K2, K4 here; the log-mel kernel in ``logmel_kernel``, the
-wav2vec2 conv frontend's in ``w2v_conv``)."""
+wav2vec2 conv frontend's in ``w2v_conv``, its positional conv's K9 in
+``pos_conv``)."""
 
 from mer_tpu_torch.ops.attention import dot_product_attention
 from mer_tpu_torch.ops.flash_attention import (
